@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one card.  It builds
+the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` (nvcc,
+sm_90a) and runs three phases; any failure exits non-zero.
+
+1. Kernels.  The comm_pack pack (B1) and unpack (B2) kernels against their
+   plain PyTorch versions on the card — bit-identical — at the group
+   shapes of the full-width main path and at ragged odd sizes, over wire
+   {f32, bf16} x error feedback {off, on}; then their times (CUDA events,
+   median), bytes, bound, the plain versions' times and one PyTorch call
+   computing the same function where there is one (``torch.cat`` into the
+   wire arena for the stateless pack, ``_foreach_copy_`` over views of
+   the arena for unpack at scale 1; ``split_with_sizes_copy`` too on the
+   groups whose outputs share the wire's dtype).
+2. Reduced model.  Reduced tinyllama in fp32, loss and every gradient on
+   the card against the same model on the CPU (loss rtol 1e-5, gradient
+   max-abs <= 1e-4 x max|g|: other kernels, other summation orders).
+3. Full-width training.  TinyLlama-1.1B, 22 layers, bf16 params,
+   batch 4 x seq 512, ``--fuse arena --policy mg_wfbp --fabric gpu_nccl``
+   on an NCCL world of 1, through ``repro_torch.launch.train.run``:
+   ``post`` and ``dag`` with f32 wire (bitwise equal), ``post`` with
+   ``bf16_ef``, 3 steps each from the same initial weights.  Pack and
+   unpack launches must each equal groups x steps, and ``issue()`` must
+   run once per group per step.
+
+The lines before the last are the card's name and power limit, the build
+time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
+the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+TRAIN_ARGS = [
+    "--arch", "tinyllama-1.1b", "--steps", "3", "--batch", "4", "--seq", "512",
+    "--fuse", "arena", "--policy", "mg_wfbp", "--fabric", "gpu_nccl",
+]
+PACK_SRC = "src/repro_torch/kernels/comm_pack/csrc/comm_pack.cu"
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
+    """Median over ``reps`` of one call of ``fn``, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs_err(got, want) -> float:
+    """0.0 when bit-identical, else the largest |difference| (inf/nan
+    mismatches count as inf)."""
+    import torch
+
+    if torch.equal(got.view(-1).view(torch.uint8), want.view(-1).view(torch.uint8)):
+        return 0.0
+    d = (got.float() - want.float()).abs().nan_to_num(nan=math.inf)
+    return float(d.max())
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: the comm_pack kernels
+# ---------------------------------------------------------------------------
+
+
+def main_path_groups():
+    """Per-group parameter shapes/dtypes of the full-width main path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.core.trainer import MGWFBPEngine
+    from repro_torch.fabric import get_fabric
+    from repro_torch.models import Transformer, param_shapes
+
+    cfg = get_config("tinyllama-1.1b")
+    eng = MGWFBPEngine.build(
+        cfg, param_shapes(cfg),
+        ar_model=get_fabric("gpu_nccl").cost("all_reduce", {"data": 32}),
+        tokens_per_device=4 * 512, policy="mg_wfbp", sync_config=SyncConfig(fuse="arena"),
+    )
+    meta = dict(Transformer(cfg, device="meta", seed=None).named_parameters())
+    return [[(meta[n].shape, meta[n].dtype) for n in names] for names in eng.sync.group_names]
+
+
+def random_parts(specs, device, gen):
+    import torch
+
+    return [
+        torch.randn(shape, generator=gen, device=device, dtype=torch.float32).to(dt)
+        for shape, dt in specs
+    ]
+
+
+def offsets_of(parts):
+    out, off = [], 0
+    for p in parts:
+        out.append(off)
+        off += p.numel()
+    return out, off
+
+
+def check_group(parts, wire, ef, scale, gen, errs) -> None:
+    """One group through both kernels and both plain versions: arena,
+    residuals and unpacked parts must be bit-identical."""
+    import torch
+    from repro_torch.kernels.comm_pack import (
+        pack_arena, pack_arena_ref, unpack_arena, unpack_arena_ref,
+    )
+
+    offs, total = offsets_of(parts)
+    res = None
+    if ef:
+        res = [torch.randn(p.shape, generator=gen, device=p.device) * 1e-2 for p in parts]
+    want, want_res = pack_arena_ref(parts, offs, total, wire, res)
+    got_res = None if res is None else [r.clone() for r in res]
+    got = pack_arena(parts, offs, total, wire, got_res)
+    torch.cuda.synchronize()
+    e = max_abs_err(got, want)
+    if ef:
+        for g, w in zip(got_res, want_res):
+            e = max(e, max_abs_err(g.reshape(-1), w))
+    errs["pack"] = max(errs["pack"], e)
+    if e:
+        fail(f"pack kernel differs from its plain version (wire {wire}, ef {ef}): {e}")
+    outs = [torch.empty_like(p) for p in parts]
+    unpack_arena(got, offs, outs, scale)
+    want_out = unpack_arena_ref(got, list(zip(offs, [p.numel() for p in parts])),
+                                [p.dtype for p in parts], scale)
+    torch.cuda.synchronize()
+    e = max(max_abs_err(o.reshape(-1), w) for o, w in zip(outs, want_out))
+    errs["unpack"] = max(errs["unpack"], e)
+    if e:
+        fail(f"unpack kernel differs from its plain version (wire {wire}): {e}")
+
+
+def ragged_parts(device, gen):
+    """Odd sizes, mixed dtypes, and sources that are not 16-byte aligned
+    (views at an odd storage offset): every scalar head/tail path."""
+    import torch
+
+    # the 65,539-element part starts at an aligned offset and spans 9 tiles
+    # (vector body, scalar tail); the rest sit at odd offsets (scalar path)
+    sizes = [8, 65_539, 1, 7, 4097, 16, 8191, 3, 1001]
+    parts = []
+    for i, n in enumerate(sizes):
+        dt = torch.float32 if i % 2 == 0 else torch.bfloat16
+        base = torch.randn(n + 1, generator=gen, device=device).to(dt)
+        parts.append(base[1:] if i % 4 == 3 else base[:n].clone())
+    return parts
+
+
+def phase_kernels(device):
+    import torch
+    from repro_torch.kernels.comm_pack import (
+        pack_arena, pack_arena_ref, reset_counts, unpack_arena, unpack_arena_ref,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    group_specs = main_path_groups()
+    errs = {"pack": 0.0, "unpack": 0.0}
+    configs = [(torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True),
+               (torch.float32, True)]
+    n_checked = 0
+    for specs in group_specs:
+        parts = random_parts(specs, device, gen)
+        for wire, ef in configs:
+            check_group(parts, wire, ef, 1.0, gen, errs)
+            n_checked += 1
+        del parts
+    ragged = ragged_parts(device, gen)
+    for wire, ef in configs:
+        check_group(ragged, wire, ef, 1.0 / 3.0, gen, errs)
+        n_checked += 1
+    say(f"phase 1: pack/unpack bit-identical to the plain versions on "
+        f"{len(group_specs)} main-path groups and 1 ragged group x 4 configs "
+        f"({n_checked} checks)")
+
+    # --- timing: one step's worth of launches (every group) -------------
+    # Each timed call is the wrapper as the trainer calls it: its host work
+    # (rows and table lookup; the tables are uploaded once, during warm-up)
+    # and one launch per group, between two CUDA events.
+    groups = [random_parts(specs, device, gen) for specs in group_specs]
+    layout = [offsets_of(parts) for parts in groups]
+    sizes = [[p.numel() for p in parts] for parts in groups]
+    timings = {}
+    for wire, ef in configs[:3]:
+        wb = torch.tensor([], dtype=wire).element_size()
+        res = [[torch.zeros(p.shape, device=device) for p in parts] for parts in groups] if ef else None
+        part_bytes = sum(p.numel() * p.element_size() for parts in groups for p in parts)
+        n_elems = sum(total for _, total in layout)
+        pack_bytes = part_bytes + n_elems * wb + (2 * 4 * n_elems if ef else 0)
+        unpack_bytes = n_elems * wb + part_bytes
+
+        def pack_k():
+            return [pack_arena(parts, offs, total, wire, None if res is None else res[i])
+                    for i, (parts, (offs, total)) in enumerate(zip(groups, layout))]
+
+        def pack_p():
+            return [pack_arena_ref(parts, offs, total, wire, None if res is None else res[i])
+                    for i, (parts, (offs, total)) in enumerate(zip(groups, layout))]
+
+        def pack_lib():
+            out = [torch.empty(total, dtype=wire, device=device) for _, total in layout]
+            for parts, arena in zip(groups, out):
+                torch.cat([p.reshape(-1) for p in parts], out=arena)
+            return out
+
+        arenas = pack_k()
+        outs = [[torch.empty_like(p) for p in parts] for parts in groups]
+
+        def unpack_k(which=range(len(groups))):
+            for i in which:
+                unpack_arena(arenas[i], layout[i][0], outs[i], 1.0)
+
+        def unpack_p():
+            for arena, (offs, _), o in zip(arenas, layout, outs):
+                unpack_arena_ref(arena, list(zip(offs, [t.numel() for t in o])),
+                                 [t.dtype for t in o], 1.0)
+
+        # at scale 1 unpack is a cast-copy of each slot: one _foreach_copy_
+        # per group over views of the arena computes it for any dtypes
+        lib_outs = [[torch.empty_like(p) for p in parts] for parts in groups]
+
+        def unpack_lib():
+            for arena, n, o in zip(arenas, sizes, lib_outs):
+                torch._foreach_copy_(o, [v.view(t.shape) for v, t in zip(arena.split(n), o)])
+
+        unpack_k()
+        unpack_lib()
+        torch.cuda.synchronize()
+        lib_err = max(max_abs_err(a, b) for o, lo in zip(outs, lib_outs) for a, b in zip(o, lo))
+        if lib_err:
+            fail(f"_foreach_copy_ differs from the unpack kernel at scale 1 (wire {wire}): {lib_err}")
+
+        # split_with_sizes_copy (FSDP2's unpack) takes only outputs of the
+        # arena's dtype: time it, and the kernel, on the groups it accepts
+        same = [i for i, o in enumerate(outs) if all(t.dtype == wire for t in o)]
+
+        def split_lib():
+            for i in same:
+                torch.split_with_sizes_copy(arenas[i], sizes[i],
+                                            out=[t.view(-1) for t in lib_outs[i]])
+
+        tag = f"{str(wire).removeprefix('torch.')}{'_ef' if ef else ''}"
+        timings[tag] = {
+            "pack": {
+                "ms": median_ms(pack_k), "plain_ms": median_ms(pack_p),
+                "library_ms": None if ef else median_ms(pack_lib),
+                "bytes": pack_bytes, "bound_ms": pack_bytes / HBM_BYTES_PER_S * 1e3,
+            },
+            "unpack": {
+                "ms": median_ms(unpack_k), "plain_ms": median_ms(unpack_p),
+                "library_ms": None if ef else median_ms(unpack_lib),
+                "bytes": unpack_bytes, "bound_ms": unpack_bytes / HBM_BYTES_PER_S * 1e3,
+            },
+        }
+        for k, t in timings[tag].items():
+            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            say(f"phase 1: {k:6s} wire={tag:9s} {len(groups)} launches/step: "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
+                f"{t['bytes'] / 1e9:.3f} GB, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_ms'] / t['ms'] * 100:.1f}% of bound)")
+        if same and not ef:
+            say(f"phase 1: unpack wire={tag:9s} on the {len(same)} of {len(groups)} groups "
+                f"whose outputs are {tag} (split_with_sizes_copy refuses the rest): kernel "
+                f"{median_ms(lambda: unpack_k(same)):.4f} ms, split_with_sizes_copy "
+                f"{median_ms(split_lib):.4f} ms")
+        elif not ef:
+            say(f"phase 1: unpack wire={tag:9s}: split_with_sizes_copy accepts none of the "
+                f"{len(groups)} groups (each holds an output of another dtype)")
+        del arenas, outs, lib_outs, res
+    del groups
+    torch.cuda.empty_cache()
+    reset_counts()
+    return errs, timings
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: the reduced model on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def phase_reduced_model(device) -> None:
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.trainer import batch_to_device
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.models import Transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_reduced("tinyllama-1.1b", param_dtype=torch.float32)
+    batch = make_stream(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2)).batch_at(0)
+    results = []
+    cpu_model = Transformer(cfg, device="cpu", seed=0)
+    for dev in (torch.device("cpu"), device):
+        model = cpu_model if dev.type == "cpu" else Transformer(cfg, device=dev, seed=None)
+        if dev.type != "cpu":
+            model.load_state_dict(cpu_model.state_dict())
+        loss = model.loss(batch_to_device(batch, dev))
+        loss.backward()
+        results.append((float(loss.detach()),
+                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = results
+    if not math.isfinite(l_gpu) or abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu):
+        fail(f"reduced loss on the card {l_gpu} vs CPU {l_cpu}")
+    worst = 0.0
+    for n, g in g_cpu.items():
+        if g_gpu[n].shape != g.shape or not torch.isfinite(g_gpu[n]).all():
+            fail(f"gradient {n} has the wrong shape or is not finite")
+        rel = float((g_gpu[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if rel > 1e-4:
+            fail(f"gradient {n}: max-abs error {rel:.3e} x max|g|")
+    say(f"phase 2: reduced fp32 loss {l_gpu:.6f} (CPU {l_cpu:.6f}), worst gradient "
+        f"error {worst:.3e} x max|g| over {len(g_cpu)} leaves")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: full-width training through the launcher
+# ---------------------------------------------------------------------------
+
+
+def phase_full_width(device):
+    import torch
+    from repro_torch.fabric.ops import issue
+    from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
+    from repro_torch.launch.train import run
+
+    runs = [("post_f32", ["--issue-order", "post"]),
+            ("dag_f32", ["--issue-order", "dag"]),
+            ("post_bf16_ef", ["--issue-order", "post", "--compression", "bf16_ef"])]
+    # every launch counter to 0 just before the main path, read just after
+    reset_counts()
+    issue.calls = 0
+    post_params, post_losses, groups, steps = None, None, None, 0
+    for name, extra in runs:
+        res = run(TRAIN_ARGS + extra, quiet=True)
+        n_groups = res.engine.sync.n_groups
+        groups = n_groups if groups is None else groups
+        if n_groups != groups:
+            fail(f"{name}: {n_groups} groups, expected {groups}")
+        steps += len(res.losses)
+        if not all(math.isfinite(x) for x in res.losses):
+            fail(f"{name}: non-finite loss {res.losses}")
+        step_s = statistics.median(res.step_seconds[1:])
+        peak_gib = (res.peak_memory_bytes or 0) / 2**30
+        say(f"phase 3: {name}: losses {[round(x, 4) for x in res.losses]}, step "
+            f"{step_s * 1e3:.1f} ms (median of steps 2-3), {res.tokens_per_step / step_s:,.0f} "
+            f"tokens/s, peak memory {peak_gib:.2f} GiB, {n_groups} groups")
+        # kept on the host, so the next run's peak memory is its own
+        params = {n: p.detach().cpu() for n, p in res.model.named_parameters()}
+        if name == "post_f32":
+            post_params, post_losses = params, res.losses
+        elif name == "dag_f32":
+            if res.losses != post_losses:
+                fail(f"dag losses {res.losses} != post losses {post_losses}")
+            for n, p in params.items():
+                if not torch.equal(p, post_params[n]):
+                    fail(f"dag parameter {n} differs from post")
+            post_params = None
+            say("phase 3: dag parameters and losses bitwise equal to post")
+        del res, params
+        torch.cuda.empty_cache()
+    counts = {
+        "pack_launches": pack_arena.launches,
+        "unpack_launches": unpack_arena.launches,
+        "pack_plain_calls": pack_arena.ref_calls,
+        "unpack_plain_calls": unpack_arena.ref_calls,
+        "issue_calls": issue.calls,
+        "expected": groups * steps,
+    }
+    if not (counts["pack_launches"] == counts["unpack_launches"] == counts["issue_calls"]
+            == groups * steps) or counts["pack_plain_calls"] or counts["unpack_plain_calls"]:
+        fail(f"launch counts {counts}: expected {groups} groups x {steps} steps")
+    say(f"phase 3: pack {counts['pack_launches']}, unpack {counts['unpack_launches']}, "
+        f"issue() {counts['issue_calls']} = {groups} groups x {steps} steps")
+    return counts
+
+
+def main() -> None:
+    if not (SRC / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {__file__}: run from a checkout of the repository")
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.comm_pack import build
+
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
+        else "nvidia-smi unavailable"
+    print(card, flush=True)
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    lib, log = build()
+    build_s = time.perf_counter() - t0
+    say(f"build: {lib.name} in {build_s:.1f} s" + ("" if log else " (already built)"))
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"ptxas: {line.strip()}")
+
+    errs, timings = phase_kernels(device)
+    phase_reduced_model(device)
+    counts = phase_full_width(device)
+
+    main_cfg = timings["float32"]  # the main path's wire
+    kernels = []
+    for name, src_line in (("pack", 49), ("unpack", 194)):
+        t = main_cfg[name]
+        kernels.append({
+            "name": f"comm_pack.{name}",
+            "route": "cuda",
+            "source": PACK_SRC,
+            "replaces": f"src/repro/kernels/comm_pack/kernel.py:{src_line}",
+            "launches": counts[f"{name}_launches"],
+            "max_abs_err": errs[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": t["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

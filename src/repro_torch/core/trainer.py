@@ -1,0 +1,263 @@
+"""The MG-WFBP training engine (counterpart of ``repro/core/trainer.py``):
+plan a merge schedule, then train with one all-reduce per schedule group.
+
+Pipeline (paper Algorithm 2):
+
+  1. cost     — per-unit gradient sizes and backward times (analytic,
+                Eq. 18) from ``lm_unit_costs``;
+  2. plan     — a ``planning.registry`` policy turns the cost vector into
+                a frozen, JSON-serializable ``Plan``;
+  3. execute  — ``make_train_step`` runs forward/backward and reduces the
+                gradients with one all-reduce per group through
+                ``core.sync``.
+
+Two issue orders:
+
+  * ``'post'`` — every group is reduced after ``loss.backward()``;
+  * ``'dag'``  — the WFBP order: a ``register_post_accumulate_grad_hook``
+    on each parameter counts its group down, and when a group's last
+    gradient lands its pack and an asynchronous all-reduce go out at once,
+    inside backward.  After backward the step waits on the handles in
+    issue order, unpacks, and runs the optimizer.  The arithmetic is the
+    same as ``'post'``, so the two give bitwise-equal parameters.
+
+The error-feedback residual (``compression='bf16_ef'``) is per-rank state
+with no leading DP axis; the step keeps it and updates it in place, as it
+updates ``param.grad`` (the reduced gradient is unpacked into it) and the
+parameters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..models.common import ArchConfig
+from ..models.transformer import Transformer
+from ..optim.optimizers import Optimizer
+from ..planning import AnalyticCosts, build_plan, resolve_policy_name
+from ..planning.plan import Plan
+from .bucketing import stacked_lm_layout, tree_size
+from .comm_model import AllReduceModel
+from .cost_model import Hardware, LayerCost, TPU_V5E
+from .schedule import Schedule
+from .sync import GradientSync, PendingGroup, SyncConfig, make_gradient_sync
+
+
+def lm_unit_costs(
+    cfg: ArchConfig,
+    param_shapes: Any,
+    tokens_per_device: int,
+    hw: Hardware = TPU_V5E,
+    comm_dtype_bytes: int = 4,
+    model_shards: int = 1,
+) -> list[LayerCost]:
+    """Per-unit LayerCost for the stacked LM layout (paper Eq. 17/18).
+
+    Units in paper order (gradient of unit 1 lands last):
+    [embed, stage_1..stage_n, (tail), head+final_norm]."""
+    embed_p = tree_size(param_shapes["embed"])
+    stage_p = tree_size(param_shapes["stages"]) // cfg.n_stages
+    norm_p = tree_size(param_shapes["final_norm"])
+    head_p = norm_p + (0 if cfg.tie_embeddings else tree_size(param_shapes["head"]))
+    tail_p = tree_size(param_shapes["tail"]) if "tail" in param_shapes else 0
+
+    def cost(name, p, bwd, fwd):
+        return LayerCost(
+            name=name, params=p,
+            grad_bytes=max(1, p * comm_dtype_bytes // model_shards),
+            bwd_flops=bwd, fwd_flops=fwd,
+        )
+
+    t = tokens_per_device
+    units = [cost("embed", embed_p, 2.0 * t * cfg.d_model, 2.0 * t * cfg.d_model)]
+    for i in range(cfg.n_stages):  # dense: every stage parameter runs for every token
+        units.append(cost(f"stage_{i}", stage_p, 4.0 * stage_p * t, 2.0 * stage_p * t))
+    if tail_p:
+        units.append(cost("tail", tail_p, 4.0 * tail_p * t, 2.0 * tail_p * t))
+    head_flops_p = norm_p + cfg.d_model * cfg.vocab
+    units.append(cost("head", head_p, 4.0 * head_flops_p * t, 2.0 * head_flops_p * t))
+    return units
+
+
+@dataclasses.dataclass
+class MGWFBPEngine:
+    """Plan + sync bundle for one (arch, process group) pair."""
+
+    cfg: ArchConfig
+    plan: Plan
+    sync: GradientSync
+    sync_config: SyncConfig = SyncConfig()
+    group: dist.ProcessGroup | None = None
+
+    @property
+    def schedule(self) -> Schedule:
+        return self.plan.schedule
+
+    @property
+    def stateful(self) -> bool:
+        """True when the sync carries error-feedback state."""
+        return self.sync_config.compression == "bf16_ef"
+
+    def init_residual(self, model: torch.nn.Module) -> dict[str, torch.Tensor] | None:
+        """Zero f32 error-feedback residual, one per parameter, or None for
+        stateless compression.  Per-rank state: no leading DP axis."""
+        if not self.stateful:
+            return None
+        return {
+            n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for n, p in model.named_parameters()
+        }
+
+    @classmethod
+    def build(
+        cls,
+        cfg: ArchConfig,
+        param_shapes: Any,
+        *,
+        ar_model: AllReduceModel | None = None,
+        tokens_per_device: int | None = None,
+        policy: str | None = None,
+        sync_config: SyncConfig = SyncConfig(),
+        plan: Plan | None = None,
+        group: dist.ProcessGroup | None = None,
+    ) -> "MGWFBPEngine":
+        """Build from an existing ``plan``, or plan from the analytic unit
+        costs (against the reference's default ``TPU_V5E`` hardware model,
+        so both packages pick the same schedule) and ``policy``."""
+        if plan is not None and policy is not None:
+            if resolve_policy_name(policy) != plan.policy:
+                raise ValueError(
+                    f"plan was built with policy {plan.policy!r}; drop the "
+                    f"policy argument to reuse it, or re-plan with {policy!r}"
+                )
+        if plan is None:
+            if ar_model is None:
+                raise ValueError("either a plan or an ar_model is required")
+            if tokens_per_device is None:
+                raise ValueError("tokens_per_device is required for analytic costs")
+            comm_bytes = sync_config.comm_dtype.itemsize if sync_config.compression is None else 2
+            layout = stacked_lm_layout(param_shapes, cfg.n_stages, comm_dtype_bytes=comm_bytes)
+            cost_source = AnalyticCosts(
+                costs=tuple(
+                    lm_unit_costs(cfg, param_shapes, tokens_per_device, comm_dtype_bytes=comm_bytes)
+                ),
+            )
+            plan = build_plan(
+                layout, cost_source.layer_costs(), ar_model,
+                policy=policy or "mg_wfbp", hw=cost_source.hw,
+                n_scan_stages=cfg.n_stages, cost_source=cost_source.name,
+                provenance={"arch": cfg.name},
+            )
+        if plan.n_scan_stages not in (None, cfg.n_stages):
+            raise ValueError(
+                f"plan was built for {plan.n_scan_stages} stages, arch {cfg.name} has {cfg.n_stages}"
+            )
+        sync = make_gradient_sync(plan.layout, plan.schedule, sync_config, group)
+        return cls(cfg=cfg, plan=plan, sync=sync, sync_config=sync_config, group=group)
+
+    def with_plan(self, plan: Plan) -> "MGWFBPEngine":
+        """Same engine, different plan (rebuilds the sync)."""
+        return MGWFBPEngine.build(
+            self.cfg, None, sync_config=self.sync_config, plan=plan, group=self.group
+        )
+
+    def make_train_step(
+        self,
+        model: Transformer,
+        optimizer: Optimizer,
+        *,
+        lr: float = 3e-4,
+        issue: str = "post",
+        residual: dict[str, torch.Tensor] | None = None,
+    ) -> "TrainStep":
+        """``step(batch) -> {'loss': tensor}``, training ``model`` in place.
+
+        ``residual`` seeds the error-feedback state (zeros when None)."""
+        if issue not in ("post", "dag"):
+            raise ValueError(f"unknown issue order {issue!r}; known: ('post', 'dag')")
+        if self.stateful and residual is None:
+            residual = self.init_residual(model)
+        return TrainStep(self, model, optimizer, lr, issue, residual)
+
+
+class TrainStep:
+    """One data-parallel MG-WFBP step over a model (see the module
+    docstring).  Holds the optimizer state and, under ``bf16_ef``, the
+    residual; ``close()`` removes the gradient hooks of the ``dag``
+    order."""
+
+    def __init__(self, engine: MGWFBPEngine, model: Transformer, optimizer: Optimizer,
+                 lr: float, issue: str, residual: dict[str, torch.Tensor] | None):
+        self.engine, self.model, self.optimizer = engine, model, optimizer
+        self.lr, self.issue, self.residual = lr, issue, residual
+        self.params = dict(model.named_parameters())
+        sync = engine.sync
+        names = [n for g in sync.group_names for n in g]
+        if sorted(names) != sorted(self.params):
+            raise ValueError("the plan's wire entries do not cover the model's parameters")
+        self.opt_state = optimizer.init(self.params)
+        self._hooks = []
+        self._pending: list[PendingGroup] = []
+        self._remaining: list[int] = []
+        if issue == "dag":
+            for gi, group_names in enumerate(sync.group_names):
+                for n in group_names:
+                    self._hooks.append(
+                        self.params[n].register_post_accumulate_grad_hook(
+                            lambda _p, gi=gi: self._grad_landed(gi)
+                        )
+                    )
+
+    def _grad_landed(self, gi: int) -> None:
+        """DAG hook: count group ``gi`` down; at zero, pack it and issue
+        its all-reduce asynchronously."""
+        self._remaining[gi] -= 1
+        if self._remaining[gi] == 0:
+            sync = self.engine.sync
+            grads = {n: self.params[n].grad for n in sync.group_names[gi]}
+            self._pending.append(sync.start_group(gi, grads, self.residual, async_op=True))
+
+    def __call__(self, batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        sync = self.engine.sync
+        for p in self.params.values():
+            p.grad = None
+        self._pending = []
+        self._remaining = [len(g) for g in sync.group_names]
+        loss = self.model.loss(batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in self.params.items()}
+        if self.issue == "post":
+            for gi in range(sync.n_groups):
+                sync.sync_group(gi, grads, self.residual)
+        else:
+            if len(self._pending) != sync.n_groups:
+                raise RuntimeError(
+                    f"{len(self._pending)} of {sync.n_groups} groups were issued in backward"
+                )
+            for pending in self._pending:  # issue order
+                sync.finish_group(pending)
+            self._pending = []
+        self.optimizer.update(grads, self.opt_state, self.params, self.lr)
+        loss = loss.detach()
+        world = sync.world()
+        if world > 1:
+            # the reported loss is the mean over ranks; it is not a gradient,
+            # so it does not go through the counted issue() seam
+            dist.all_reduce(loss, group=self.engine.group)
+            loss = loss / world
+        return {"loss": loss}
+
+    def close(self) -> None:
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []
+
+
+def batch_to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
+    """numpy batch -> int64 tensors on ``device``."""
+    return {k: torch.as_tensor(v, dtype=torch.int64).to(device) for k, v in batch.items()}

@@ -1,0 +1,62 @@
+"""Shared model configuration (counterpart of ``repro/models/common.py``),
+with torch dtypes.
+
+Only the options the port implements are fields; the JAX package's other
+options (windows, softcaps, M-RoPE, post-norms, ...) come back with the
+architectures that need them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Attention:
+    """Attention block options (causal, RoPE)."""
+
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """One architecture (or a reduced smoke variant).
+
+    The port runs the dense ``('attn',)`` pattern with rmsnorm, swiglu and
+    untied embeddings; ``models.transformer`` raises on any other value
+    rather than computing something else."""
+
+    name: str
+    family: str  # audio|dense|moe|ssm|hybrid|vlm
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab: int
+    attention: Attention | None
+    # repeating block pattern of one stage; n_layers = len(pattern) *
+    # n_stages + len(tail_pattern)
+    pattern: tuple[str, ...] = ("attn",)
+    tail_pattern: tuple[str, ...] = ()
+    norm: str = "rmsnorm"
+    mlp: str = "swiglu"
+    tie_embeddings: bool = False
+    param_dtype: Any = torch.bfloat16
+    # implementation knobs (not architecture):
+    q_chunk: int = 256  # query chunk of the plain attention path
+    remat: str = "full"  # 'full' (torch.utils.checkpoint per layer) | 'none'
+
+    @property
+    def n_stages(self) -> int:
+        body = self.n_layers - len(self.tail_pattern)
+        if body % len(self.pattern):
+            raise ValueError(
+                f"{self.name}: {self.n_layers} layers do not tile by pattern "
+                f"{self.pattern} + tail {self.tail_pattern}"
+            )
+        return body // len(self.pattern)

@@ -1,0 +1,21 @@
+"""Optimizers over dicts of named tensors."""
+
+from .optimizers import (
+    OptState,
+    Optimizer,
+    adamw_init,
+    adamw_update,
+    make_optimizer,
+    sgd_init,
+    sgd_update,
+)
+
+__all__ = [
+    "OptState",
+    "Optimizer",
+    "adamw_init",
+    "adamw_update",
+    "make_optimizer",
+    "sgd_init",
+    "sgd_update",
+]
