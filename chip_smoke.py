@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one card.  It builds
-the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` (nvcc,
-sm_90a) and runs three phases; any failure exits non-zero.
+the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` (one
+nvcc per source, sm_90a, all started together) and runs four phases; any
+failure exits non-zero.
 
 1. Kernels.  The comm_pack pack (B1) and unpack (B2) kernels against their
    plain PyTorch versions on the card — bit-identical — at the group
@@ -16,16 +17,31 @@ sm_90a) and runs three phases; any failure exits non-zero.
    wire arena for the stateless pack, ``_foreach_copy_`` over views of
    the arena for unpack at scale 1; ``split_with_sizes_copy`` too on the
    groups whose outputs share the wire's dtype).
-2. Reduced model.  Reduced tinyllama in fp32, loss and every gradient on
-   the card against the same model on the CPU (loss rtol 1e-5, gradient
-   max-abs <= 1e-4 x max|g|: other kernels, other summation orders).
+1b. Flash attention.  The forward (B3), dQ (B4) and dK/dV (B5) kernels
+   against their plain versions on the same CUDA tensors: at the main
+   path's shape (B 4, S 512, 32 query / 4 KV heads, hd 64) in bf16 and
+   f32, at every shape of the JAX package's flash tests (window, softcap,
+   non-causal, G 1-8, hd 128/256), and with rows that see no key (checked
+   against ``attention_ref``, exactly 0).  Tolerances: o 2e-5 (f32) / 2e-2
+   (bf16), lse 1e-5, f32 gradients 2e-4, bf16 gradients 1e-2 x max|g|.  A
+   second run must give the same bits.  Then each kernel's time per launch
+   at the main path's shape (bf16), its plain version's, and
+   ``F.scaled_dot_product_attention``'s forward and backward as yardsticks.
+2. Reduced model.  Reduced tinyllama in fp32 with the flash kernels, loss
+   and every gradient on the card against the same model on the CPU (the
+   kernels' plain versions; loss rtol 1e-5, gradient max-abs <= 1e-4 x
+   max|g|: other kernels, other summation orders).
 3. Full-width training.  TinyLlama-1.1B, 22 layers, bf16 params,
    batch 4 x seq 512, ``--fuse arena --policy mg_wfbp --fabric gpu_nccl``
    on an NCCL world of 1, through ``repro_torch.launch.train.run``:
    ``post`` and ``dag`` with f32 wire (bitwise equal), ``post`` with
-   ``bf16_ef``, 3 steps each from the same initial weights.  Pack and
-   unpack launches must each equal groups x steps, and ``issue()`` must
-   run once per group per step.
+   ``bf16_ef``, all with the flash kernels, then ``post --attn-impl
+   plain``; 3 steps each from the same initial weights.  Pack and unpack
+   launches must each equal groups x steps, and ``issue()`` must run once
+   per group per step; over the flash runs the forward kernel must launch
+   2 x 22 times per step (activation checkpointing runs each layer's
+   forward twice) and dQ and dK/dV 22 times each, with no plain call; the
+   first-step losses of flash and plain must agree to 1e-2.
 
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
@@ -45,11 +61,33 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 CUDA cores
 TRAIN_ARGS = [
     "--arch", "tinyllama-1.1b", "--steps", "3", "--batch", "4", "--seq", "512",
     "--fuse", "arena", "--policy", "mg_wfbp", "--fabric", "gpu_nccl",
 ]
 PACK_SRC = "src/repro_torch/kernels/comm_pack/csrc/comm_pack.cu"
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+MAIN_ATTN = (4, 512, 32, 4, 64)  # B, S, Hq, Hkv, hd of one full-width layer
+N_LAYERS = 22
+#: The JAX package's flash-attention test shapes (tests/test_kernels.py):
+#: B, S, Hq, Hkv, hd, causal, window, softcap.
+JAX_FWD_SHAPES = [
+    (2, 256, 4, 2, 64, True, None, None),
+    (1, 512, 8, 8, 128, True, None, None),
+    (2, 256, 4, 1, 64, True, 128, None),
+    (1, 256, 2, 2, 64, True, None, 50.0),
+    (1, 256, 4, 2, 64, False, None, None),
+    (1, 384, 6, 2, 128, True, 256, 30.0),
+    (1, 128, 4, 4, 256, True, None, None),
+]
+JAX_BWD_SHAPES = [
+    (1, 256, 4, 2, 64, True, None, None),
+    (1, 256, 4, 4, 64, False, None, None),
+    (1, 256, 2, 1, 64, True, 128, None),
+    (1, 256, 2, 2, 64, True, None, 50.0),
+    (1, 384, 6, 2, 128, True, 256, 30.0),
+]
 
 
 def fail(msg: str) -> None:
@@ -307,6 +345,172 @@ def phase_kernels(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 1b: the flash-attention kernels
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(B, Sq, Sk, Hq, Hkv, hd, dtype, device, seed):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(*shape, generator=gen, device=device).to(dtype)
+    return mk(B, Sq, Hq, hd), mk(B, Sk, Hkv, hd), mk(B, Sk, Hkv, hd), mk(B, Sq, Hq, hd)
+
+
+def check_flash_case(shape, dtype, device, seed, errs, sq=None) -> dict:
+    """One shape through the three kernels and their plain versions on the
+    same CUDA tensors; dQ and dK/dV take the plain forward's lse and delta.
+    Returns each kernel's max |difference| (and fails past the tolerance)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, Hq, Hkv, hd, causal, window, softcap = shape
+    q, k, v, do = flash_inputs(B, sq or S, S, Hq, Hkv, hd, dtype, device, seed)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
+    delta = fa.attention_delta(want_o, do)
+    dq = fa.flash_attention_dq(q, k, v, do, want_lse, delta, **opts)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, want_lse, delta, **opts)
+    want_dq = fa.flash_attention_dq_ref(q, k, v, do, want_lse, delta, **opts)
+    want_dk, want_dv = fa.flash_attention_dkv_ref(q, k, v, do, want_lse, delta, **opts)
+    torch.cuda.synchronize()
+    tag = f"{shape} {str(dtype).removeprefix('torch.')}" + (f" Sq {sq}" if sq else "")
+    bf16 = dtype == torch.bfloat16
+    out = {}
+
+    def close(name, got, want, tol, rel_to_max=False):
+        d = (got.float() - want.float()).abs()
+        if rel_to_max:
+            ok = float(d.max()) <= tol * float(want.float().abs().max())
+        else:
+            ok = bool((d <= tol + tol * want.float().abs()).all())
+        if not ok or not torch.isfinite(got.float()).all():
+            fail(f"flash {name} differs from its plain version at {tag}: max |diff| "
+                 f"{float(d.max()):.3e} (tolerance {tol}{' x max|g|' if rel_to_max else ''})")
+        return float(d.max())
+
+    out["fwd"] = max(close("o", o, want_o, 2e-2 if bf16 else 2e-5),
+                     close("lse", lse, want_lse, 1e-5))
+    out["dq"] = close("dq", dq, want_dq, 1e-2 if bf16 else 2e-4, rel_to_max=bf16)
+    out["dkv"] = max(close("dk", dk, want_dk, 1e-2 if bf16 else 2e-4, rel_to_max=bf16),
+                     close("dv", dv, want_dv, 1e-2 if bf16 else 2e-4, rel_to_max=bf16))
+    for name, e in out.items():
+        errs[name] = max(errs[name], e)
+    return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv, "inputs": (q, k, v, do),
+            "want_lse": want_lse, "delta": delta}
+
+
+def flash_work(B, S, Hq, Hkv, hd, itemsize):
+    """Bytes each kernel must move (each input read once, each output
+    written once) and the operations of its products (2 per multiply-add)
+    over the (query, key) pairs that the causal mask leaves."""
+    pairs = B * Hq * S * (S + 1) // 2
+    qb, kvb, rows = B * S * Hq * hd * itemsize, B * S * Hkv * hd * itemsize, B * S * Hq * 4
+    return {
+        "fwd": (2 * qb + 2 * kvb + rows, 2 * 2 * hd * pairs),  # q, k, v -> o, lse
+        "dq": (3 * qb + 2 * kvb + 2 * rows, 3 * 2 * hd * pairs),  # q, k, v, dO, lse, delta -> dq
+        "dkv": (2 * qb + 4 * kvb + 2 * rows, 4 * 2 * hd * pairs),  # ... -> dk, dv
+    }
+
+
+def phase_flash(device):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    main = (*MAIN_ATTN, True, None, None)
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        res = check_flash_case(main, dtype, device, 0, errs)
+        n += 1
+        if dtype == torch.bfloat16:
+            main_errs = dict(errs)
+            # the same inputs again: every output must repeat bit for bit
+            q, k, v, do = res["inputs"]
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, return_lse=True)
+            dq2 = fa.flash_attention_dq(q, k, v, do, res["want_lse"], res["delta"])
+            dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, res["want_lse"], res["delta"])
+            for name, a, b in (("o", o2, res["o"]), ("lse", lse2, res["lse"]), ("dq", dq2, res["dq"]),
+                               ("dk", dk2, res["dk"]), ("dv", dv2, res["dv"])):
+                if not torch.equal(a, b):
+                    fail(f"flash {name}: a second run on the same inputs gave other bits")
+        del res
+    for i, shape in enumerate(JAX_FWD_SHAPES + JAX_BWD_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_flash_case(shape, dtype, device, 10 + i, errs)
+            n += 1
+    # rows 191.. of q see no key (k shorter than q, window 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        res = check_flash_case((1, 128, 4, 2, 64, True, 64, None), dtype, device, 99, errs, sq=256)
+        n += 1
+        q, k, v, _ = res["inputs"]
+        want = fa.attention_ref(q, k, v, window=64)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        if not torch.allclose(res["o"].float(), want.float(), rtol=tol, atol=tol):
+            fail("flash forward differs from attention_ref where rows see no key")
+        if not torch.equal(res["o"][:, 191:], torch.zeros_like(res["o"][:, 191:])):
+            fail("flash forward: rows that see no key are not 0")
+        del res
+    say(f"phase 1b: flash fwd/dQ/dK-dV within tolerance of the plain versions on {n} cases "
+        f"(main path bf16 max |diff|: fwd {main_errs['fwd']:.3e}, dq {main_errs['dq']:.3e}, "
+        f"dkv {main_errs['dkv']:.3e}; over all cases: fwd {errs['fwd']:.3e}, dq {errs['dq']:.3e}, "
+        f"dkv {errs['dkv']:.3e}); rows that see no key are 0; repeated runs bitwise equal")
+
+    # --- timing at the main path's shape, bf16: one launch each ----------
+    B, S, Hq, Hkv, hd = MAIN_ATTN
+    dt = torch.bfloat16
+    q, k, v, do = flash_inputs(B, S, S, Hq, Hkv, hd, dt, device, 1)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    delta = fa.attention_delta(o, do)
+    calls = {
+        "fwd": (lambda: fa.flash_attention_fwd(q, k, v, return_lse=True),
+                lambda: fa.flash_attention_fwd_ref(q, k, v)),
+        "dq": (lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
+               lambda: fa.flash_attention_dq_ref(q, k, v, do, lse, delta)),
+        "dkv": (lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
+                lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta)),
+    }
+    # the library yardstick, on (B, H, S, hd) views: SDPA forward, and its
+    # backward as one figure for dQ + dK/dV
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    out = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    lib = {"fwd": median_ms(sdpa), "bwd": median_ms(sdpa_bwd)}
+    timings = {}
+    work = flash_work(B, S, Hq, Hkv, hd, 2)
+    for name, (kern, plain) in calls.items():
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        timings[name] = {
+            "ms": median_ms(kern), "plain_ms": median_ms(plain),
+            "library_ms": lib["fwd"] if name == "fwd" else lib["bwd"],
+            "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        t = timings[name]
+        say(f"phase 1b: flash {name:3s} {MAIN_ATTN} bf16, one launch: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, {'SDPA fwd' if name == 'fwd' else 'SDPA bwd (dQ+dK+dV)'} "
+            f"{t['library_ms']:.4f} ms, {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+            f"({t['bound_ms'] / t['ms'] * 100:.2f}% of bound)")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    fa.reset_counts()
+    return main_errs, timings
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: the reduced model on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -316,14 +520,16 @@ def phase_reduced_model(device) -> None:
     from repro_torch.configs import get_reduced
     from repro_torch.core.trainer import batch_to_device
     from repro_torch.data import DataConfig, make_stream
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_reduced("tinyllama-1.1b", param_dtype=torch.float32)
+    cfg = get_reduced("tinyllama-1.1b", param_dtype=torch.float32, attn_impl="flash")
     batch = make_stream(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2)).batch_at(0)
     results = []
     cpu_model = Transformer(cfg, device="cpu", seed=0)
+    fa.reset_counts()
     for dev in (torch.device("cpu"), device):
         model = cpu_model if dev.type == "cpu" else Transformer(cfg, device=dev, seed=None)
         if dev.type != "cpu":
@@ -333,6 +539,13 @@ def phase_reduced_model(device) -> None:
         results.append((float(loss.detach()),
                         {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results
+    # each side once per layer: the card through the kernels, the CPU through the plain versions
+    for fn, n in ((fa.flash_attention_fwd, 2 * cfg.n_layers), (fa.flash_attention_dq, cfg.n_layers),
+                  (fa.flash_attention_dkv, cfg.n_layers)):
+        if (fn.launches, fn.ref_calls) != (n, n):
+            fail(f"phase 2: {fn.__name__} launched {fn.launches} and took the plain version "
+                 f"{fn.ref_calls} times, expected {n} each")
+    fa.reset_counts()
     if not math.isfinite(l_gpu) or abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu):
         fail(f"reduced loss on the card {l_gpu} vs CPU {l_cpu}")
     worst = 0.0
@@ -343,8 +556,8 @@ def phase_reduced_model(device) -> None:
         worst = max(worst, rel)
         if rel > 1e-4:
             fail(f"gradient {n}: max-abs error {rel:.3e} x max|g|")
-    say(f"phase 2: reduced fp32 loss {l_gpu:.6f} (CPU {l_cpu:.6f}), worst gradient "
-        f"error {worst:.3e} x max|g| over {len(g_cpu)} leaves")
+    say(f"phase 2: reduced fp32 with the flash kernels: loss {l_gpu:.6f} (CPU {l_cpu:.6f}), "
+        f"worst gradient error {worst:.3e} x max|g| over {len(g_cpu)} leaves")
 
 
 # ---------------------------------------------------------------------------
@@ -355,16 +568,20 @@ def phase_reduced_model(device) -> None:
 def phase_full_width(device):
     import torch
     from repro_torch.fabric.ops import issue
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
     from repro_torch.launch.train import run
 
     runs = [("post_f32", ["--issue-order", "post"]),
             ("dag_f32", ["--issue-order", "dag"]),
-            ("post_bf16_ef", ["--issue-order", "post", "--compression", "bf16_ef"])]
+            ("post_bf16_ef", ["--issue-order", "post", "--compression", "bf16_ef"]),
+            ("post_f32_plain_attn", ["--issue-order", "post", "--attn-impl", "plain"])]
     # every launch counter to 0 just before the main path, read just after
     reset_counts()
+    fa.reset_counts()
     issue.calls = 0
-    post_params, post_losses, groups, steps = None, None, None, 0
+    post_params, post_losses, groups, steps, flash_steps = None, None, None, 0, 0
+    step_ms = {}
     for name, extra in runs:
         res = run(TRAIN_ARGS + extra, quiet=True)
         n_groups = res.engine.sync.n_groups
@@ -372,9 +589,12 @@ def phase_full_width(device):
         if n_groups != groups:
             fail(f"{name}: {n_groups} groups, expected {groups}")
         steps += len(res.losses)
+        if "plain" not in name:
+            flash_steps += len(res.losses)
         if not all(math.isfinite(x) for x in res.losses):
             fail(f"{name}: non-finite loss {res.losses}")
         step_s = statistics.median(res.step_seconds[1:])
+        step_ms[name] = step_s * 1e3
         peak_gib = (res.peak_memory_bytes or 0) / 2**30
         say(f"phase 3: {name}: losses {[round(x, 4) for x in res.losses]}, step "
             f"{step_s * 1e3:.1f} ms (median of steps 2-3), {res.tokens_per_step / step_s:,.0f} "
@@ -391,6 +611,14 @@ def phase_full_width(device):
                     fail(f"dag parameter {n} differs from post")
             post_params = None
             say("phase 3: dag parameters and losses bitwise equal to post")
+        elif name == "post_f32_plain_attn":
+            gap = abs(res.losses[0] - post_losses[0])
+            if gap > 1e-2:
+                fail(f"first-step loss with the flash kernels {post_losses[0]} vs plain "
+                     f"attention {res.losses[0]}: differ by {gap} > 1e-2")
+            say(f"phase 3: post step with the flash kernels {step_ms['post_f32']:.1f} ms, with "
+                f"plain attention {step_ms[name]:.1f} ms; first-step losses {post_losses[0]:.6f} "
+                f"vs {res.losses[0]:.6f} (|diff| {gap:.3e} <= 1e-2)")
         del res, params
         torch.cuda.empty_cache()
     counts = {
@@ -406,7 +634,28 @@ def phase_full_width(device):
         fail(f"launch counts {counts}: expected {groups} groups x {steps} steps")
     say(f"phase 3: pack {counts['pack_launches']}, unpack {counts['unpack_launches']}, "
         f"issue() {counts['issue_calls']} = {groups} groups x {steps} steps")
+    want = {"fwd": 2 * N_LAYERS * flash_steps, "dq": N_LAYERS * flash_steps,
+            "dkv": N_LAYERS * flash_steps}
+    for name, fn in (("fwd", fa.flash_attention_fwd), ("dq", fa.flash_attention_dq),
+                     ("dkv", fa.flash_attention_dkv)):
+        counts[f"flash_{name}_launches"] = fn.launches
+        if fn.launches != want[name] or fn.ref_calls:
+            fail(f"flash {name}: {fn.launches} launches and {fn.ref_calls} plain calls, expected "
+                 f"{want[name]} launches over {flash_steps} flash steps and no plain call")
+    say(f"phase 3: flash fwd {want['fwd']} (2 x {N_LAYERS} layers x {flash_steps} steps: "
+        f"checkpointing reruns each forward), dQ {want['dq']}, dK/dV {want['dkv']} launches, "
+        f"0 plain calls")
     return counts
+
+
+def report_ptxas(log: str) -> None:
+    """One line per kernel of ptxas's report: registers and spills."""
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            say(f"ptxas: {name}: {line.split(':', 1)[-1].strip()}")
 
 
 def main() -> None:
@@ -417,7 +666,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.comm_pack import build
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.comm_pack.ops import SOURCE as PACK_SOURCE
+    from repro_torch.kernels.flash_attention.ops import SOURCE as FLASH_SOURCE
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -430,14 +681,14 @@ def main() -> None:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    lib, log = build()
-    build_s = time.perf_counter() - t0
-    say(f"build: {lib.name} in {build_s:.1f} s" + ("" if log else " (already built)"))
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"ptxas: {line.strip()}")
+    built = _build.build_many([PACK_SOURCE, FLASH_SOURCE])  # one nvcc each, in parallel
+    say(f"build: both libraries in {time.perf_counter() - t0:.1f} s")
+    for src, (lib, log, secs) in built.items():
+        say(f"build: {lib.name} ({secs:.1f} s)" + ("" if log else " (already built)"))
+        report_ptxas(log)
 
     errs, timings = phase_kernels(device)
+    flash_errs, flash_timings = phase_flash(device)
     phase_reduced_model(device)
     counts = phase_full_width(device)
 
@@ -456,6 +707,23 @@ def main() -> None:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": "bytes",
+            "library_ms": t["library_ms"],
+        })
+    for name, replaces in (("fwd", "src/repro/kernels/flash_attention/kernel.py:40"),
+                           ("dq", "src/repro/kernels/flash_attention/kernel_bwd.py:53"),
+                           ("dkv", "src/repro/kernels/flash_attention/kernel_bwd.py:89")):
+        t = flash_timings[name]
+        kernels.append({
+            "name": f"flash_attention.{name}",
+            "route": "cuda",
+            "source": FLASH_SRC,
+            "replaces": replaces,
+            "launches": counts[f"flash_{name}_launches"],
+            "max_abs_err": flash_errs[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,30 +11,22 @@ took the plain version.
 
 The kernel library is compiled with ``nvcc`` for ``sm_90a`` at first use
 into ``build/`` at the repository root (named by a hash of the source, so
-an edited source is rebuilt) and loaded with ``ctypes``.
+an edited source is rebuilt) and loaded with ``ctypes`` (``.._build``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 from collections import OrderedDict
 from typing import Sequence
 
 import torch
 
+from .. import _build
 from .ref import pack_arena_ref, unpack_arena_ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "comm_pack.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FLAG_BF16 = 1
@@ -49,40 +41,18 @@ _TABLES: OrderedDict[tuple, torch.Tensor] = OrderedDict()
 _TABLES_MAX = 256
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the comm_pack CUDA kernels cannot be built")
-
-
 def build() -> tuple[pathlib.Path, str]:
     """Compile the kernel library if this source has not been built yet.
 
     Returns (library path, compiler log); the log holds ptxas's register
     and spill report when a build ran, and is empty otherwise."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libcomm_pack_{digest}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    return out, proc.stderr
+    return _build.build(SOURCE)
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
+        lib = _build.load(SOURCE)
         lib.comm_pack_pack.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

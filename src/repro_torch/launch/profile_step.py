@@ -30,6 +30,7 @@ TOP = 15  # kernels listed by device time
 
 #: Kernel classes, first match wins (lower-cased kernel names).
 CLASSES = (
+    ("flash_attention", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
     ("comm_pack", ("pack_kernel", "unpack_kernel")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),

@@ -64,6 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "when its last gradient lands (dag)")
     ap.add_argument("--plan-in", default=None, help="load a serialized Plan instead of planning")
     ap.add_argument("--plan-out", default=None, help="write the Plan JSON here")
+    ap.add_argument("--attn-impl", default="flash", choices=["flash", "plain"],
+                    help="attention: the flash-attention kernels (flash) or the plain "
+                         "einsum/softmax path (plain)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises when CUDA is missing) or cpu")
     return ap
@@ -146,6 +149,7 @@ def prepare(argv: list[str] | None = None, *, quiet: bool = False) -> TrainSetup
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
 
     compression = args.compression
     if compression is None and args.comm_dtype == "bf16":
@@ -173,7 +177,8 @@ def prepare(argv: list[str] | None = None, *, quiet: bool = False) -> TrainSetup
         )
         say(f"[train] {eng.plan.describe()}")
         say(f"[train] device {device}, world {world}, {eng.sync.n_groups} groups, "
-            f"fuse={sync_cfg.fuse} wire={sync_cfg.wire_dtype} issue={args.issue_order}")
+            f"fuse={sync_cfg.fuse} wire={sync_cfg.wire_dtype} issue={args.issue_order} "
+            f"attn={cfg.attn_impl}")
         model = Transformer(cfg, device=device, seed=0)
         data = make_stream(
             DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch),

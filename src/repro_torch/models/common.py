@@ -49,6 +49,7 @@ class ArchConfig:
     param_dtype: Any = torch.bfloat16
     # implementation knobs (not architecture):
     q_chunk: int = 256  # query chunk of the plain attention path
+    attn_impl: str = "flash"  # 'flash' (the flash-attention kernels) | 'plain'
     remat: str = "full"  # 'full' (torch.utils.checkpoint per layer) | 'none'
 
     @property

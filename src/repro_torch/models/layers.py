@@ -1,10 +1,15 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``):
-RMSNorm, RoPE, query-chunked GQA attention and the SwiGLU MLP.
+RMSNorm, RoPE, GQA attention and the SwiGLU MLP.
 
-Attention is the plain path the JAX package runs at model level
-(``gqa_attention``'s q-chunked causal branch): einsum scores, a mask with
-value ``-1e30``, an f32 softmax, an einsum with V.  The flash-attention
-kernel is still to port.
+``ArchConfig.attn_impl`` picks the attention (the JAX package's
+``attn_impl``, ``'pallas' | 'jnp'``):
+
+- ``'flash'`` (default): ``kernels.flash_attention.flash_attention_train``,
+  the forward, dQ and dK/dV kernels on the card (their plain versions on
+  the CPU); no (S, S) tensor is kept for backward.
+- ``'plain'``: ``gqa_attention``, the path the JAX package runs at model
+  level (its q-chunked causal branch): einsum scores, a mask with value
+  ``-1e30``, an f32 softmax cast to the input dtype, an einsum with V.
 """
 
 from __future__ import annotations
@@ -14,7 +19,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.flash_attention import flash_attention_train
 from .common import ArchConfig, Attention
+
+ATTN_IMPLS = ("flash", "plain")
 
 
 class RMSNorm(nn.Module):
@@ -92,6 +100,8 @@ class AttentionBlock(nn.Module):
 
     def __init__(self, cfg: ArchConfig, att: Attention, device=None):
         super().__init__()
+        if cfg.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {cfg.attn_impl!r}")
         d = cfg.d_model
         qd, kvd = att.n_heads * att.head_dim, att.n_kv_heads * att.head_dim
         mk = lambda *shape: nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
@@ -106,7 +116,10 @@ class AttentionBlock(nn.Module):
         v = (x @ self.wv).reshape(B, S, att.n_kv_heads, att.head_dim)
         q = apply_rope(q, positions, att.rope_theta)
         k = apply_rope(k, positions, att.rope_theta)
-        o = gqa_attention(q, k, v, q_chunk=self.cfg.q_chunk)
+        if self.cfg.attn_impl == "flash":
+            o = flash_attention_train(q, k, v, causal=True)
+        else:
+            o = gqa_attention(q, k, v, q_chunk=self.cfg.q_chunk)
         return o.reshape(B, S, -1).to(x.dtype) @ self.wo
 
 

@@ -1,7 +1,17 @@
-"""The comm_pack CUDA kernels against their plain PyTorch versions, on the
-card: bit-identical arena, residuals and unpacked parts over part dtype
-{f32, bf16, mixed} x wire {f32, bf16} x EF {off, on}, at odd sizes and
-offsets, sources that are not 16-byte aligned, and scale 1/3.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+comm_pack: bit-identical arena, residuals and unpacked parts over part
+dtype {f32, bf16, mixed} x wire {f32, bf16} x EF {off, on}, at odd sizes
+and offsets, sources that are not 16-byte aligned, and scale 1/3.
+
+flash_attention: forward, dQ and dK/dV at the full-width main path's
+shape (B 4, S 512, 32 query / 4 KV heads, hd 64) in f32 and bf16, at the
+tolerances of ``tests/test_kernels.py`` (o 2e-5 f32 / 2e-2 bf16, lse
+1e-5, f32 gradients 2e-4; bf16 gradients 1e-2 x max|g|: both sides work
+in f32 from the same bf16 inputs and round the result once); rows that
+see no key give 0; two runs give the same bits; and one reduced training
+step with the flash kernels gives bitwise the same parameters for the
+``post`` and ``dag`` issue orders.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU interpret mode):
 they carry the ``cuda`` marker and skip elsewhere.  The file imports no
@@ -14,6 +24,7 @@ import pytest
 import torch
 
 from _torch_env import bits, require_cuda
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.comm_pack import (
     pack_arena,
     pack_arena_ref,
@@ -71,3 +82,83 @@ def test_cuda_wrapper_rejects_gapped_offsets():
     parts = [torch.ones(4, device=dev), torch.ones(4, device=dev)]
     with pytest.raises(ValueError, match="exact packing"):
         pack_arena(parts, [0, 5], 9, torch.float32)
+
+
+MAIN_SHAPE = (4, 512, 32, 4, 64)  # B, S, Hq, Hkv, hd of full-width TinyLlama-1.1B
+
+
+def _qkv(B, Sq, Sk, Hq, Hkv, hd, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(*shape, generator=g, device=device).to(dtype)
+    return mk(B, Sq, Hq, hd), mk(B, Sk, Hkv, hd), mk(B, Sk, Hkv, hd), mk(B, Sq, Hq, hd)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_flash_kernels_match_plain_at_main_path_shape(dtype):
+    dev = require_cuda()
+    B, S, Hq, Hkv, hd = MAIN_SHAPE
+    q, k, v, do = _qkv(B, S, S, Hq, Hkv, hd, TORCH_DT[dtype], dev)
+    fa.reset_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v)
+    delta = fa.attention_delta(want_o, do)
+    dq = fa.flash_attention_dq(q, k, v, do, want_lse, delta)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, want_lse, delta)
+    torch.cuda.synchronize()
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv):
+        assert (fn.launches, fn.ref_calls) == (1, 0), fn.__name__
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    want_dq = fa.flash_attention_dq_ref(q, k, v, do, want_lse, delta)
+    want_dk, want_dv = fa.flash_attention_dkv_ref(q, k, v, do, want_lse, delta)
+    for got, want, name in ((dq, want_dq, "dq"), (dk, want_dk, "dk"), (dv, want_dv, "dv")):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        if dtype == "bf16":
+            assert _rel(got, want) <= 1e-2, name
+        else:
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rows_that_see_no_key_are_zero_and_runs_repeat_bitwise():
+    dev = require_cuda()
+    q, k, v, do = _qkv(1, 256, 128, 4, 2, 64, torch.float32, dev, seed=1)
+    o, lse = fa.flash_attention_fwd(q, k, v, window=64, return_lse=True)
+    torch.testing.assert_close(o, fa.attention_ref(q, k, v, window=64), rtol=2e-5, atol=2e-5)
+    assert torch.equal(o[:, 191:], torch.zeros_like(o[:, 191:]))
+    grads = [fa.flash_attention_bwd(q, k, v, o, lse, do, window=64) for _ in range(2)]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    assert torch.equal(fa.flash_attention_fwd(q, k, v, window=64), o)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_what_the_kernels_do_not_take():
+    dev = require_cuda()
+    q, k, v, _ = _qkv(1, 64, 64, 2, 1, 48, torch.float32, dev)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_fwd(q, k, v)
+    q, k, v, _ = _qkv(1, 64, 64, 2, 1, 64, torch.float16, dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(q, k, v)
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_step_post_and_dag_bitwise_equal_with_flash():
+    require_cuda()
+    from repro_torch.launch.train import run
+
+    params = []
+    for order in ("post", "dag"):
+        res = run(["--arch", "tinyllama-1.1b", "--reduced", "--steps", "2", "--batch", "2",
+                   "--seq", "64", "--fuse", "arena", "--issue-order", order], quiet=True)
+        params.append((res.losses, {n: p.detach().cpu() for n, p in res.model.named_parameters()}))
+    assert params[0][0] == params[1][0]
+    for n, p in params[0][1].items():
+        assert torch.equal(p, params[1][1][n]), n

@@ -44,7 +44,9 @@ def test_every_module_imports_without_jax_or_repro():
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["repro_loaded"] == [] and not rec["jax_loaded"]
     for mod in ("repro_torch.core.sync", "repro_torch.core.trainer",
-                "repro_torch.kernels.comm_pack.ops", "repro_torch.launch.train"):
+                "repro_torch.kernels._build", "repro_torch.kernels.comm_pack.ops",
+                "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.launch.train"):
         assert mod in rec["modules"]
 
 
@@ -66,10 +68,12 @@ SMALL = ["--batch", "2", "--seq", "64"]
     [],  # the launcher's defaults: batch 8 x seq 256, post, AdamW
     ["--issue-order", "dag", "--compression", "bf16_ef", *SMALL],
     ["--fuse", "concat", "--comm-dtype", "bf16", "--optimizer", "sgd", *SMALL],
-], ids=["defaults", "dag-bf16_ef", "concat-bf16-sgd"])
+    ["--attn-impl", "plain", *SMALL],
+], ids=["defaults", "dag-bf16_ef", "concat-bf16-sgd", "plain-attn"])
 def test_cli_smoke_on_cpu(extra):
     stdout = _cli("--steps", "2", "--fuse", "arena", *extra)
     assert "plan[mg_wfbp" in stdout
+    assert f"attn={'plain' if '--attn-impl' in extra else 'flash'}" in stdout
     assert "[train] done: 2 steps" in stdout, stdout[-2000:]
 
 
@@ -105,7 +109,8 @@ def test_model_defaults_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("modname", [
     "repro_torch.planning", "repro_torch.fabric", "repro_torch.core.sync",
-    "repro_torch.kernels.comm_pack", "repro_torch.models", "repro_torch.optim",
+    "repro_torch.kernels.comm_pack", "repro_torch.kernels.flash_attention", "repro_torch.kernels",
+    "repro_torch.models", "repro_torch.optim",
 ])
 def test_public_exports_have_docstrings(modname):
     """As the JAX package's docs-check: every exported class and function

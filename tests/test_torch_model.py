@@ -35,9 +35,12 @@ LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 
 
-def _cfgs(dtype="f32", **kw):
+def _cfgs(dtype="f32", attn_impl="flash", **kw):
+    """(reference config, port config); ``attn_impl`` is the port's (the
+    reference model always runs its jnp attention)."""
     jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    return jax_get_reduced(ARCH, param_dtype=jdt, **kw), get_reduced(ARCH, param_dtype=tdt, **kw)
+    return (jax_get_reduced(ARCH, param_dtype=jdt, **kw),
+            get_reduced(ARCH, param_dtype=tdt, attn_impl=attn_impl, **kw))
 
 
 def _weights(jcfg, seed=0):
@@ -77,8 +80,12 @@ def test_weight_bridge_round_trip_is_exact(dtype):
         np.testing.assert_array_equal(bits(a), bits(b))
 
 
-def test_loss_and_every_gradient_match_reference():
-    jcfg, tcfg = _cfgs("f32")
+@pytest.mark.parametrize("attn_impl", ["flash", "plain"])
+def test_loss_and_every_gradient_match_reference(attn_impl):
+    """Both of the port's attention paths (the flash op, here through its
+    plain versions on the CPU, and the plain einsum/softmax path) against
+    the reference model, which runs its jnp attention."""
+    jcfg, tcfg = _cfgs("f32", attn_impl=attn_impl)
     params = _weights(jcfg)
     batch = _batch()
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
