@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` (one
-nvcc per source, sm_90a, all started together) and runs four phases; any
+nvcc per source, sm_90a, all started together) and runs seven phases; any
 failure exits non-zero.
 
 1. Kernels.  The comm_pack pack (B1) and unpack (B2) kernels against their
@@ -27,10 +27,25 @@ failure exits non-zero.
    second run must give the same bits.  Then each kernel's time per launch
    at the main path's shape (bf16), its plain version's, and
    ``F.scaled_dot_product_attention``'s forward and backward as yardsticks.
+1c. RG-LRU, and flash at RecurrentGemma's attention.  The recurrence
+   kernels ``rglru_fwd`` (B6) and ``rglru_bwd`` (its gradient) against their
+   plain versions on the same CUDA tensors, at the three shapes of the JAX
+   package's RG-LRU tests and at the main path's (1, 4096, 4096), with and
+   without h0: h / hT within 1e-5, gradients within 1e-5 x max(1, max|g|);
+   hT exactly h[:, -1]; a run split at T/2 and threaded through hT -> h0
+   matches one run; a second run gives the same bits.  Then each kernel's
+   time per launch at the main path's shape beside its bound and its plain
+   version's (no single PyTorch call computes a linear recurrence, so no
+   library yardstick).  The flash kernels at RecurrentGemma's attention (B 1,
+   S 4096, 16 query heads over 1 KV head, hd 256, causal, window 2048, bf16)
+   against their plain versions, timed beside SDPA with the same window mask.
 2. Reduced model.  Reduced tinyllama in fp32 with the flash kernels, loss
    and every gradient on the card against the same model on the CPU (the
    kernels' plain versions; loss rtol 1e-5, gradient max-abs <= 1e-4 x
    max|g|: other kernels, other summation orders).
+2b. Reduced RecurrentGemma in fp32 (RG-LRU and local-attention layers, the
+   tail, tied embeddings), the same comparison and tolerances, with the
+   RG-LRU and flash launch counts checked on both sides.
 3. Full-width training.  TinyLlama-1.1B, 22 layers, bf16 params,
    batch 4 x seq 512, ``--fuse arena --policy mg_wfbp --fabric gpu_nccl``
    on an NCCL world of 1, through ``repro_torch.launch.train.run``:
@@ -42,6 +57,14 @@ failure exits non-zero.
    2 x 22 times per step (activation checkpointing runs each layer's
    forward twice) and dQ and dK/dV 22 times each, with no plain call; the
    first-step losses of flash and plain must agree to 1e-2.
+3b. Full-width RecurrentGemma-9B cut to 8 layers (2 stages of rec, rec,
+   attn_local and the rec, rec tail; every width the published one), bf16
+   params, batch 1 x seq 4096 (longer than the 2048 window), the same
+   launcher flags, ``post`` and ``dag`` with f32 wire, 3 steps each from the
+   same weights: finite losses, ``dag`` bitwise equal to ``post``, pack /
+   unpack / ``issue()`` = groups x steps, and per step 12 ``rglru_fwd`` (6
+   layers, each forward run twice under checkpointing), 6 ``rglru_bwd``, 4
+   flash forwards, 2 dQ and 2 dK/dV, with no plain call.
 
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
@@ -68,8 +91,20 @@ TRAIN_ARGS = [
 ]
 PACK_SRC = "src/repro_torch/kernels/comm_pack/csrc/comm_pack.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
 MAIN_ATTN = (4, 512, 32, 4, 64)  # B, S, Hq, Hkv, hd of one full-width layer
 N_LAYERS = 22
+RG_ARGS = [
+    "--arch", "recurrentgemma-9b", "--steps", "3", "--batch", "1", "--seq", "4096",
+    "--fuse", "arena", "--policy", "mg_wfbp", "--fabric", "gpu_nccl",
+]
+RG_DEPTH = {"n_layers": 8}  # 2 x (rec, rec, attn_local) + (rec, rec): 6 RG-LRU, 2 attention
+RG_REC_LAYERS, RG_ATTN_LAYERS = 6, 2
+MAIN_RGLRU = (1, 4096, 4096)  # B, T, lru_width of one full-width RG-LRU layer
+#: The JAX package's RG-LRU test shapes (tests/test_kernels.py): B, T, W.
+JAX_RGLRU_SHAPES = [(2, 64, 128), (1, 128, 256), (1, 256, 512)]
+#: B, S, Hq, Hkv, hd, causal, window, softcap of RecurrentGemma-9B's local attention.
+RG_ATTN = (1, 4096, 16, 1, 256, True, 2048, None)
 #: The JAX package's flash-attention test shapes (tests/test_kernels.py):
 #: B, S, Hq, Hkv, hd, causal, window, softcap.
 JAX_FWD_SHAPES = [
@@ -401,11 +436,12 @@ def check_flash_case(shape, dtype, device, seed, errs, sq=None) -> dict:
             "want_lse": want_lse, "delta": delta}
 
 
-def flash_work(B, S, Hq, Hkv, hd, itemsize):
+def flash_work(B, S, Hq, Hkv, hd, itemsize, window=None):
     """Bytes each kernel must move (each input read once, each output
     written once) and the operations of its products (2 per multiply-add)
-    over the (query, key) pairs that the causal mask leaves."""
-    pairs = B * Hq * S * (S + 1) // 2
+    over the (query, key) pairs that the causal mask (and the window) leave."""
+    w = S if window is None else min(window, S)
+    pairs = B * Hq * (w * (w + 1) // 2 + (S - w) * w)
     qb, kvb, rows = B * S * Hq * hd * itemsize, B * S * Hkv * hd * itemsize, B * S * Hq * 4
     return {
         "fwd": (2 * qb + 2 * kvb + rows, 2 * 2 * hd * pairs),  # q, k, v -> o, lse
@@ -414,9 +450,74 @@ def flash_work(B, S, Hq, Hkv, hd, itemsize):
     }
 
 
-def phase_flash(device):
+def time_flash(shape, device, seed, tag):
+    """Each flash kernel's time per launch at ``shape`` in bf16 (CUDA-event
+    median), its plain version's, and ``F.scaled_dot_product_attention``'s
+    forward and backward as the library yardsticks (the window, if any, as
+    a boolean mask), beside the bound from ``flash_work``."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, Hq, Hkv, hd, _, window, _ = shape
+    q, k, v, do = flash_inputs(B, S, S, Hq, Hkv, hd, torch.bfloat16, device, seed)
+    opts = dict(window=window)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    delta = fa.attention_delta(o, do)
+    calls = {
+        "fwd": (lambda: fa.flash_attention_fwd(q, k, v, return_lse=True, **opts),
+                lambda: fa.flash_attention_fwd_ref(q, k, v, **opts)),
+        "dq": (lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, **opts),
+               lambda: fa.flash_attention_dq_ref(q, k, v, do, lse, delta, **opts)),
+        "dkv": (lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, **opts),
+                lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta, **opts)),
+    }
+    # the library yardstick, on (B, H, S, hd) views: SDPA forward, and its
+    # backward as one figure for dQ + dK/dV
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    if window is None:
+        sdpa_opts = dict(is_causal=True)
+    else:
+        pos = torch.arange(S, device=device)
+        sdpa_opts = dict(attn_mask=(pos[:, None] >= pos[None, :])
+                         & (pos[:, None] - pos[None, :] < window))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_opts)
+
+    out = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    lib = {"fwd": median_ms(sdpa), "bwd": median_ms(sdpa_bwd)}
+    timings = {}
+    work = flash_work(B, S, Hq, Hkv, hd, 2, window=window)
+    where = f"{shape[:5]}" + (f" window {window}" if window else "")
+    for name, (kern, plain) in calls.items():
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        timings[name] = t = {
+            "ms": median_ms(kern), "plain_ms": median_ms(plain),
+            "library_ms": lib["fwd"] if name == "fwd" else lib["bwd"],
+            "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        say(f"{tag}: flash {name:3s} {where} bf16, one launch: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, {'SDPA fwd' if name == 'fwd' else 'SDPA bwd (dQ+dK+dV)'} "
+            f"{t['library_ms']:.4f} ms{' (window as a mask)' if window else ''}, "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+            f"({t['bound_ms'] / t['ms'] * 100:.2f}% of bound)")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return timings
+
+
+def phase_flash(device):
+    import torch
     from repro_torch.kernels import flash_attention as fa
 
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -458,56 +559,128 @@ def phase_flash(device):
         f"dkv {main_errs['dkv']:.3e}; over all cases: fwd {errs['fwd']:.3e}, dq {errs['dq']:.3e}, "
         f"dkv {errs['dkv']:.3e}); rows that see no key are 0; repeated runs bitwise equal")
 
-    # --- timing at the main path's shape, bf16: one launch each ----------
-    B, S, Hq, Hkv, hd = MAIN_ATTN
-    dt = torch.bfloat16
-    q, k, v, do = flash_inputs(B, S, S, Hq, Hkv, hd, dt, device, 1)
-    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
-    delta = fa.attention_delta(o, do)
-    calls = {
-        "fwd": (lambda: fa.flash_attention_fwd(q, k, v, return_lse=True),
-                lambda: fa.flash_attention_fwd_ref(q, k, v)),
-        "dq": (lambda: fa.flash_attention_dq(q, k, v, do, lse, delta),
-               lambda: fa.flash_attention_dq_ref(q, k, v, do, lse, delta)),
-        "dkv": (lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta),
-                lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta)),
-    }
-    # the library yardstick, on (B, H, S, hd) views: SDPA forward, and its
-    # backward as one figure for dQ + dK/dV
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    dot = do.transpose(1, 2)
+    timings = time_flash((*MAIN_ATTN, True, None, None), device, 1, "phase 1b")
+    fa.reset_counts()
+    return main_errs, timings
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
-    out = sdpa()
+# ---------------------------------------------------------------------------
+# Phase 1c: the RG-LRU kernels, and flash at RecurrentGemma's attention
+# ---------------------------------------------------------------------------
 
-    def sdpa_bwd():
-        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
-    lib = {"fwd": median_ms(sdpa), "bwd": median_ms(sdpa_bwd)}
+def rglru_inputs(B, T, W, device, seed):
+    """As the JAX package's tests draw them: a = sigmoid(2 n + 2), g = 0.5 n;
+    h0, the cotangent dh and dhT = n."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    return (torch.sigmoid(2.0 * n(B, T, W) + 2.0), 0.5 * n(B, T, W), n(B, W), n(B, T, W),
+            n(B, W))
+
+
+def phase_rglru(device):
+    import torch
+    from repro_torch.kernels import rglru as rg
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+
+    def close(name, got, want, tag, grad=False):
+        d = (got - want).abs()
+        if grad:
+            ok = float(d.max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+        else:
+            ok = bool((d <= 1e-5 + 1e-5 * want.abs()).all())
+        if not ok or not torch.isfinite(got).all():
+            fail(f"rglru {name} differs from its plain version at {tag}: max |diff| "
+                 f"{float(d.max()):.3e}")
+        errs["bwd" if grad else "fwd"] = max(errs["bwd" if grad else "fwd"], float(d.max()))
+
+    n = 0
+    for i, shape in enumerate(JAX_RGLRU_SHAPES + [MAIN_RGLRU]):
+        for with_h0 in (False, True):
+            a, g, h0, dh, dhT = rglru_inputs(*shape, device, seed=40 + i)
+            h0 = h0 if with_h0 else None
+            tag = f"{shape}{' h0' if with_h0 else ''}"
+            h, hT = rg.rglru_fwd(a, g, h0)
+            da, dg, dh0 = rg.rglru_bwd(a, h, h0, dh, dhT)
+            want_h, want_hT = rg.rglru_ref(a, g, h0)
+            want_da, want_dg, want_dh0 = rg.rglru_bwd_ref(a, h, h0, dh, dhT)
+            torch.cuda.synchronize()
+            close("h", h, want_h, tag)
+            close("hT", hT, want_hT, tag)
+            if not torch.equal(hT, h[:, -1]):
+                fail(f"rglru hT is not h[:, -1] at {tag}")
+            close("da", da, want_da, tag, grad=True)
+            close("dg", dg, want_dg, tag, grad=True)
+            if with_h0:
+                close("dh0", dh0, want_dh0, tag, grad=True)
+            h2, hT2 = rg.rglru_fwd(a, g, h0)
+            da2, dg2, _ = rg.rglru_bwd(a, h, h0, dh, dhT)
+            if not all(torch.equal(x, y) for x, y in ((h2, h), (hT2, hT), (da2, da), (dg2, dg))):
+                fail(f"rglru: a second run on the same inputs gave other bits at {tag}")
+            n += 1
+    B, T, W = MAIN_RGLRU
+    a, g, _, dh, _ = rglru_inputs(B, T, W, device, seed=1)
+    h, hT = rg.rglru_fwd(a, g)
+    h_a, s_a = rg.rglru_fwd(a[:, : T // 2], g[:, : T // 2])
+    h_b, s_b = rg.rglru_fwd(a[:, T // 2 :], g[:, T // 2 :], s_a)
+    split = max(float((torch.cat([h_a, h_b], 1) - h).abs().max()), float((s_b - hT).abs().max()))
+    if split > 1e-5:
+        fail(f"rglru: a run split at T/2 and threaded through hT -> h0 differs by {split:.3e}")
+    say(f"phase 1c: rglru fwd/bwd within tolerance of the plain versions on {n} cases "
+        f"(max |diff| h {errs['fwd']:.3e}, gradients {errs['bwd']:.3e}); hT == h[:, -1]; "
+        f"split at T/2 through hT -> h0 {split:.3e}; repeated runs bitwise equal")
+
+    # --- timing at the main path's shape, as the path calls them (no h0, no dhT)
+    elems = B * T * W
+    work = {"fwd": (3 * 4 * elems, 2 * elems),  # a, g -> h; one multiply-add a step
+            "bwd": (5 * 4 * elems, 3 * elems)}  # a, h, dh -> da, dg; a multiply-add and a multiply
+    calls = {"fwd": (lambda: rg.rglru_fwd(a, g), lambda: rg.rglru_ref(a, g)),
+             "bwd": (lambda: rg.rglru_bwd(a, h, None, dh), lambda: rg.rglru_bwd_ref(a, h, None, dh))}
     timings = {}
-    work = flash_work(B, S, Hq, Hkv, hd, 2)
     for name, (kern, plain) in calls.items():
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        timings[name] = {
-            "ms": median_ms(kern), "plain_ms": median_ms(plain),
-            "library_ms": lib["fwd"] if name == "fwd" else lib["bwd"],
-            "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        timings[name] = t = {
+            "ms": median_ms(kern), "plain_ms": median_ms(plain, reps=3, warmup=1),
+            "library_ms": None, "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
-        t = timings[name]
-        say(f"phase 1b: flash {name:3s} {MAIN_ATTN} bf16, one launch: {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, {'SDPA fwd' if name == 'fwd' else 'SDPA bwd (dQ+dK+dV)'} "
-            f"{t['library_ms']:.4f} ms, {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, bound "
-            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
-            f"({t['bound_ms'] / t['ms'] * 100:.2f}% of bound)")
-    del q, k, v, do, o, lse, delta, qt, kt, vt, out
+        say(f"phase 1c: rglru {name} {MAIN_RGLRU} f32, one launch: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library none (no PyTorch call computes a linear "
+            f"recurrence), {nbytes / 1e6:.1f} MB, bound {t['bound_ms'] * 1e3:.2f} us by "
+            f"{t['bound_by']} ({t['bound_ms'] / t['ms'] * 100:.1f}% of bound)")
+    del a, g, h, dh, h_a, h_b
     torch.cuda.empty_cache()
+    rg.reset_counts()
+    return errs, timings
+
+
+def phase_rg_flash(device):
+    """The flash kernels at RecurrentGemma-9B's attention: MQA (16 query
+    heads over 1 KV head), hd 256, causal, window 2048, bf16."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    window = RG_ATTN[6]
+    res = check_flash_case(RG_ATTN, torch.bfloat16, device, 7, errs)
+    q, k, v, do = res["inputs"]
+    o2 = fa.flash_attention_fwd(q, k, v, window=window)
+    dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, res["want_lse"], res["delta"], window=window)
+    if not (torch.equal(o2, res["o"]) and torch.equal(dk2, res["dk"]) and torch.equal(dv2, res["dv"])):
+        fail("flash at RecurrentGemma's attention: a second run gave other bits")
+    say(f"phase 1c: flash fwd/dQ/dK-dV at {RG_ATTN[:5]} window {window} bf16 within tolerance of "
+        f"the plain versions (max |diff| fwd {errs['fwd']:.3e}, dq {errs['dq']:.3e}, "
+        f"dkv {errs['dkv']:.3e}); repeated runs bitwise equal")
+    del res, q, k, v, do, o2, dk2, dv2
+    torch.cuda.empty_cache()
+    timings = time_flash(RG_ATTN, device, 8, "phase 1c")
     fa.reset_counts()
-    return main_errs, timings
+    return errs, timings
 
 
 # ---------------------------------------------------------------------------
@@ -515,21 +688,23 @@ def phase_flash(device):
 # ---------------------------------------------------------------------------
 
 
-def phase_reduced_model(device) -> None:
+def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") -> None:
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.core.trainer import batch_to_device
     from repro_torch.data import DataConfig, make_stream
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
     from repro_torch.models import Transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_reduced("tinyllama-1.1b", param_dtype=torch.float32, attn_impl="flash")
-    batch = make_stream(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2)).batch_at(0)
+    cfg = get_reduced(arch, param_dtype=torch.float32, attn_impl="flash")
+    batch = make_stream(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=2)).batch_at(0)
     results = []
     cpu_model = Transformer(cfg, device="cpu", seed=0)
     fa.reset_counts()
+    rg.reset_counts()
     for dev in (torch.device("cpu"), device):
         model = cpu_model if dev.type == "cpu" else Transformer(cfg, device=dev, seed=None)
         if dev.type != "cpu":
@@ -539,24 +714,30 @@ def phase_reduced_model(device) -> None:
         results.append((float(loss.detach()),
                         {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results
-    # each side once per layer: the card through the kernels, the CPU through the plain versions
-    for fn, n in ((fa.flash_attention_fwd, 2 * cfg.n_layers), (fa.flash_attention_dq, cfg.n_layers),
-                  (fa.flash_attention_dkv, cfg.n_layers)):
+    # each side once per layer (the forward twice: checkpointing reruns it):
+    # the card through the kernels, the CPU through the plain versions
+    kinds = cfg.block_kinds()
+    n_attn, n_rec = sum(k.startswith("attn") for k in kinds), kinds.count("rec")
+    for fn, n in ((fa.flash_attention_fwd, 2 * n_attn), (fa.flash_attention_dq, n_attn),
+                  (fa.flash_attention_dkv, n_attn), (rg.rglru_fwd, 2 * n_rec),
+                  (rg.rglru_bwd, n_rec)):
         if (fn.launches, fn.ref_calls) != (n, n):
-            fail(f"phase 2: {fn.__name__} launched {fn.launches} and took the plain version "
+            fail(f"{tag}: {fn.__name__} launched {fn.launches} and took the plain version "
                  f"{fn.ref_calls} times, expected {n} each")
     fa.reset_counts()
+    rg.reset_counts()
     if not math.isfinite(l_gpu) or abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu):
-        fail(f"reduced loss on the card {l_gpu} vs CPU {l_cpu}")
+        fail(f"{tag}: reduced loss on the card {l_gpu} vs CPU {l_cpu}")
     worst = 0.0
     for n, g in g_cpu.items():
         if g_gpu[n].shape != g.shape or not torch.isfinite(g_gpu[n]).all():
-            fail(f"gradient {n} has the wrong shape or is not finite")
+            fail(f"{tag}: gradient {n} has the wrong shape or is not finite")
         rel = float((g_gpu[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
         worst = max(worst, rel)
         if rel > 1e-4:
-            fail(f"gradient {n}: max-abs error {rel:.3e} x max|g|")
-    say(f"phase 2: reduced fp32 with the flash kernels: loss {l_gpu:.6f} (CPU {l_cpu:.6f}), "
+            fail(f"{tag}: gradient {n}: max-abs error {rel:.3e} x max|g|")
+    kernels = "the flash kernels" + (" and the RG-LRU kernels" if n_rec else "")
+    say(f"{tag}: reduced {arch} fp32 with {kernels}: loss {l_gpu:.6f} (CPU {l_cpu:.6f}), "
         f"worst gradient error {worst:.3e} x max|g| over {len(g_cpu)} leaves")
 
 
@@ -648,6 +829,73 @@ def phase_full_width(device):
     return counts
 
 
+def phase_rg_full_width(device):
+    """Full-width RecurrentGemma-9B at 8 layers: ``post`` then ``dag``, 3
+    steps each from the same weights, every launch counted."""
+    import torch
+    from repro_torch.fabric.ops import issue
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
+    from repro_torch.launch.train import run
+
+    # every launch counter to 0 just before the main path, read just after
+    reset_counts()
+    fa.reset_counts()
+    rg.reset_counts()
+    issue.calls = 0
+    post_params, post_losses, groups, steps = None, None, None, 0
+    for name in ("post", "dag"):
+        res = run(RG_ARGS + ["--issue-order", name], quiet=True, overrides=RG_DEPTH)
+        n_groups = res.engine.sync.n_groups
+        groups = n_groups if groups is None else groups
+        if n_groups != groups:
+            fail(f"phase 3b {name}: {n_groups} groups, expected {groups}")
+        steps += len(res.losses)
+        if not all(math.isfinite(x) for x in res.losses):
+            fail(f"phase 3b {name}: non-finite loss {res.losses}")
+        step_s = statistics.median(res.step_seconds[1:])
+        say(f"phase 3b: recurrentgemma-9b x 8 layers {name}_f32: losses "
+            f"{[round(x, 4) for x in res.losses]}, step {step_s * 1e3:.1f} ms (median of steps "
+            f"2-3), {res.tokens_per_step / step_s:,.0f} tokens/s, peak memory "
+            f"{(res.peak_memory_bytes or 0) / 2**30:.2f} GiB, {n_groups} groups")
+        params = {n: p.detach().cpu() for n, p in res.model.named_parameters()}
+        if name == "post":
+            post_params, post_losses = params, res.losses
+        else:
+            if res.losses != post_losses:
+                fail(f"phase 3b: dag losses {res.losses} != post losses {post_losses}")
+            for n, p in params.items():
+                if not torch.equal(p, post_params[n]):
+                    fail(f"phase 3b: dag parameter {n} differs from post")
+            say("phase 3b: dag parameters and losses bitwise equal to post")
+        del res, params
+        torch.cuda.empty_cache()
+    counts = {
+        "pack_launches": pack_arena.launches, "unpack_launches": unpack_arena.launches,
+        "issue_calls": issue.calls,
+    }
+    if not (counts["pack_launches"] == counts["unpack_launches"] == counts["issue_calls"]
+            == groups * steps) or pack_arena.ref_calls or unpack_arena.ref_calls:
+        fail(f"phase 3b: launch counts {counts}: expected {groups} groups x {steps} steps")
+    want = {"rglru_fwd": (rg.rglru_fwd, 2 * RG_REC_LAYERS * steps),
+            "rglru_bwd": (rg.rglru_bwd, RG_REC_LAYERS * steps),
+            "flash_fwd": (fa.flash_attention_fwd, 2 * RG_ATTN_LAYERS * steps),
+            "flash_dq": (fa.flash_attention_dq, RG_ATTN_LAYERS * steps),
+            "flash_dkv": (fa.flash_attention_dkv, RG_ATTN_LAYERS * steps)}
+    for name, (fn, n) in want.items():
+        counts[f"{name}_launches"] = fn.launches
+        if fn.launches != n or fn.ref_calls:
+            fail(f"phase 3b: {name}: {fn.launches} launches and {fn.ref_calls} plain calls, "
+                 f"expected {n} launches over {steps} steps and no plain call")
+    say(f"phase 3b: pack {counts['pack_launches']}, unpack {counts['unpack_launches']}, issue() "
+        f"{counts['issue_calls']} = {groups} groups x {steps} steps; rglru fwd "
+        f"{counts['rglru_fwd_launches']} (2 x {RG_REC_LAYERS} layers x {steps} steps), bwd "
+        f"{counts['rglru_bwd_launches']}; flash fwd {counts['flash_fwd_launches']}, dQ "
+        f"{counts['flash_dq_launches']}, dK/dV {counts['flash_dkv_launches']}; 0 plain calls")
+    return counts
+
+
 def report_ptxas(log: str) -> None:
     """One line per kernel of ptxas's report: registers and spills."""
     name = None
@@ -669,6 +917,7 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.comm_pack.ops import SOURCE as PACK_SOURCE
     from repro_torch.kernels.flash_attention.ops import SOURCE as FLASH_SOURCE
+    from repro_torch.kernels.rglru.ops import SOURCE as RGLRU_SOURCE
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -681,16 +930,20 @@ def main() -> None:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    built = _build.build_many([PACK_SOURCE, FLASH_SOURCE])  # one nvcc each, in parallel
-    say(f"build: both libraries in {time.perf_counter() - t0:.1f} s")
+    built = _build.build_many([PACK_SOURCE, FLASH_SOURCE, RGLRU_SOURCE])  # one nvcc each, in parallel
+    say(f"build: all three libraries in {time.perf_counter() - t0:.1f} s")
     for src, (lib, log, secs) in built.items():
         say(f"build: {lib.name} ({secs:.1f} s)" + ("" if log else " (already built)"))
         report_ptxas(log)
 
     errs, timings = phase_kernels(device)
     flash_errs, flash_timings = phase_flash(device)
+    rglru_errs, rglru_timings = phase_rglru(device)
+    rg_flash_errs, rg_flash_timings = phase_rg_flash(device)
     phase_reduced_model(device)
+    phase_reduced_model(device, "recurrentgemma-9b", seq=128, tag="phase 2b")
     counts = phase_full_width(device)
+    rg_counts = phase_rg_full_width(device)
 
     main_cfg = timings["float32"]  # the main path's wire
     kernels = []
@@ -701,7 +954,8 @@ def main() -> None:
             "route": "cuda",
             "source": PACK_SRC,
             "replaces": f"src/repro/kernels/comm_pack/kernel.py:{src_line}",
-            "launches": counts[f"{name}_launches"],
+            # phases 3 and 3b, each counted from 0 around its own runs
+            "launches": counts[f"{name}_launches"] + rg_counts[f"{name}_launches"],
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -709,17 +963,40 @@ def main() -> None:
             "bound_by": "bytes",
             "library_ms": t["library_ms"],
         })
-    for name, replaces in (("fwd", "src/repro/kernels/flash_attention/kernel.py:40"),
-                           ("dq", "src/repro/kernels/flash_attention/kernel_bwd.py:53"),
-                           ("dkv", "src/repro/kernels/flash_attention/kernel_bwd.py:89")):
-        t = flash_timings[name]
+    # the flash kernels once per configuration: TinyLlama's (phase 1b, run
+    # 3) and RecurrentGemma's MQA / hd 256 / window 2048 (phase 1c, run 3b)
+    for suffix, f_errs, f_timings, f_counts in (
+            ("", flash_errs, flash_timings, counts),
+            ("[recurrentgemma]", rg_flash_errs, rg_flash_timings, rg_counts)):
+        for name, replaces in (("fwd", "src/repro/kernels/flash_attention/kernel.py:40"),
+                               ("dq", "src/repro/kernels/flash_attention/kernel_bwd.py:53"),
+                               ("dkv", "src/repro/kernels/flash_attention/kernel_bwd.py:89")):
+            t = f_timings[name]
+            kernels.append({
+                "name": f"flash_attention.{name}{suffix}",
+                "route": "cuda",
+                "source": FLASH_SRC,
+                "replaces": replaces,
+                "launches": f_counts[f"flash_{name}_launches"],
+                "max_abs_err": f_errs[name],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+            })
+    # the backward has no Pallas kernel: it stands in for JAX's autodiff of
+    # the associative scan that the JAX model runs
+    for name, replaces in (("fwd", "src/repro/kernels/rglru/kernel.py:31"),
+                           ("bwd", "src/repro/models/rglru.py:88")):
+        t = rglru_timings[name]
         kernels.append({
-            "name": f"flash_attention.{name}",
+            "name": f"rglru.{name}",
             "route": "cuda",
-            "source": FLASH_SRC,
+            "source": RGLRU_SRC,
             "replaces": replaces,
-            "launches": counts[f"flash_{name}_launches"],
-            "max_abs_err": flash_errs[name],
+            "launches": rg_counts[f"rglru_{name}_launches"],
+            "max_abs_err": rglru_errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],

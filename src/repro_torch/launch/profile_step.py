@@ -6,7 +6,9 @@ a few steady steps of the launcher's configuration.
         [--json-out PATH] [--trace-out PATH]
 
 Takes every flag of ``repro_torch.launch.train``; ``--steps`` is the
-number of profiled steps, run after ``WARMUP`` unprofiled ones.  Prints
+number of profiled steps, run after ``WARMUP`` unprofiled ones.  Called
+from Python, ``main(argv, overrides={'n_layers': 8})`` replaces fields of
+the arch config, as ``launch.train.prepare`` does.  Prints
 the wall time per step, the device's busy and idle shares of that wall
 time (union of kernel intervals), device time by kernel class and the
 top kernels by device time.  CUDA only: a profile without device events
@@ -31,6 +33,7 @@ TOP = 15  # kernels listed by device time
 #: Kernel classes, first match wins (lower-cased kernel names).
 CLASSES = (
     ("flash_attention", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
+    ("rglru", ("rglru_fwd_kernel", "rglru_bwd_kernel")),
     ("comm_pack", ("pack_kernel", "unpack_kernel")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
@@ -58,12 +61,12 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def main(argv: list[str] | None = None) -> dict:
+def main(argv: list[str] | None = None, overrides: dict | None = None) -> dict:
     own = argparse.ArgumentParser(add_help=False)
     own.add_argument("--json-out", default=None)
     own.add_argument("--trace-out", default=None)
     mine, rest = own.parse_known_args(argv)
-    setup = prepare(rest)
+    setup = prepare(rest, overrides=overrides)
     try:
         if setup.device.type != "cuda":
             raise RuntimeError("the profile measures the card: run it on cuda")
@@ -94,7 +97,7 @@ def main(argv: list[str] | None = None) -> dict:
     device_us = sum(by_class.values())
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:TOP]
     report = {
-        "config": " ".join(rest),
+        "config": " ".join(rest) + (f" overrides={overrides}" if overrides else ""),
         "card": torch.cuda.get_device_name(setup.device),
         "steps": steps,
         "step_ms": wall_us / steps / 1e3,

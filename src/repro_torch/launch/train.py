@@ -133,9 +133,12 @@ class TrainSetup:
         self.pg.close()
 
 
-def prepare(argv: list[str] | None = None, *, quiet: bool = False) -> TrainSetup:
+def prepare(argv: list[str] | None = None, *, quiet: bool = False,
+            overrides: dict | None = None) -> TrainSetup:
     """Parse ``argv`` like the command line and set up the run: device,
-    process group, plan, model (weights from seed 0), optimizer, data."""
+    process group, plan, model (weights from seed 0), optimizer, data.
+    ``overrides`` replaces fields of the arch config (``{'n_layers': 8}``),
+    as the config registry's keyword overrides do."""
     ap = build_parser()
     args = ap.parse_args(argv)
     say = (lambda *a: None) if quiet else print
@@ -146,7 +149,7 @@ def prepare(argv: list[str] | None = None, *, quiet: bool = False) -> TrainSetup
     if device.type == "cuda":
         torch.cuda.set_device(device)
 
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    cfg = (get_reduced if args.reduced else get_config)(args.arch, **(overrides or {}))
     if args.reduced:
         cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
@@ -194,10 +197,12 @@ def prepare(argv: list[str] | None = None, *, quiet: bool = False) -> TrainSetup
                    device=device, rank=rank, world=world, pg=pg)
 
 
-def run(argv: list[str] | None = None, *, quiet: bool = False) -> TrainResult:
-    """Parse ``argv`` like the command line and train; returns the run."""
+def run(argv: list[str] | None = None, *, quiet: bool = False,
+        overrides: dict | None = None) -> TrainResult:
+    """Parse ``argv`` like the command line and train; returns the run.
+    ``overrides`` as for ``prepare``."""
     say = (lambda *a: None) if quiet else print
-    setup = prepare(argv, quiet=quiet)
+    setup = prepare(argv, quiet=quiet, overrides=overrides)
     args, device = setup.args, setup.device
     try:
         if device.type == "cuda":

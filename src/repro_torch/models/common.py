@@ -2,7 +2,7 @@
 with torch dtypes.
 
 Only the options the port implements are fields; the JAX package's other
-options (windows, softcaps, M-RoPE, post-norms, ...) come back with the
+options (softcaps, M-RoPE, post-norms, MoE, ...) come back with the
 architectures that need them.
 """
 
@@ -25,10 +25,23 @@ class Attention:
 
 
 @dataclasses.dataclass(frozen=True)
+class Recurrent:
+    """RG-LRU / RWKV-style recurrent block options (the port runs
+    ``kind='rglru'``)."""
+
+    kind: str  # 'rglru' | 'rwkv6'
+    conv_width: int = 4  # temporal conv in the Griffin recurrent block
+    lru_width: int | None = None  # defaults to d_model
+    head_dim: int = 64  # rwkv6 wkv head size
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """One architecture (or a reduced smoke variant).
 
-    The port runs the dense ``('attn',)`` pattern with rmsnorm, swiglu and
+    The port runs patterns of ``'attn'``, ``'attn_local'`` (causal attention
+    over ``local_window`` keys) and ``'rec'`` (the RG-LRU block) sublayers,
+    with a tail, rmsnorm or gemma rmsnorm, swiglu or geglu, and tied or
     untied embeddings; ``models.transformer`` raises on any other value
     rather than computing something else."""
 
@@ -43,12 +56,16 @@ class ArchConfig:
     # n_stages + len(tail_pattern)
     pattern: tuple[str, ...] = ("attn",)
     tail_pattern: tuple[str, ...] = ()
-    norm: str = "rmsnorm"
-    mlp: str = "swiglu"
+    recurrent: Recurrent | None = None
+    norm: str = "rmsnorm"  # 'rmsnorm' | 'rmsnorm_gemma' (scale stored as scale - 1)
+    mlp: str = "swiglu"  # 'swiglu' | 'geglu'
     tie_embeddings: bool = False
     param_dtype: Any = torch.bfloat16
+    # local-attention window used by '*_local' pattern entries
+    local_window: int = 4096
     # implementation knobs (not architecture):
     q_chunk: int = 256  # query chunk of the plain attention path
+    rec_chunk: int = 128  # the JAX package's time chunk for chunked recurrences
     attn_impl: str = "flash"  # 'flash' (the flash-attention kernels) | 'plain'
     remat: str = "full"  # 'full' (torch.utils.checkpoint per layer) | 'none'
 
@@ -61,3 +78,7 @@ class ArchConfig:
                 f"{self.pattern} + tail {self.tail_pattern}"
             )
         return body // len(self.pattern)
+
+    def block_kinds(self) -> list[str]:
+        """Per-layer kinds, length n_layers."""
+        return list(self.pattern) * self.n_stages + list(self.tail_pattern)

@@ -1,5 +1,6 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``):
-RMSNorm, RoPE, GQA attention and the SwiGLU MLP.
+RMSNorm (plain and gemma), RoPE, GQA attention (causal, optionally over a
+sliding window) and the gated MLPs (SwiGLU, GeGLU).
 
 ``ArchConfig.attn_impl`` picks the attention (the JAX package's
 ``attn_impl``, ``'pallas' | 'jnp'``):
@@ -23,24 +24,32 @@ from ..kernels.flash_attention import flash_attention_train
 from .common import ArchConfig, Attention
 
 ATTN_IMPLS = ("flash", "plain")
+NORMS = ("rmsnorm", "rmsnorm_gemma")
+MLPS = ("swiglu", "geglu")
 
 
 class RMSNorm(nn.Module):
-    """``{'scale': (dim,)}``, computed in f32 and cast back."""
+    """``{'scale': (dim,)}``, computed in f32 and cast back.  ``gemma``
+    stores the scale as scale - 1 (initialised to zeros)."""
 
-    def __init__(self, dim: int, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, dtype: torch.dtype, device=None, gemma: bool = False):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.gemma = gemma
+        self.scale = nn.Parameter(
+            torch.full((dim,), 0.0 if gemma else 1.0, dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_norm(self.scale, x)
+        return apply_norm(self.scale, x, self.gemma)
 
 
-def apply_norm(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def apply_norm(scale: torch.Tensor, x: torch.Tensor, gemma: bool = False) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + 1e-6)
-    return (y * scale.float()).to(x.dtype)
+    s = scale.float()
+    if gemma:
+        s = s + 1.0  # gemma stores scale - 1
+    return (y * s).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -64,9 +73,11 @@ def gqa_attention(
     k: torch.Tensor,  # (B, T, Hkv, hd)
     v: torch.Tensor,  # (B, T, Hkv, hd)
     *,
+    window: int | None = None,
     q_chunk: int = 256,
 ) -> torch.Tensor:
-    """Query-chunked causal attention; returns (B, S, Hq, hd).
+    """Query-chunked causal attention, over the last ``window`` keys of each
+    query when given (``qpos - kpos < window``); returns (B, S, Hq, hd).
 
     Each chunk of ``q_chunk`` queries sees every key, so the softmax is
     the full row softmax; the chunking only bounds score memory."""
@@ -82,6 +93,8 @@ def gqa_attention(
         scores = torch.einsum("bskgh,btkh->bkgst", qs, k).float() * scale
         qpos = start + torch.arange(n, device=q.device)
         mask = qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            mask &= qpos[:, None] - kpos[None, :] < window
         scores = torch.where(mask, scores, torch.tensor(-1e30, dtype=scores.dtype, device=q.device))
         p = torch.softmax(scores, dim=-1).to(q.dtype)
         return torch.einsum("bkgst,btkh->bskgh", p, v)
@@ -95,10 +108,11 @@ def gqa_attention(
 
 
 class AttentionBlock(nn.Module):
-    """``{'wq', 'wk', 'wv', 'wo'}``: project, RoPE, attend, out-project
-    (training path: no KV cache)."""
+    """``{'wq', 'wk', 'wv', 'wo'}``: project, RoPE, attend (causal, over the
+    last ``window`` keys when given), out-project (training path: no KV
+    cache)."""
 
-    def __init__(self, cfg: ArchConfig, att: Attention, device=None):
+    def __init__(self, cfg: ArchConfig, att: Attention, device=None, window: int | None = None):
         super().__init__()
         if cfg.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {cfg.attn_impl!r}")
@@ -106,7 +120,7 @@ class AttentionBlock(nn.Module):
         qd, kvd = att.n_heads * att.head_dim, att.n_kv_heads * att.head_dim
         mk = lambda *shape: nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
         self.wq, self.wk, self.wv, self.wo = mk(d, qd), mk(d, kvd), mk(d, kvd), mk(qd, d)
-        self.cfg, self.att = cfg, att
+        self.cfg, self.att, self.window = cfg, att, window
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         att = self.att
@@ -117,20 +131,24 @@ class AttentionBlock(nn.Module):
         q = apply_rope(q, positions, att.rope_theta)
         k = apply_rope(k, positions, att.rope_theta)
         if self.cfg.attn_impl == "flash":
-            o = flash_attention_train(q, k, v, causal=True)
+            o = flash_attention_train(q, k, v, causal=True, window=self.window)
         else:
-            o = gqa_attention(q, k, v, q_chunk=self.cfg.q_chunk)
+            o = gqa_attention(q, k, v, window=self.window, q_chunk=self.cfg.q_chunk)
         return o.reshape(B, S, -1).to(x.dtype) @ self.wo
 
 
 class MLP(nn.Module):
-    """SwiGLU: ``silu(x @ w_gate) * (x @ w_up) @ w_down``."""
+    """SwiGLU ``silu(x @ w_gate) * (x @ w_up) @ w_down``, or GeGLU with the
+    tanh-approximated GeLU in place of SiLU (``cfg.mlp``)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
         mk = lambda *shape: nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
         self.w_gate, self.w_up, self.w_down = mk(d, f), mk(d, f), mk(f, d)
+        self.geglu = cfg.mlp == "geglu"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+        z = x @ self.w_gate
+        act = F.gelu(z, approximate="tanh") if self.geglu else F.silu(z)
+        return (act * (x @ self.w_up)) @ self.w_down

@@ -1,21 +1,30 @@
-"""Decoder-only LM, dense ``('attn',)`` path (counterpart of
-``repro/models/transformer.py``).
+"""Decoder-only LM over block patterns (counterpart of
+``repro/models/transformer.py``): dense ``('attn',)`` stacks and the
+Griffin hybrid of ``'rec'`` (RG-LRU) and ``'attn_local'`` sublayers.
 
 Parameters are held per layer, so that a gradient hook fires per layer::
 
     embed                       (vocab, d)  f32
-    stages.<i>.attn_0.attn.{wq,wk,wv,wo}
-    stages.<i>.attn_0.mlp.{w_gate,w_up,w_down}
-    stages.<i>.attn_0.norm{1,2}.scale
+    stages.<i>.<kind>_<j>.norm{1,2}.scale
+    stages.<i>.attn_0.attn.{wq,wk,wv,wo}          ('attn' / 'attn_local')
+    stages.<i>.rec_0.mix.{w_main,w_gate,conv_w,conv_b,wa,ba,wx,bx,lam,w_out}
+    stages.<i>.<kind>_<j>.mlp.{w_gate,w_up,w_down}
+    tail.<kind>_<j>....         like one stage, for ``tail_pattern``
     final_norm.scale
-    head                        (d, vocab)  param_dtype
+    head                        (d, vocab)  param_dtype; absent when tied
 
 The JAX package stacks ``stages`` on a leading ``n_stages`` axis
-(``params['stages']['attn_0']['attn']['wq']`` is ``(n_stages, d, qd)``).
-``param_shapes`` gives the port's parameters in that stacked shape tree,
-which is what the planning layout is built over, and
-``from_jax_params`` / ``to_jax_params`` convert numpy weights between the
-two forms.
+(``params['stages']['attn_0']['attn']['wq']`` is ``(n_stages, d, qd)``);
+``tail`` is not stacked.  ``param_shapes`` gives the port's parameters in
+that stacked shape tree, which is what the planning layout is built over,
+and ``from_jax_params`` / ``to_jax_params`` convert numpy weights between
+the two forms.
+
+Tied embeddings (gemma): the head is ``embed.T`` cast to ``param_dtype``
+once per step, and the embedding output is scaled by ``sqrt(d)``.  At a
+vocab of 64k or more and a sequence longer than (and a multiple of) 512
+tokens the loss runs per 512-token chunk under activation checkpointing,
+so the (B, S, vocab) f32 logits are never held whole.
 """
 
 from __future__ import annotations
@@ -29,16 +38,21 @@ from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from .common import ArchConfig
-from .layers import MLP, AttentionBlock, RMSNorm
+from .layers import MLP, MLPS, NORMS, AttentionBlock, RMSNorm
+from .rglru import RGLRUBlock, lam_init
+
+KINDS = ("attn", "attn_local", "rec")
+CHUNKED_CE_VOCAB = 64000  # big-vocab archs never materialize full logits
+CE_SEQ_CHUNK = 512
 
 
 def _check_supported(cfg: ArchConfig) -> None:
+    kinds = set(cfg.pattern) | set(cfg.tail_pattern)
     unsupported = {
-        "pattern": cfg.pattern != ("attn",),
-        "tail_pattern": bool(cfg.tail_pattern),
-        "tie_embeddings": cfg.tie_embeddings,
-        "norm": cfg.norm != "rmsnorm",
-        "mlp": cfg.mlp != "swiglu",
+        "pattern": not kinds <= set(KINDS),
+        "recurrent": "rec" in kinds and (cfg.recurrent is None or cfg.recurrent.kind != "rglru"),
+        "norm": cfg.norm not in NORMS,
+        "mlp": cfg.mlp not in MLPS,
         "attention": cfg.attention is None,
         "remat": cfg.remat not in ("full", "none"),
     }
@@ -48,18 +62,31 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 
 class SubLayer(nn.Module):
-    """One ``'attn'`` sublayer: pre-norm attention, then pre-norm MLP."""
+    """One sublayer: pre-norm attention (``'attn'``; ``'attn_local'`` over
+    ``cfg.local_window`` keys) or pre-norm RG-LRU block (``'rec'``, held as
+    ``mix``), then pre-norm MLP."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
-        self.norm1 = RMSNorm(cfg.d_model, cfg.param_dtype, device)
-        self.norm2 = RMSNorm(cfg.d_model, cfg.param_dtype, device)
-        self.attn = AttentionBlock(cfg, cfg.attention, device)
+        gemma = cfg.norm == "rmsnorm_gemma"
+        self.norm1 = RMSNorm(cfg.d_model, cfg.param_dtype, device, gemma)
+        self.norm2 = RMSNorm(cfg.d_model, cfg.param_dtype, device, gemma)
+        if kind == "rec":
+            self.mix = RGLRUBlock(cfg, device)
+        else:
+            window = cfg.local_window if kind == "attn_local" else None
+            self.attn = AttentionBlock(cfg, cfg.attention, device, window=window)
         self.mlp = MLP(cfg, device)
+        self.kind = kind
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), positions)
+        h = self.norm1(x)
+        x = x + (self.mix(h) if self.kind == "rec" else self.attn(h, positions))
         return x + self.mlp(self.norm2(x))
+
+
+def _sublayers(cfg: ArchConfig, pattern: tuple[str, ...], device) -> nn.ModuleDict:
+    return nn.ModuleDict({f"{kind}_{i}": SubLayer(cfg, kind, device) for i, kind in enumerate(pattern)})
 
 
 class Transformer(nn.Module):
@@ -75,12 +102,13 @@ class Transformer(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, dtype=torch.float32, device=device))
-        self.stages = nn.ModuleList(
-            nn.ModuleDict({f"{kind}_{i}": SubLayer(cfg, device) for i, kind in enumerate(cfg.pattern)})
-            for _ in range(cfg.n_stages)
-        )
-        self.final_norm = RMSNorm(cfg.d_model, cfg.param_dtype, device)
-        self.head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab, dtype=cfg.param_dtype, device=device))
+        self.stages = nn.ModuleList(_sublayers(cfg, cfg.pattern, device) for _ in range(cfg.n_stages))
+        if cfg.tail_pattern:
+            self.tail = _sublayers(cfg, cfg.tail_pattern, device)
+        self.final_norm = RMSNorm(cfg.d_model, cfg.param_dtype, device, cfg.norm == "rmsnorm_gemma")
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(
+                torch.empty(cfg.d_model, cfg.vocab, dtype=cfg.param_dtype, device=device))
         if seed is not None and device.type != "meta":
             self.reset_parameters(seed)
 
@@ -96,41 +124,91 @@ class Transformer(nn.Module):
 
         tn(self.embed, 1.0)
         d, qd = cfg.d_model, att.n_heads * att.head_dim
-        for stage in self.stages:
-            for sub in stage.values():
+        norm_init = 0.0 if cfg.norm == "rmsnorm_gemma" else 1.0
+        for sub in self.sublayers():
+            if sub.kind == "rec":
+                m = sub.mix
+                w, cw = m.wa.shape[0], m.conv_w.shape[0]
+                tn(m.w_main, d ** -0.5)
+                tn(m.w_gate, d ** -0.5)
+                tn(m.conv_w, cw ** -0.5)
+                tn(m.wa, w ** -0.5)
+                tn(m.wx, w ** -0.5)
+                tn(m.w_out, w ** -0.5)
+                for z in (m.conv_b, m.ba, m.bx):
+                    z.zero_()
+                m.lam.copy_(lam_init(w, m.lam.device))
+            else:
                 for w in (sub.attn.wq, sub.attn.wk, sub.attn.wv):
                     tn(w, d ** -0.5)
                 tn(sub.attn.wo, qd ** -0.5)
-                tn(sub.mlp.w_gate, d ** -0.5)
-                tn(sub.mlp.w_up, d ** -0.5)
-                tn(sub.mlp.w_down, cfg.d_ff ** -0.5)
-                sub.norm1.scale.fill_(1.0)
-                sub.norm2.scale.fill_(1.0)
-        self.final_norm.scale.fill_(1.0)
-        tn(self.head, d ** -0.5)
+            tn(sub.mlp.w_gate, d ** -0.5)
+            tn(sub.mlp.w_up, d ** -0.5)
+            tn(sub.mlp.w_down, cfg.d_ff ** -0.5)
+            sub.norm1.scale.fill_(norm_init)
+            sub.norm2.scale.fill_(norm_init)
+        self.final_norm.scale.fill_(norm_init)
+        if not cfg.tie_embeddings:
+            tn(self.head, d ** -0.5)
+
+    def sublayers(self) -> list[SubLayer]:
+        """Every sublayer in forward order: the stages', then the tail's."""
+        subs = [sub for stage in self.stages for sub in stage.values()]
+        if self.cfg.tail_pattern:
+            subs += list(self.tail.values())
+        return subs
 
     def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         """Final-norm hidden states (B, S, d) of the token batch."""
         cfg = self.cfg
         x = nn.functional.embedding(tokens, self.embed).to(cfg.param_dtype)
+        if cfg.tie_embeddings:  # gemma scaling
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.param_dtype, device=x.device)
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        for stage in self.stages:
-            for sub in stage.values():
-                if cfg.remat == "full" and torch.is_grad_enabled():
-                    x = checkpoint(sub, x, positions, use_reentrant=False)
-                else:
-                    x = sub(x, positions)
+        for sub in self.sublayers():
+            if cfg.remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(sub, x, positions, use_reentrant=False)
+            else:
+                x = sub(x, positions)
         return self.final_norm(x)
 
     def loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token cross-entropy (the JAX package's ``loss_fn``,
-        standard path: full logits, no chunking below 64k vocab)."""
+        """Mean next-token cross-entropy (the JAX package's ``loss_fn``)."""
         x = self.hidden(batch["tokens"])
-        logits = (x @ self.head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, batch["targets"][..., None].long())[..., 0]
-        return torch.mean(lse - ll)
+        # tied: cast once per step, outside the checkpointed loss chunks
+        head = self.embed.T.to(self.cfg.param_dtype) if self.cfg.tie_embeddings else self.head
+        return ce_from_hidden(self.cfg, head, x, batch["targets"])
+
+
+def _token_nll(head: torch.Tensor, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logits = (x @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, targets[..., None].long())[..., 0]
+
+
+def _chunk_nll(head: torch.Tensor, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return torch.sum(_token_nll(head, x, targets))
+
+
+def ce_from_hidden(cfg: ArchConfig, head: torch.Tensor, x: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy from the final-norm hidden states (the JAX
+    package's ``_ce_from_hidden``, unmasked).  ``head`` is (d, vocab).
+
+    Chunked path (vocab >= 64k, sequence a multiple of 512 and longer): the
+    loss is summed per 512-token chunk, each under activation checkpointing,
+    so only one chunk's (B, 512, vocab) f32 logits exist at a time, in the
+    forward and again in backward."""
+    B, seq = targets.shape
+    if cfg.vocab >= CHUNKED_CE_VOCAB and seq > CE_SEQ_CHUNK and seq % CE_SEQ_CHUNK == 0:
+        parts = [
+            checkpoint(_chunk_nll, head, x[:, c : c + CE_SEQ_CHUNK],
+                       targets[:, c : c + CE_SEQ_CHUNK], use_reentrant=False)
+            for c in range(0, seq, CE_SEQ_CHUNK)
+        ]
+        return torch.sum(torch.stack(parts)) / (B * seq)
+    return torch.mean(_token_nll(head, x, targets))
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,16 @@ see no key give 0; two runs give the same bits; and one reduced training
 step with the flash kernels gives bitwise the same parameters for the
 ``post`` and ``dag`` issue orders.
 
+rglru: the forward and backward kernels against their plain versions
+(the sequential loop and its reverse) at the JAX tests' first shape, a
+ragged one and the main path's (1, 4096, 4096), with and without h0:
+h / hT within 1e-5 (the tolerance of ``tests/test_kernels.py``), gradients
+within 1e-5 x max(1, max|g|) (the kernels reassociate the carry across
+time chunks; the plain versions do not); hT is exactly h[:, -1], two runs
+give the same bits, a run split at T/2 and threaded through hT -> h0
+matches one run; and reduced RecurrentGemma trains bitwise equal under
+``post`` and ``dag``.
+
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU interpret mode):
 they carry the ``cuda`` marker and skip elsewhere.  The file imports no
 JAX, so it runs on a machine that has only the port's dependencies:
@@ -25,6 +35,7 @@ import torch
 
 from _torch_env import bits, require_cuda
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rglru as rg
 from repro_torch.kernels.comm_pack import (
     pack_arena,
     pack_arena_ref,
@@ -158,6 +169,94 @@ def test_cuda_reduced_step_post_and_dag_bitwise_equal_with_flash():
     for order in ("post", "dag"):
         res = run(["--arch", "tinyllama-1.1b", "--reduced", "--steps", "2", "--batch", "2",
                    "--seq", "64", "--fuse", "arena", "--issue-order", order], quiet=True)
+        params.append((res.losses, {n: p.detach().cpu() for n, p in res.model.named_parameters()}))
+    assert params[0][0] == params[1][0]
+    for n, p in params[0][1].items():
+        assert torch.equal(p, params[1][1][n]), n
+
+
+def _rglru_inputs(B, T, W, device, seed=0):
+    """As tests/test_kernels.py draws them: a = sigmoid(2 n + 2), g = 0.5 n;
+    h0 = n, and a cotangent dh = n and dhT = n."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    return (torch.sigmoid(2.0 * n(B, T, W) + 2.0), 0.5 * n(B, T, W), n(B, W), n(B, T, W),
+            n(B, W))
+
+
+def _grad_close(got, want, name):
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * max(1.0, float(want.abs().max())), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("shape", [(2, 64, 128), (3, 300, 40), (1, 4096, 4096)],
+                         ids=["jax-test", "ragged", "main-path"])
+def test_cuda_rglru_kernels_match_plain(shape, with_h0):
+    dev = require_cuda()
+    a, g, h0, dh, dhT = _rglru_inputs(*shape, dev)
+    h0 = h0 if with_h0 else None
+    rg.reset_counts()
+    h, hT = rg.rglru_fwd(a, g, h0)
+    da, dg, dh0 = rg.rglru_bwd(a, h, h0, dh, dhT)
+    torch.cuda.synchronize()
+    assert (rg.rglru_fwd.launches, rg.rglru_bwd.launches) == (1, 1)
+    assert (rg.rglru_fwd.ref_calls, rg.rglru_bwd.ref_calls) == (0, 0)
+    want_h, want_hT = rg.rglru_ref(a, g, h0)
+    torch.testing.assert_close(h, want_h, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hT, want_hT, rtol=1e-5, atol=1e-5)
+    assert torch.equal(hT, h[:, -1])
+    want_da, want_dg, want_dh0 = rg.rglru_bwd_ref(a, h, h0, dh, dhT)
+    _grad_close(da, want_da, "da")
+    _grad_close(dg, want_dg, "dg")
+    assert (dh0 is None) == (h0 is None)
+    if h0 is not None:
+        _grad_close(dh0, want_dh0, "dh0")
+    h2, _ = rg.rglru_fwd(a, g, h0)
+    da2, dg2, _ = rg.rglru_bwd(a, h, h0, dh, dhT)
+    assert torch.equal(h2, h) and torch.equal(da2, da) and torch.equal(dg2, dg)
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_state_threading_and_autograd():
+    dev = require_cuda()
+    a, g, _, dh, _ = _rglru_inputs(1, 1024, 256, dev, seed=3)
+    h_full, hT_full = rg.rglru_fwd(a, g)
+    h_a, s_a = rg.rglru_fwd(a[:, :512], g[:, :512])
+    h_b, s_b = rg.rglru_fwd(a[:, 512:], g[:, 512:], s_a)
+    torch.testing.assert_close(torch.cat([h_a, h_b], dim=1), h_full, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s_b, hT_full, rtol=1e-5, atol=1e-5)
+    # the autograd op launches the forward kernel, then the backward kernel
+    rg.reset_counts()
+    ag = a.clone().requires_grad_()
+    h, _ = rg.rglru(ag, g)
+    h.backward(dh)
+    assert (rg.rglru_fwd.launches, rg.rglru_bwd.launches) == (1, 1)
+    want_da, _, _ = rg.rglru_bwd_ref(a, h.detach(), None, dh)
+    _grad_close(ag.grad, want_da, "da")
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_rejects_what_the_kernels_do_not_take():
+    dev = require_cuda()
+    a, g, h0, _, _ = _rglru_inputs(1, 64, 32, dev)
+    with pytest.raises(TypeError, match="float32"):
+        rg.rglru_fwd(a.to(torch.bfloat16), g.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="one device"):
+        rg.rglru_fwd(a, g, h0.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_recurrentgemma_post_and_dag_bitwise_equal():
+    require_cuda()
+    from repro_torch.launch.train import run
+
+    params = []
+    for order in ("post", "dag"):
+        res = run(["--arch", "recurrentgemma-9b", "--reduced", "--steps", "2", "--batch", "2",
+                   "--seq", "128", "--fuse", "arena", "--policy", "wfbp",
+                   "--issue-order", order], quiet=True)
         params.append((res.losses, {n: p.detach().cpu() for n, p in res.model.named_parameters()}))
     assert params[0][0] == params[1][0]
     for n, p in params[0][1].items():

@@ -46,13 +46,15 @@ def test_every_module_imports_without_jax_or_repro():
     for mod in ("repro_torch.core.sync", "repro_torch.core.trainer",
                 "repro_torch.kernels._build", "repro_torch.kernels.comm_pack.ops",
                 "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.kernels.rglru.ops", "repro_torch.kernels.rglru.ref",
+                "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b",
                 "repro_torch.launch.train"):
         assert mod in rec["modules"]
 
 
-def _cli(*args: str) -> str:
+def _cli(*args: str, arch: str = "tinyllama-1.1b") -> str:
     out = subprocess.run(
-        [sys.executable, "-c", CLI_WITHOUT_JAX, "--arch", "tinyllama-1.1b", "--reduced",
+        [sys.executable, "-c", CLI_WITHOUT_JAX, "--arch", arch, "--reduced",
          "--device", "cpu", *args],
         capture_output=True, text=True, timeout=300, cwd=REPO_ROOT,
         env=dict(SUBPROC_ENV, OMP_NUM_THREADS="2"),
@@ -74,6 +76,14 @@ def test_cli_smoke_on_cpu(extra):
     stdout = _cli("--steps", "2", "--fuse", "arena", *extra)
     assert "plan[mg_wfbp" in stdout
     assert f"attn={'plain' if '--attn-impl' in extra else 'flash'}" in stdout
+    assert "[train] done: 2 steps" in stdout, stdout[-2000:]
+
+
+def test_cli_smoke_recurrentgemma_on_cpu():
+    """The hybrid family through the same CLI: RG-LRU and local-attention
+    sublayers, the tail and tied embeddings, with no JAX in the process."""
+    stdout = _cli("--steps", "2", "--fuse", "arena", *SMALL, arch="recurrentgemma-9b")
+    assert "plan[mg_wfbp" in stdout
     assert "[train] done: 2 steps" in stdout, stdout[-2000:]
 
 
@@ -109,7 +119,8 @@ def test_model_defaults_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("modname", [
     "repro_torch.planning", "repro_torch.fabric", "repro_torch.core.sync",
-    "repro_torch.kernels.comm_pack", "repro_torch.kernels.flash_attention", "repro_torch.kernels",
+    "repro_torch.kernels.comm_pack", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.rglru", "repro_torch.kernels",
     "repro_torch.models", "repro_torch.optim",
 ])
 def test_public_exports_have_docstrings(modname):
