@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` (one
-nvcc per source, sm_90a, all started together) and runs seven phases; any
+nvcc per source, sm_90a, all started together) and runs ten phases; any
 failure exits non-zero.
 
 1. Kernels.  The comm_pack pack (B1) and unpack (B2) kernels against their
@@ -39,6 +39,18 @@ failure exits non-zero.
    library yardstick).  The flash kernels at RecurrentGemma's attention (B 1,
    S 4096, 16 query heads over 1 KV head, hd 256, causal, window 2048, bf16)
    against their plain versions, timed beside SDPA with the same window mask.
+1d. WKV6.  The RWKV6 recurrence kernels ``wkv_fwd`` (B7) and ``wkv_bwd`` (its
+   gradient) against their plain versions on the same CUDA tensors, at the
+   four shapes of the JAX package's WKV tests and at the main path's
+   (1, 4096, 64, 64), r/k/v in f32 and bf16, with and without s0 and
+   ds_final: out / s_final within 2e-4 (+ 2e-4 relative), every gradient
+   (dr, dk, dv, dw, du, ds0) within 2e-4 x max(1, max|g|); a strong-decay
+   case (w in (0.05, 0.3), T 256); a run split at T/2 and threaded through
+   s_final -> s0 matches one run; a second run gives the same bits.  Then
+   each kernel's time per launch at the main path's shape (bf16 r/k/v, no
+   s0 / ds_final, as the path calls them) beside its bound and its plain
+   version's (no single PyTorch call computes the recurrence, so no library
+   yardstick).
 2. Reduced model.  Reduced tinyllama in fp32 with the flash kernels, loss
    and every gradient on the card against the same model on the CPU (the
    kernels' plain versions; loss rtol 1e-5, gradient max-abs <= 1e-4 x
@@ -46,6 +58,8 @@ failure exits non-zero.
 2b. Reduced RecurrentGemma in fp32 (RG-LRU and local-attention layers, the
    tail, tied embeddings), the same comparison and tolerances, with the
    RG-LRU and flash launch counts checked on both sides.
+2c. Reduced RWKV6 in fp32, the same comparison and tolerances, with the WKV
+   launch counts checked on the card and the plain calls on the CPU.
 3. Full-width training.  TinyLlama-1.1B, 22 layers, bf16 params,
    batch 4 x seq 512, ``--fuse arena --policy mg_wfbp --fabric gpu_nccl``
    on an NCCL world of 1, through ``repro_torch.launch.train.run``:
@@ -65,6 +79,12 @@ failure exits non-zero.
    unpack / ``issue()`` = groups x steps, and per step 12 ``rglru_fwd`` (6
    layers, each forward run twice under checkpointing), 6 ``rglru_bwd``, 4
    flash forwards, 2 dQ and 2 dK/dV, with no plain call.
+3c. Full-width RWKV6-7B cut to 8 layers (every width the published one),
+   bf16 params, batch 1 x seq 4096, the same launcher flags, ``post`` and
+   ``dag`` with f32 wire, 3 steps each from the same weights: finite losses,
+   ``dag`` bitwise equal to ``post``, pack / unpack / ``issue()`` = groups x
+   steps, and per step 16 ``wkv_fwd`` (8 layers, each forward run twice
+   under checkpointing) and 8 ``wkv_bwd``, with no plain call.
 
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
@@ -92,6 +112,7 @@ TRAIN_ARGS = [
 PACK_SRC = "src/repro_torch/kernels/comm_pack/csrc/comm_pack.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
+WKV_SRC = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu"
 MAIN_ATTN = (4, 512, 32, 4, 64)  # B, S, Hq, Hkv, hd of one full-width layer
 N_LAYERS = 22
 RG_ARGS = [
@@ -103,6 +124,14 @@ RG_REC_LAYERS, RG_ATTN_LAYERS = 6, 2
 MAIN_RGLRU = (1, 4096, 4096)  # B, T, lru_width of one full-width RG-LRU layer
 #: The JAX package's RG-LRU test shapes (tests/test_kernels.py): B, T, W.
 JAX_RGLRU_SHAPES = [(2, 64, 128), (1, 128, 256), (1, 256, 512)]
+RWKV_ARGS = [
+    "--arch", "rwkv6-7b", "--steps", "3", "--batch", "1", "--seq", "4096",
+    "--fuse", "arena", "--policy", "mg_wfbp", "--fabric", "gpu_nccl",
+]
+RWKV_LAYERS = 8  # the published 32 do not fit one card under AdamW (PERF.md)
+MAIN_WKV = (1, 4096, 64, 64)  # B, T, heads, head size of one full-width RWKV6 layer
+#: The JAX package's WKV test shapes (tests/test_kernels.py): B, T, H, K.
+JAX_WKV_SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (1, 256, 1, 64), (2, 96, 2, 32)]
 #: B, S, Hq, Hkv, hd, causal, window, softcap of RecurrentGemma-9B's local attention.
 RG_ATTN = (1, 4096, 16, 1, 256, True, 2048, None)
 #: The JAX package's flash-attention test shapes (tests/test_kernels.py):
@@ -684,6 +713,120 @@ def phase_rg_flash(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 1d: the WKV6 kernels
+# ---------------------------------------------------------------------------
+
+
+def wkv_inputs(B, T, H, K, device, seed, dtype, w_range=None):
+    """As the JAX package's tests draw them: r, k, v = n (in ``dtype``),
+    w = exp(-exp(U(-6, -0.8))) in ~(0.63, 0.999) (or uniform in ``w_range``),
+    u = 0.5 n; s0 and the cotangents dout and ds_final = n."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    r, k, v = (n(B, T, H, K).to(dtype) for _ in range(3))
+    x = torch.rand(B, T, H, K, generator=gen, device=device)
+    w = (w_range[0] + (w_range[1] - w_range[0]) * x if w_range
+         else torch.exp(-torch.exp(-6.0 + 5.2 * x)))
+    return r, k, v, w, 0.5 * n(H, K), n(B, H, K, K), n(B, T, H, K), n(B, H, K, K)
+
+
+def phase_wkv(device):
+    import torch
+    from repro_torch.kernels import rwkv6_wkv as wk
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+    def check(inputs, tag):
+        r, k, v, w, u, s0, dout, ds = inputs
+        out, s_final = wk.wkv_fwd(r, k, v, w, u, s0)
+        grads = wk.wkv_bwd(r, k, v, w, u, s0, dout, ds)
+        want_out, want_s = wk.wkv_ref(r, k, v, w, u, s0)
+        want = wk.wkv_bwd_ref(r, k, v, w, u, s0, dout, ds)
+        torch.cuda.synchronize()
+        for name, got, ref in (("out", out, want_out), ("s_final", s_final, want_s)):
+            d = (got - ref).abs()
+            if not bool((d <= 2e-4 + 2e-4 * ref.abs()).all()) or not torch.isfinite(got).all():
+                fail(f"wkv {name} differs from its plain version at {tag}: max |diff| "
+                     f"{float(d.max()):.3e}")
+            errs["fwd"] = max(errs["fwd"], float(d.max()))
+        if (grads[-1] is None) != (s0 is None):
+            fail(f"wkv ds0 is {grads[-1]!r} with s0 {'absent' if s0 is None else 'given'} at {tag}")
+        for name, got, ref in zip(names, grads, want):
+            if ref is None:
+                continue
+            d = float((got - ref).abs().max())
+            if not d <= 2e-4 * max(1.0, float(ref.abs().max())):
+                fail(f"wkv {name} differs from its plain version at {tag}: max |diff| {d:.3e}, "
+                     f"max |g| {float(ref.abs().max()):.3e}")
+            errs["bwd"] = max(errs["bwd"], d)
+        out2, s2 = wk.wkv_fwd(r, k, v, w, u, s0)
+        grads2 = wk.wkv_bwd(r, k, v, w, u, s0, dout, ds)
+        if not (torch.equal(out2, out) and torch.equal(s2, s_final) and all(
+                (a is None and b is None) or torch.equal(a, b) for a, b in zip(grads, grads2))):
+            fail(f"wkv: a second run on the same inputs gave other bits at {tag}")
+
+    n = 0
+    for i, shape in enumerate(JAX_WKV_SHAPES + [MAIN_WKV]):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_state in (False, True):
+                r, k, v, w, u, s0, dout, ds = wkv_inputs(*shape, device, 60 + i, dtype)
+                if not with_state:
+                    s0, ds = None, None
+                check((r, k, v, w, u, s0, dout, ds),
+                      f"{shape} {str(dtype)[6:]}{' s0/ds_final' if with_state else ''}")
+                n += 1
+    check(wkv_inputs(1, 256, 4, 64, device, 70, torch.float32, w_range=(0.05, 0.3)),
+          "(1, 256, 4, 64) strong decay w in (0.05, 0.3)")
+    B, T, H, K = MAIN_WKV
+    r, k, v, w, u, _, dout, _ = wkv_inputs(B, T, H, K, device, 1, torch.bfloat16)
+    out, s_final = wk.wkv_fwd(r, k, v, w, u)
+    h = T // 2
+    out_a, s_a = wk.wkv_fwd(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u)
+    out_b, s_b = wk.wkv_fwd(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s_a)
+    split = max(float((torch.cat([out_a, out_b], 1) - out).abs().max()),
+                float((s_b - s_final).abs().max()))
+    if split > 2e-4 * max(1.0, float(out.abs().max())):
+        fail(f"wkv: a run split at T/2 and threaded through s_final -> s0 differs by {split:.3e}")
+    say(f"phase 1d: wkv fwd/bwd within tolerance of the plain versions on {n + 1} cases "
+        f"(max |diff| out/s_final {errs['fwd']:.3e}, gradients {errs['bwd']:.3e}; strong decay "
+        f"included); split at T/2 through s_final -> s0 {split:.3e}; repeated runs bitwise equal")
+
+    # --- timing at the main path's shape, as the path calls them (bf16 r/k/v,
+    # no s0, no ds_final)
+    elems, steps_states = B * T * H * K, B * T * H * K * K
+    # bytes: each input read once, each output written once; operations per state
+    # element per step: forward r·S (2) and S w + k v (3); backward the same state
+    # recomputed (3), dS (3), dS·k, dS·v, S·do, dS⊙S (2 each)
+    work = {"fwd": ((3 * 2 + 4 + 4) * elems + 4 * H * K + 4 * B * H * K * K, 5 * steps_states),
+            "bwd": ((3 * 2 + 4 + 4 + 4 * 4) * elems + 2 * 4 * H * K, 14 * steps_states)}
+    calls = {"fwd": (lambda: wk.wkv_fwd(r, k, v, w, u), lambda: wk.wkv_ref(r, k, v, w, u)),
+             "bwd": (lambda: wk.wkv_bwd(r, k, v, w, u, None, dout),
+                     lambda: wk.wkv_bwd_ref(r, k, v, w, u, None, dout))}
+    timings = {}
+    for name, (kern, plain) in calls.items():
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        timings[name] = t = {
+            "ms": median_ms(kern), "plain_ms": median_ms(plain, reps=3, warmup=1),
+            "library_ms": None, "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        say(f"phase 1d: wkv {name} {MAIN_WKV} bf16 r/k/v, one launch: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library none (no PyTorch call computes the WKV "
+            f"recurrence), {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+            f"({t['bound_ms'] / t['ms'] * 100:.1f}% of bound)")
+    del r, k, v, w, u, dout, out, out_a, out_b
+    torch.cuda.empty_cache()
+    wk.reset_counts()
+    return errs, timings
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: the reduced model on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -695,6 +838,7 @@ def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") ->
     from repro_torch.data import DataConfig, make_stream
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6_wkv as wk
     from repro_torch.models import Transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -705,6 +849,7 @@ def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") ->
     cpu_model = Transformer(cfg, device="cpu", seed=0)
     fa.reset_counts()
     rg.reset_counts()
+    wk.reset_counts()
     for dev in (torch.device("cpu"), device):
         model = cpu_model if dev.type == "cpu" else Transformer(cfg, device=dev, seed=None)
         if dev.type != "cpu":
@@ -718,14 +863,16 @@ def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") ->
     # the card through the kernels, the CPU through the plain versions
     kinds = cfg.block_kinds()
     n_attn, n_rec = sum(k.startswith("attn") for k in kinds), kinds.count("rec")
+    n_rwkv = kinds.count("rwkv")
     for fn, n in ((fa.flash_attention_fwd, 2 * n_attn), (fa.flash_attention_dq, n_attn),
                   (fa.flash_attention_dkv, n_attn), (rg.rglru_fwd, 2 * n_rec),
-                  (rg.rglru_bwd, n_rec)):
+                  (rg.rglru_bwd, n_rec), (wk.wkv_fwd, 2 * n_rwkv), (wk.wkv_bwd, n_rwkv)):
         if (fn.launches, fn.ref_calls) != (n, n):
             fail(f"{tag}: {fn.__name__} launched {fn.launches} and took the plain version "
                  f"{fn.ref_calls} times, expected {n} each")
     fa.reset_counts()
     rg.reset_counts()
+    wk.reset_counts()
     if not math.isfinite(l_gpu) or abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu):
         fail(f"{tag}: reduced loss on the card {l_gpu} vs CPU {l_cpu}")
     worst = 0.0
@@ -736,7 +883,9 @@ def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") ->
         worst = max(worst, rel)
         if rel > 1e-4:
             fail(f"{tag}: gradient {n}: max-abs error {rel:.3e} x max|g|")
-    kernels = "the flash kernels" + (" and the RG-LRU kernels" if n_rec else "")
+    kernels = " and ".join(name for name, n in (("the flash kernels", n_attn),
+                                                 ("the RG-LRU kernels", n_rec),
+                                                 ("the WKV kernels", n_rwkv)) if n)
     say(f"{tag}: reduced {arch} fp32 with {kernels}: loss {l_gpu:.6f} (CPU {l_cpu:.6f}), "
         f"worst gradient error {worst:.3e} x max|g| over {len(g_cpu)} leaves")
 
@@ -896,6 +1045,73 @@ def phase_rg_full_width(device):
     return counts
 
 
+def phase_rwkv_full_width(device):
+    """Full-width RWKV6-7B at 8 layers: ``post`` then ``dag``, 3 steps each
+    from the same weights, every launch counted."""
+    import torch
+    from repro_torch.fabric.ops import issue
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6_wkv as wk
+    from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
+    from repro_torch.launch.train import run
+
+    # every launch counter to 0 just before the main path, read just after
+    reset_counts()
+    fa.reset_counts()
+    rg.reset_counts()
+    wk.reset_counts()
+    issue.calls = 0
+    post_params, post_losses, groups, steps = None, None, None, 0
+    for name in ("post", "dag"):
+        res = run(RWKV_ARGS + ["--issue-order", name], quiet=True,
+                  overrides={"n_layers": RWKV_LAYERS})
+        n_groups = res.engine.sync.n_groups
+        groups = n_groups if groups is None else groups
+        if n_groups != groups:
+            fail(f"phase 3c {name}: {n_groups} groups, expected {groups}")
+        steps += len(res.losses)
+        if not all(math.isfinite(x) for x in res.losses):
+            fail(f"phase 3c {name}: non-finite loss {res.losses}")
+        step_s = statistics.median(res.step_seconds[1:])
+        say(f"phase 3c: rwkv6-7b x {RWKV_LAYERS} layers {name}_f32: losses "
+            f"{[round(x, 4) for x in res.losses]}, step {step_s * 1e3:.1f} ms (median of steps "
+            f"2-3), {res.tokens_per_step / step_s:,.0f} tokens/s, peak memory "
+            f"{(res.peak_memory_bytes or 0) / 2**30:.2f} GiB, {n_groups} groups")
+        params = {n: p.detach().cpu() for n, p in res.model.named_parameters()}
+        if name == "post":
+            post_params, post_losses = params, res.losses
+        else:
+            if res.losses != post_losses:
+                fail(f"phase 3c: dag losses {res.losses} != post losses {post_losses}")
+            for n, p in params.items():
+                if not torch.equal(p, post_params[n]):
+                    fail(f"phase 3c: dag parameter {n} differs from post")
+            say("phase 3c: dag parameters and losses bitwise equal to post")
+        del res, params
+        torch.cuda.empty_cache()
+    counts = {
+        "pack_launches": pack_arena.launches, "unpack_launches": unpack_arena.launches,
+        "issue_calls": issue.calls,
+    }
+    if not (counts["pack_launches"] == counts["unpack_launches"] == counts["issue_calls"]
+            == groups * steps) or pack_arena.ref_calls or unpack_arena.ref_calls:
+        fail(f"phase 3c: launch counts {counts}: expected {groups} groups x {steps} steps")
+    want = {"wkv_fwd": (wk.wkv_fwd, 2 * RWKV_LAYERS * steps),
+            "wkv_bwd": (wk.wkv_bwd, RWKV_LAYERS * steps),
+            "flash_fwd": (fa.flash_attention_fwd, 0), "rglru_fwd": (rg.rglru_fwd, 0)}
+    for name, (fn, n) in want.items():
+        counts[f"{name}_launches"] = fn.launches
+        if fn.launches != n or fn.ref_calls:
+            fail(f"phase 3c: {name}: {fn.launches} launches and {fn.ref_calls} plain calls, "
+                 f"expected {n} launches over {steps} steps and no plain call")
+    say(f"phase 3c: pack {counts['pack_launches']}, unpack {counts['unpack_launches']}, issue() "
+        f"{counts['issue_calls']} = {groups} groups x {steps} steps; wkv fwd "
+        f"{counts['wkv_fwd_launches']} (2 x {RWKV_LAYERS} layers x {steps} steps), bwd "
+        f"{counts['wkv_bwd_launches']}; 0 plain calls")
+    return counts
+
+
 def report_ptxas(log: str) -> None:
     """One line per kernel of ptxas's report: registers and spills."""
     name = None
@@ -918,6 +1134,7 @@ def main() -> None:
     from repro_torch.kernels.comm_pack.ops import SOURCE as PACK_SOURCE
     from repro_torch.kernels.flash_attention.ops import SOURCE as FLASH_SOURCE
     from repro_torch.kernels.rglru.ops import SOURCE as RGLRU_SOURCE
+    from repro_torch.kernels.rwkv6_wkv.ops import SOURCE as WKV_SOURCE
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -930,8 +1147,9 @@ def main() -> None:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    built = _build.build_many([PACK_SOURCE, FLASH_SOURCE, RGLRU_SOURCE])  # one nvcc each, in parallel
-    say(f"build: all three libraries in {time.perf_counter() - t0:.1f} s")
+    # one nvcc each, in parallel
+    built = _build.build_many([PACK_SOURCE, FLASH_SOURCE, RGLRU_SOURCE, WKV_SOURCE])
+    say(f"build: all four libraries in {time.perf_counter() - t0:.1f} s")
     for src, (lib, log, secs) in built.items():
         say(f"build: {lib.name} ({secs:.1f} s)" + ("" if log else " (already built)"))
         report_ptxas(log)
@@ -940,10 +1158,13 @@ def main() -> None:
     flash_errs, flash_timings = phase_flash(device)
     rglru_errs, rglru_timings = phase_rglru(device)
     rg_flash_errs, rg_flash_timings = phase_rg_flash(device)
+    wkv_errs, wkv_timings = phase_wkv(device)
     phase_reduced_model(device)
     phase_reduced_model(device, "recurrentgemma-9b", seq=128, tag="phase 2b")
+    phase_reduced_model(device, "rwkv6-7b", seq=64, tag="phase 2c")
     counts = phase_full_width(device)
     rg_counts = phase_rg_full_width(device)
+    rwkv_counts = phase_rwkv_full_width(device)
 
     main_cfg = timings["float32"]  # the main path's wire
     kernels = []
@@ -954,8 +1175,9 @@ def main() -> None:
             "route": "cuda",
             "source": PACK_SRC,
             "replaces": f"src/repro/kernels/comm_pack/kernel.py:{src_line}",
-            # phases 3 and 3b, each counted from 0 around its own runs
-            "launches": counts[f"{name}_launches"] + rg_counts[f"{name}_launches"],
+            # phases 3, 3b and 3c, each counted from 0 around its own runs
+            "launches": (counts[f"{name}_launches"] + rg_counts[f"{name}_launches"]
+                         + rwkv_counts[f"{name}_launches"]),
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -997,6 +1219,24 @@ def main() -> None:
             "replaces": replaces,
             "launches": rg_counts[f"rglru_{name}_launches"],
             "max_abs_err": rglru_errs[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    # the backward has no Pallas kernel: it stands in for JAX's autodiff of the
+    # chunked form that the JAX model runs
+    for name, replaces in (("fwd", "src/repro/kernels/rwkv6_wkv/kernel.py:31"),
+                           ("bwd", "src/repro/models/rwkv6.py:177")):
+        t = wkv_timings[name]
+        kernels.append({
+            "name": f"rwkv6_wkv.{name}",
+            "route": "cuda",
+            "source": WKV_SRC,
+            "replaces": replaces,
+            "launches": rwkv_counts[f"wkv_{name}_launches"],
+            "max_abs_err": wkv_errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],

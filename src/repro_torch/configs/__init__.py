@@ -3,8 +3,8 @@
 ``get_config(name)`` returns the full ArchConfig, ``get_reduced(name)`` a
 small same-family variant for CPU tests; keyword overrides replace fields
 of either, as the JAX registry's do.  The names are the JAX package's;
-``tinyllama-1.1b`` and ``recurrentgemma-9b`` are ported so far, and the
-others raise ``NotImplementedError`` (ROADMAP queue A9 lists them).
+``tinyllama-1.1b``, ``recurrentgemma-9b`` and ``rwkv6-7b`` are ported so
+far, and the others raise ``NotImplementedError`` (ROADMAP queue A9 lists them).
 """
 
 from __future__ import annotations
@@ -14,7 +14,11 @@ from importlib import import_module
 
 from ..models.common import ArchConfig
 
-_MODULES = {"tinyllama-1.1b": "tinyllama_1_1b", "recurrentgemma-9b": "recurrentgemma_9b"}
+_MODULES = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "rwkv6-7b": "rwkv6_7b",
+}
 
 #: Every arch the JAX package registers; the ones outside ``_MODULES`` are
 #: still to port.

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version.  Ported so far: ``comm_pack`` (the gradient-arena wire path),
-``flash_attention`` (forward, dQ and dK/dV) and ``rglru`` (the RG-LRU
-recurrence and its gradient).  The RWKV6 kernel is still to port."""
+version: ``comm_pack`` (the gradient-arena wire path), ``flash_attention``
+(forward, dQ and dK/dV), ``rglru`` (the RG-LRU recurrence and its
+gradient) and ``rwkv6_wkv`` (the RWKV6 WKV recurrence and its gradient).
+Every Pallas kernel of the JAX package has its counterpart here."""
 
 from .comm_pack import pack_arena, unpack_arena
 from .flash_attention import (  # the subpackages keep their names: their ops
@@ -12,9 +13,11 @@ from .flash_attention import (  # the subpackages keep their names: their ops
     flash_attention_train,
 )
 from .rglru import RGLRUScan, rglru_bwd, rglru_fwd
+from .rwkv6_wkv import WKV6Function, wkv_bwd, wkv_fwd
 
 __all__ = [
     "RGLRUScan",
+    "WKV6Function",
     "flash_attention_bwd",
     "flash_attention_dkv",
     "flash_attention_dq",
@@ -24,4 +27,6 @@ __all__ = [
     "rglru_bwd",
     "rglru_fwd",
     "unpack_arena",
+    "wkv_bwd",
+    "wkv_fwd",
 ]

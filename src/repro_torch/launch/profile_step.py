@@ -34,6 +34,7 @@ TOP = 15  # kernels listed by device time
 CLASSES = (
     ("flash_attention", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
     ("rglru", ("rglru_fwd_kernel", "rglru_bwd_kernel")),
+    ("rwkv6_wkv", ("wkv_fwd_kernel", "wkv_bwd_state_kernel", "wkv_bwd_decay_kernel")),
     ("comm_pack", ("pack_kernel", "unpack_kernel")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),

@@ -181,7 +181,7 @@ def prepare(argv: list[str] | None = None, *, quiet: bool = False,
         say(f"[train] {eng.plan.describe()}")
         say(f"[train] device {device}, world {world}, {eng.sync.n_groups} groups, "
             f"fuse={sync_cfg.fuse} wire={sync_cfg.wire_dtype} issue={args.issue_order} "
-            f"attn={cfg.attn_impl}")
+            f"attn={cfg.attn_impl if cfg.attention is not None else 'none'}")
         model = Transformer(cfg, device=device, seed=0)
         data = make_stream(
             DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch),

@@ -26,8 +26,8 @@ class Attention:
 
 @dataclasses.dataclass(frozen=True)
 class Recurrent:
-    """RG-LRU / RWKV-style recurrent block options (the port runs
-    ``kind='rglru'``)."""
+    """RG-LRU / RWKV-style recurrent block options (``'rec'`` sublayers run
+    ``kind='rglru'``, ``'rwkv'`` sublayers ``kind='rwkv6'``)."""
 
     kind: str  # 'rglru' | 'rwkv6'
     conv_width: int = 4  # temporal conv in the Griffin recurrent block
@@ -40,10 +40,12 @@ class ArchConfig:
     """One architecture (or a reduced smoke variant).
 
     The port runs patterns of ``'attn'``, ``'attn_local'`` (causal attention
-    over ``local_window`` keys) and ``'rec'`` (the RG-LRU block) sublayers,
-    with a tail, rmsnorm or gemma rmsnorm, swiglu or geglu, and tied or
-    untied embeddings; ``models.transformer`` raises on any other value
-    rather than computing something else."""
+    over ``local_window`` keys), ``'rec'`` (the RG-LRU block) and ``'rwkv'``
+    (the whole RWKV6 layer, its channel mix included: ``mlp='rwkv_cmix'``,
+    ``attention=None``) sublayers, with a tail, rmsnorm, gemma rmsnorm or
+    layernorm, swiglu or geglu, and tied or untied embeddings;
+    ``models.transformer`` raises on any other value rather than computing
+    something else."""
 
     name: str
     family: str  # audio|dense|moe|ssm|hybrid|vlm
@@ -57,8 +59,8 @@ class ArchConfig:
     pattern: tuple[str, ...] = ("attn",)
     tail_pattern: tuple[str, ...] = ()
     recurrent: Recurrent | None = None
-    norm: str = "rmsnorm"  # 'rmsnorm' | 'rmsnorm_gemma' (scale stored as scale - 1)
-    mlp: str = "swiglu"  # 'swiglu' | 'geglu'
+    norm: str = "rmsnorm"  # 'rmsnorm' | 'rmsnorm_gemma' (scale stored as scale - 1) | 'layernorm'
+    mlp: str = "swiglu"  # 'swiglu' | 'geglu' | 'rwkv_cmix' (inside the 'rwkv' block)
     tie_embeddings: bool = False
     param_dtype: Any = torch.bfloat16
     # local-attention window used by '*_local' pattern entries

@@ -1,5 +1,5 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``):
-RMSNorm (plain and gemma), RoPE, GQA attention (causal, optionally over a
+RMSNorm (plain and gemma), LayerNorm, RoPE, GQA attention (causal, optionally over a
 sliding window) and the gated MLPs (SwiGLU, GeGLU).
 
 ``ArchConfig.attn_impl`` picks the attention (the JAX package's
@@ -24,7 +24,7 @@ from ..kernels.flash_attention import flash_attention_train
 from .common import ArchConfig, Attention
 
 ATTN_IMPLS = ("flash", "plain")
-NORMS = ("rmsnorm", "rmsnorm_gemma")
+NORMS = ("rmsnorm", "rmsnorm_gemma", "layernorm")
 MLPS = ("swiglu", "geglu")
 
 
@@ -50,6 +50,30 @@ def apply_norm(scale: torch.Tensor, x: torch.Tensor, gemma: bool = False) -> tor
     if gemma:
         s = s + 1.0  # gemma stores scale - 1
     return (y * s).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """``{'scale': (dim,), 'bias': (dim,)}``: population variance, eps 1e-5,
+    computed in f32 and cast back to the input dtype."""
+
+    def __init__(self, dim: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+def make_norm(cfg: ArchConfig, device=None) -> nn.Module:
+    """The norm ``cfg.norm`` names, over ``d_model``."""
+    if cfg.norm == "layernorm":
+        return LayerNorm(cfg.d_model, cfg.param_dtype, device)
+    return RMSNorm(cfg.d_model, cfg.param_dtype, device, cfg.norm == "rmsnorm_gemma")
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:

@@ -1,16 +1,19 @@
 """Decoder-only LM over block patterns (counterpart of
-``repro/models/transformer.py``): dense ``('attn',)`` stacks and the
-Griffin hybrid of ``'rec'`` (RG-LRU) and ``'attn_local'`` sublayers.
+``repro/models/transformer.py``): dense ``('attn',)`` stacks, the Griffin
+hybrid of ``'rec'`` (RG-LRU) and ``'attn_local'`` sublayers, and RWKV6's
+``('rwkv',)`` stack.
 
 Parameters are held per layer, so that a gradient hook fires per layer::
 
     embed                       (vocab, d)  f32
-    stages.<i>.<kind>_<j>.norm{1,2}.scale
+    stages.<i>.<kind>_<j>.norm{1,2}.scale         (.bias too for layernorm)
     stages.<i>.attn_0.attn.{wq,wk,wv,wo}          ('attn' / 'attn_local')
     stages.<i>.rec_0.mix.{w_main,w_gate,conv_w,conv_b,wa,ba,wx,bx,lam,w_out}
     stages.<i>.<kind>_<j>.mlp.{w_gate,w_up,w_down}
+    stages.<i>.rwkv_0.{ln1,ln2,tm,cm}....         ('rwkv': the whole block,
+                                                   no norm1/norm2/mlp)
     tail.<kind>_<j>....         like one stage, for ``tail_pattern``
-    final_norm.scale
+    final_norm.scale            (.bias too for layernorm)
     head                        (d, vocab)  param_dtype; absent when tied
 
 The JAX package stacks ``stages`` on a leading ``n_stages`` axis
@@ -38,22 +41,26 @@ from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from .common import ArchConfig
-from .layers import MLP, MLPS, NORMS, AttentionBlock, RMSNorm
+from .layers import MLP, MLPS, NORMS, AttentionBlock, LayerNorm, make_norm
 from .rglru import RGLRUBlock, lam_init
+from .rwkv6 import LORA_DECAY, LORA_MIX, RWKV6Block
 
-KINDS = ("attn", "attn_local", "rec")
+KINDS = ("attn", "attn_local", "rec", "rwkv")
 CHUNKED_CE_VOCAB = 64000  # big-vocab archs never materialize full logits
 CE_SEQ_CHUNK = 512
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = set(cfg.pattern) | set(cfg.tail_pattern)
+    rec_kind = None if cfg.recurrent is None else cfg.recurrent.kind
     unsupported = {
         "pattern": not kinds <= set(KINDS),
-        "recurrent": "rec" in kinds and (cfg.recurrent is None or cfg.recurrent.kind != "rglru"),
+        "recurrent": ("rec" in kinds and rec_kind != "rglru")
+                     or ("rwkv" in kinds and rec_kind != "rwkv6"),
         "norm": cfg.norm not in NORMS,
-        "mlp": cfg.mlp not in MLPS,
-        "attention": cfg.attention is None,
+        # an 'rwkv' block carries its own channel mix; every other kind an MLP
+        "mlp": cfg.mlp not in MLPS if kinds - {"rwkv"} else cfg.mlp != "rwkv_cmix",
+        "attention": bool(kinds & {"attn", "attn_local"}) and cfg.attention is None,
         "remat": cfg.remat not in ("full", "none"),
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -68,9 +75,8 @@ class SubLayer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
-        gemma = cfg.norm == "rmsnorm_gemma"
-        self.norm1 = RMSNorm(cfg.d_model, cfg.param_dtype, device, gemma)
-        self.norm2 = RMSNorm(cfg.d_model, cfg.param_dtype, device, gemma)
+        self.norm1 = make_norm(cfg, device)
+        self.norm2 = make_norm(cfg, device)
         if kind == "rec":
             self.mix = RGLRUBlock(cfg, device)
         else:
@@ -85,8 +91,12 @@ class SubLayer(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
+def _sublayer(cfg: ArchConfig, kind: str, device) -> nn.Module:
+    return RWKV6Block(cfg, device) if kind == "rwkv" else SubLayer(cfg, kind, device)
+
+
 def _sublayers(cfg: ArchConfig, pattern: tuple[str, ...], device) -> nn.ModuleDict:
-    return nn.ModuleDict({f"{kind}_{i}": SubLayer(cfg, kind, device) for i, kind in enumerate(pattern)})
+    return nn.ModuleDict({f"{kind}_{i}": _sublayer(cfg, kind, device) for i, kind in enumerate(pattern)})
 
 
 class Transformer(nn.Module):
@@ -105,7 +115,7 @@ class Transformer(nn.Module):
         self.stages = nn.ModuleList(_sublayers(cfg, cfg.pattern, device) for _ in range(cfg.n_stages))
         if cfg.tail_pattern:
             self.tail = _sublayers(cfg, cfg.tail_pattern, device)
-        self.final_norm = RMSNorm(cfg.d_model, cfg.param_dtype, device, cfg.norm == "rmsnorm_gemma")
+        self.final_norm = make_norm(cfg, device)
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(
                 torch.empty(cfg.d_model, cfg.vocab, dtype=cfg.param_dtype, device=device))
@@ -122,10 +132,29 @@ class Transformer(nn.Module):
             nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
             p.copy_((x * std).to(p.dtype))
 
+        def reset_norm(norm: nn.Module) -> None:
+            norm.scale.fill_(0.0 if cfg.norm == "rmsnorm_gemma" else 1.0)
+            if isinstance(norm, LayerNorm):
+                norm.bias.zero_()
+
         tn(self.embed, 1.0)
-        d, qd = cfg.d_model, att.n_heads * att.head_dim
-        norm_init = 0.0 if cfg.norm == "rmsnorm_gemma" else 1.0
+        d = cfg.d_model
         for sub in self.sublayers():
+            if sub.kind == "rwkv":  # the stds of the JAX package's init_rwkv6_block
+                tm, cm = sub.tm, sub.cm
+                for w in (tm.lora_a, tm.w_r, tm.w_k, tm.w_v, tm.w_g, tm.w_o, tm.decay_a,
+                          cm.w_k, cm.w_r):
+                    tn(w, d ** -0.5)
+                tn(tm.lora_b, LORA_MIX ** -0.5)
+                tn(tm.decay_b, LORA_DECAY ** -0.5)
+                tn(cm.w_v, cfg.d_ff ** -0.5)
+                for z in (tm.mu_x, tm.mu_rkvwg, tm.u, cm.mu_k, cm.mu_r):
+                    z.zero_()
+                tm.decay_base.fill_(-1.0)
+                tm.gn_scale.fill_(1.0)
+                reset_norm(sub.ln1)
+                reset_norm(sub.ln2)
+                continue
             if sub.kind == "rec":
                 m = sub.mix
                 w, cw = m.wa.shape[0], m.conv_w.shape[0]
@@ -141,17 +170,17 @@ class Transformer(nn.Module):
             else:
                 for w in (sub.attn.wq, sub.attn.wk, sub.attn.wv):
                     tn(w, d ** -0.5)
-                tn(sub.attn.wo, qd ** -0.5)
+                tn(sub.attn.wo, (att.n_heads * att.head_dim) ** -0.5)
             tn(sub.mlp.w_gate, d ** -0.5)
             tn(sub.mlp.w_up, d ** -0.5)
             tn(sub.mlp.w_down, cfg.d_ff ** -0.5)
-            sub.norm1.scale.fill_(norm_init)
-            sub.norm2.scale.fill_(norm_init)
-        self.final_norm.scale.fill_(norm_init)
+            reset_norm(sub.norm1)
+            reset_norm(sub.norm2)
+        reset_norm(self.final_norm)
         if not cfg.tie_embeddings:
             tn(self.head, d ** -0.5)
 
-    def sublayers(self) -> list[SubLayer]:
+    def sublayers(self) -> list[nn.Module]:
         """Every sublayer in forward order: the stages', then the tail's."""
         subs = [sub for stage in self.stages for sub in stage.values()]
         if self.cfg.tail_pattern:

@@ -23,6 +23,16 @@ give the same bits, a run split at T/2 and threaded through hT -> h0
 matches one run; and reduced RecurrentGemma trains bitwise equal under
 ``post`` and ``dag``.
 
+rwkv6_wkv: the forward and backward kernels against their plain versions
+(the sequential loop and its reverse walk) at the JAX tests' four shapes
+and the main path's (1, 4096, 64, 64), with and without s0 and ds_final,
+r/k/v in f32 and bf16: out / s_final within 2e-4 (the tolerance of
+``tests/test_kernels.py``), gradients within 2e-4 x max(1, max|g|); strong
+decays (w in (0.05, 0.3)); a run split at T/2 and threaded through
+s_final -> s0 matches one run; two runs give the same bits; the autograd op
+launches both kernels; and reduced RWKV6 trains bitwise equal under
+``post`` and ``dag``.
+
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU interpret mode):
 they carry the ``cuda`` marker and skip elsewhere.  The file imports no
 JAX, so it runs on a machine that has only the port's dependencies:
@@ -36,6 +46,7 @@ import torch
 from _torch_env import bits, require_cuda
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru as rg
+from repro_torch.kernels import rwkv6_wkv as wk
 from repro_torch.kernels.comm_pack import (
     pack_arena,
     pack_arena_ref,
@@ -256,6 +267,128 @@ def test_cuda_reduced_recurrentgemma_post_and_dag_bitwise_equal():
     for order in ("post", "dag"):
         res = run(["--arch", "recurrentgemma-9b", "--reduced", "--steps", "2", "--batch", "2",
                    "--seq", "128", "--fuse", "arena", "--policy", "wfbp",
+                   "--issue-order", order], quiet=True)
+        params.append((res.losses, {n: p.detach().cpu() for n, p in res.model.named_parameters()}))
+    assert params[0][0] == params[1][0]
+    for n, p in params[0][1].items():
+        assert torch.equal(p, params[1][1][n]), n
+
+
+def _wkv_inputs(B, T, H, K, device, seed=0, dtype=torch.float32, w_range=None):
+    """As tests/test_kernels.py draws them: r, k, v = n (in ``dtype``),
+    w = exp(-exp(U(-6, -0.8))) (or uniform in ``w_range``), u = 0.5 n; s0,
+    and the cotangents dout and ds_final = n."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    r, k, v = (n(B, T, H, K).to(dtype) for _ in range(3))
+    x = torch.rand(B, T, H, K, generator=gen, device=device)
+    w = (w_range[0] + (w_range[1] - w_range[0]) * x if w_range
+         else torch.exp(-torch.exp(-6.0 + 5.2 * x)))
+    return r, k, v, w, 0.5 * n(H, K), n(B, H, K, K), n(B, T, H, K), n(B, H, K, K)
+
+
+def _wkv_close(got, want, name):
+    ok = bool(((got - want).abs() <= 2e-4 + 2e-4 * want.abs()).all())
+    assert ok and torch.isfinite(got).all(), (name, float((got - want).abs().max()))
+
+
+def _wkv_grad_close(got, want, name):
+    err = float((got - want).abs().max())
+    assert err <= 2e-4 * max(1.0, float(want.abs().max())), (name, err)
+
+
+def _wkv_check(r, k, v, w, u, s0, dout, ds):
+    wk.reset_counts()
+    out, s_final = wk.wkv_fwd(r, k, v, w, u, s0)
+    grads = wk.wkv_bwd(r, k, v, w, u, s0, dout, ds)
+    torch.cuda.synchronize()
+    assert (wk.wkv_fwd.launches, wk.wkv_bwd.launches) == (1, 1)
+    assert (wk.wkv_fwd.ref_calls, wk.wkv_bwd.ref_calls) == (0, 0)
+    want_out, want_s = wk.wkv_ref(r, k, v, w, u, s0)
+    _wkv_close(out, want_out, "out")
+    _wkv_close(s_final, want_s, "s_final")
+    want = wk.wkv_bwd_ref(r, k, v, w, u, s0, dout, ds)
+    assert (grads[-1] is None) == (s0 is None)
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "ds0"), grads, want):
+        if x is not None:
+            _wkv_grad_close(g, x, name)
+    return out, s_final, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "s0-ds_final"])
+@pytest.mark.parametrize("shape", [(2, 64, 2, 32), (1, 128, 4, 64), (1, 256, 1, 64),
+                                   (2, 96, 2, 32), (1, 4096, 64, 64)],
+                         ids=["jax-1", "jax-2", "jax-3", "jax-4", "main-path"])
+def test_cuda_wkv_kernels_match_plain(shape, with_state, dtype):
+    dev = require_cuda()
+    r, k, v, w, u, s0, dout, ds = _wkv_inputs(*shape, dev, dtype=TORCH_DT[dtype])
+    if not with_state:
+        s0, ds = None, None
+    out, s_final, grads = _wkv_check(r, k, v, w, u, s0, dout, ds)
+    out2, s2 = wk.wkv_fwd(r, k, v, w, u, s0)
+    grads2 = wk.wkv_bwd(r, k, v, w, u, s0, dout, ds)
+    assert torch.equal(out2, out) and torch.equal(s2, s_final)
+    for g, g2 in zip(grads, grads2):
+        assert (g is None and g2 is None) or torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_strong_decay_and_state_threading():
+    dev = require_cuda()
+    _wkv_check(*_wkv_inputs(1, 256, 4, 64, dev, seed=5, w_range=(0.05, 0.3)))
+    r, k, v, w, u, *_ = _wkv_inputs(1, 1024, 4, 64, dev, seed=6, dtype=torch.bfloat16)
+    out, s_final = wk.wkv_fwd(r, k, v, w, u)
+    h = 512
+    out_a, s_a = wk.wkv_fwd(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u)
+    out_b, s_b = wk.wkv_fwd(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s_a)
+    _wkv_close(torch.cat([out_a, out_b], dim=1), out, "out")
+    _wkv_close(s_b, s_final, "s_final")
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_autograd_op():
+    dev = require_cuda()
+    r, k, v, w, u, _, dout, _ = _wkv_inputs(2, 200, 2, 64, dev, seed=7, dtype=torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u)]
+    wk.reset_counts()
+    out, _ = wk.wkv(*leaves)
+    out.backward(dout)
+    assert (wk.wkv_fwd.launches, wk.wkv_bwd.launches) == (1, 1)
+    want = wk.wkv_bwd_ref(r, k, v, w, u, None, dout)
+    for name, x, g in zip(("dr", "dk", "dv", "dw", "du"), leaves, want):
+        assert x.grad.dtype == x.dtype, name
+        # bf16 gradients are the f32 ones rounded once (half an ulp, 2^-8 relative),
+        # as JAX's astype VJP rounds them
+        bound = 2e-4 * max(1.0, float(g.abs().max())) + 2.0 ** -8 * g.abs()
+        assert bool(((x.grad.float() - g).abs() <= bound).all()), name
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_rejects_what_the_kernels_do_not_take():
+    dev = require_cuda()
+    r, k, v, w, u, s0, _, _ = _wkv_inputs(1, 16, 2, 32, dev)
+    with pytest.raises(TypeError, match="one dtype"):
+        wk.wkv_fwd(r.half(), k.half(), v.half(), w, u)
+    with pytest.raises(TypeError, match="float32"):
+        wk.wkv_fwd(r, k, v, w.double(), u)
+    r16, k16, v16, w16, u16, *_ = _wkv_inputs(1, 16, 2, 16, dev)
+    with pytest.raises(ValueError, match="head sizes"):
+        wk.wkv_fwd(r16, k16, v16, w16, u16)
+    with pytest.raises(ValueError, match="one device"):
+        wk.wkv_fwd(r, k, v, w, u, s0.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_rwkv6_post_and_dag_bitwise_equal():
+    require_cuda()
+    from repro_torch.launch.train import run
+
+    params = []
+    for order in ("post", "dag"):
+        res = run(["--arch", "rwkv6-7b", "--reduced", "--steps", "2", "--batch", "2",
+                   "--seq", "64", "--fuse", "arena", "--policy", "wfbp",
                    "--issue-order", order], quiet=True)
         params.append((res.losses, {n: p.detach().cpu() for n, p in res.model.named_parameters()}))
     assert params[0][0] == params[1][0]

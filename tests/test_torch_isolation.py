@@ -48,6 +48,8 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.flash_attention.ref",
                 "repro_torch.kernels.rglru.ops", "repro_torch.kernels.rglru.ref",
                 "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b",
+                "repro_torch.kernels.rwkv6_wkv.ops", "repro_torch.kernels.rwkv6_wkv.ref",
+                "repro_torch.models.rwkv6", "repro_torch.configs.rwkv6_7b",
                 "repro_torch.launch.train"):
         assert mod in rec["modules"]
 
@@ -87,6 +89,14 @@ def test_cli_smoke_recurrentgemma_on_cpu():
     assert "[train] done: 2 steps" in stdout, stdout[-2000:]
 
 
+def test_cli_smoke_rwkv6_on_cpu():
+    """The RWKV6 family through the same CLI: the WKV recurrence, layernorm
+    and the untied head, with no JAX in the process."""
+    stdout = _cli("--steps", "2", "--fuse", "arena", *SMALL, arch="rwkv6-7b")
+    assert "plan[mg_wfbp" in stdout and "attn=none" in stdout
+    assert "[train] done: 2 steps" in stdout, stdout[-2000:]
+
+
 def test_cli_plan_out_then_plan_in(tmp_path):
     plan = tmp_path / "plan.json"
     _cli("--steps", "1", "--fuse", "arena", "--policy", "wfbp", "--plan-out", str(plan), *SMALL)
@@ -120,7 +130,7 @@ def test_model_defaults_to_cuda(monkeypatch):
 @pytest.mark.parametrize("modname", [
     "repro_torch.planning", "repro_torch.fabric", "repro_torch.core.sync",
     "repro_torch.kernels.comm_pack", "repro_torch.kernels.flash_attention",
-    "repro_torch.kernels.rglru", "repro_torch.kernels",
+    "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6_wkv", "repro_torch.kernels",
     "repro_torch.models", "repro_torch.optim",
 ])
 def test_public_exports_have_docstrings(modname):

@@ -310,5 +310,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="pattern"):
         Transformer(dataclasses.replace(cfg, pattern=("moe",), tail_pattern=(), n_layers=2),
                     device="meta", seed=None)
-    with pytest.raises(NotImplementedError, match="norm"):
-        Transformer(dataclasses.replace(cfg, norm="layernorm"), device="meta", seed=None)
+    # layernorm is ported (RWKV6); the plain GeLU MLP is not
+    with pytest.raises(NotImplementedError, match="mlp"):
+        Transformer(dataclasses.replace(cfg, mlp="gelu"), device="meta", seed=None)
