@@ -18,15 +18,18 @@ failure exits non-zero.
    the arena for unpack at scale 1; ``split_with_sizes_copy`` too on the
    groups whose outputs share the wire's dtype).
 1b. Flash attention.  The forward (B3), dQ (B4) and dK/dV (B5) kernels
-   against their plain versions on the same CUDA tensors: at the main
-   path's shape (B 4, S 512, 32 query / 4 KV heads, hd 64) in bf16 and
-   f32, at every shape of the JAX package's flash tests (window, softcap,
-   non-causal, G 1-8, hd 128/256), and with rows that see no key (checked
-   against ``attention_ref``, exactly 0).  Tolerances: o 2e-5 (f32) / 2e-2
+   (bf16 dQ and dK/dV: the tensor-core kernels of ``flash_bwd_sm90.cu``;
+   f32: those of ``flash_attention.cu``) against their plain versions on
+   the same CUDA tensors: at the main path's shape (B 4, S 512, 32 query
+   / 4 KV heads, hd 64) in bf16 and f32, at every shape of the JAX
+   package's flash tests (window, softcap, non-causal, G 1-8, hd
+   128/256), and with rows that see no key (checked against
+   ``attention_ref``, exactly 0).  Tolerances: o 2e-5 (f32) / 2e-2
    (bf16), lse 1e-5, f32 gradients 2e-4, bf16 gradients 1e-2 x max|g|.  A
    second run must give the same bits.  Then each kernel's time per launch
    at the main path's shape (bf16), its plain version's, and
-   ``F.scaled_dot_product_attention``'s forward and backward as yardsticks.
+   ``F.scaled_dot_product_attention``'s forward and backward as yardsticks
+   (dQ + dK/dV together against SDPA's backward, with the factor).
 1c. RG-LRU, and flash at RecurrentGemma's attention.  The recurrence
    kernels ``rglru_fwd`` (B6) and ``rglru_bwd`` (its gradient) against their
    plain versions on the same CUDA tensors, at the three shapes of the JAX
@@ -38,7 +41,8 @@ failure exits non-zero.
    version's (no single PyTorch call computes a linear recurrence, so no
    library yardstick).  The flash kernels at RecurrentGemma's attention (B 1,
    S 4096, 16 query heads over 1 KV head, hd 256, causal, window 2048, bf16)
-   against their plain versions, timed beside SDPA with the same window mask.
+   against their plain versions (a second run of all three bitwise equal),
+   timed beside SDPA with the same window mask.
 1d. WKV6.  The RWKV6 recurrence kernels ``wkv_fwd`` (B7) and ``wkv_bwd`` (its
    gradient) against their plain versions on the same CUDA tensors, at the
    four shapes of the JAX package's WKV tests and at the main path's
@@ -111,6 +115,7 @@ TRAIN_ARGS = [
 ]
 PACK_SRC = "src/repro_torch/kernels/comm_pack/csrc/comm_pack.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_BWD_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_bwd_sm90.cu"
 RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
 WKV_SRC = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu"
 MAIN_ATTN = (4, 512, 32, 4, 64)  # B, S, Hq, Hkv, hd of one full-width layer
@@ -179,6 +184,42 @@ def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time of one call of ``fn``: the kernels (and copies) that
+    torch.profiler records over ``calls`` calls, after a warm-up call, over
+    ``calls``.  The host's time to enqueue them is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        fail("the profiler recorded no device events")
+    return sum(e.time_range.end - e.time_range.start for e in events) / calls / 1e3
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    """Host time of one call of ``fn`` while the card is busy (three 8192^3
+    f32 products queued first), so that nothing waits for the device."""
+    import torch
+
+    big = torch.randn(8192, 8192, device="cuda")
+    torch.cuda.synchronize()
+    for _ in range(3):
+        big @ big
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def max_abs_err(got, want) -> float:
@@ -540,6 +581,20 @@ def time_flash(shape, device, seed, tag):
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, bound "
             f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
             f"({t['bound_ms'] / t['ms'] * 100:.2f}% of bound)")
+    bwd_ms = timings["dq"]["ms"] + timings["dkv"]["ms"]
+    bwd_bound = timings["dq"]["bound_ms"] + timings["dkv"]["bound_ms"]
+    say(f"{tag}: flash dQ + dK/dV {where} bf16: {bwd_ms:.4f} ms against SDPA bwd "
+        f"{lib['bwd']:.4f} ms: {bwd_ms / lib['bwd']:.2f}x SDPA; bound {bwd_bound * 1e3:.2f} us "
+        f"({bwd_bound / bwd_ms * 100:.2f}% of bound)")
+    # one launch timed alone also holds the host's time to enqueue it (the
+    # wrapper's Python, which matters at small shapes): the device time and
+    # the host time of the same calls, for both sides
+    ours = lambda: (calls["dq"][0](), calls["dkv"][0]())
+    dev_ms, dev_lib = device_ms(ours), device_ms(sdpa_bwd)
+    say(f"{tag}: flash dQ + dK/dV {where} bf16, device time (torch.profiler, 10 calls): "
+        f"{dev_ms:.4f} ms a call, SDPA bwd {dev_lib:.4f} ms: {dev_ms / dev_lib:.2f}x SDPA; host "
+        f"time of a call while the card is busy: dQ {host_ms(calls['dq'][0]):.4f} ms, dK/dV "
+        f"{host_ms(calls['dkv'][0]):.4f} ms, SDPA bwd {host_ms(sdpa_bwd):.4f} ms")
     del q, k, v, do, o, lse, delta, qt, kt, vt, out
     torch.cuda.empty_cache()
     return timings
@@ -699,13 +754,16 @@ def phase_rg_flash(device):
     res = check_flash_case(RG_ATTN, torch.bfloat16, device, 7, errs)
     q, k, v, do = res["inputs"]
     o2 = fa.flash_attention_fwd(q, k, v, window=window)
+    dq2 = fa.flash_attention_dq(q, k, v, do, res["want_lse"], res["delta"], window=window)
     dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, res["want_lse"], res["delta"], window=window)
-    if not (torch.equal(o2, res["o"]) and torch.equal(dk2, res["dk"]) and torch.equal(dv2, res["dv"])):
-        fail("flash at RecurrentGemma's attention: a second run gave other bits")
+    for name, a, b in (("o", o2, res["o"]), ("dq", dq2, res["dq"]), ("dk", dk2, res["dk"]),
+                       ("dv", dv2, res["dv"])):
+        if not torch.equal(a, b):
+            fail(f"flash {name} at RecurrentGemma's attention: a second run gave other bits")
     say(f"phase 1c: flash fwd/dQ/dK-dV at {RG_ATTN[:5]} window {window} bf16 within tolerance of "
         f"the plain versions (max |diff| fwd {errs['fwd']:.3e}, dq {errs['dq']:.3e}, "
         f"dkv {errs['dkv']:.3e}); repeated runs bitwise equal")
-    del res, q, k, v, do, o2, dk2, dv2
+    del res, q, k, v, do, o2, dq2, dk2, dv2
     torch.cuda.empty_cache()
     timings = time_flash(RG_ATTN, device, 8, "phase 1c")
     fa.reset_counts()
@@ -1132,6 +1190,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
     from repro_torch.kernels.comm_pack.ops import SOURCE as PACK_SOURCE
+    from repro_torch.kernels.flash_attention.ops import BWD_SOURCE as FLASH_BWD_SOURCE
     from repro_torch.kernels.flash_attention.ops import SOURCE as FLASH_SOURCE
     from repro_torch.kernels.rglru.ops import SOURCE as RGLRU_SOURCE
     from repro_torch.kernels.rwkv6_wkv.ops import SOURCE as WKV_SOURCE
@@ -1148,8 +1207,9 @@ def main() -> None:
 
     t0 = time.perf_counter()
     # one nvcc each, in parallel
-    built = _build.build_many([PACK_SOURCE, FLASH_SOURCE, RGLRU_SOURCE, WKV_SOURCE])
-    say(f"build: all four libraries in {time.perf_counter() - t0:.1f} s")
+    built = _build.build_many([PACK_SOURCE, FLASH_SOURCE, FLASH_BWD_SOURCE, RGLRU_SOURCE,
+                               WKV_SOURCE])
+    say(f"build: all five libraries in {time.perf_counter() - t0:.1f} s")
     for src, (lib, log, secs) in built.items():
         say(f"build: {lib.name} ({secs:.1f} s)" + ("" if log else " (already built)"))
         report_ptxas(log)
@@ -1197,7 +1257,7 @@ def main() -> None:
             kernels.append({
                 "name": f"flash_attention.{name}{suffix}",
                 "route": "cuda",
-                "source": FLASH_SRC,
+                "source": FLASH_SRC if name == "fwd" else FLASH_BWD_SRC,
                 "replaces": replaces,
                 "launches": f_counts[f"flash_{name}_launches"],
                 "max_abs_err": f_errs[name],

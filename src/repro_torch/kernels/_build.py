@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernel libraries.
 
-Each kernel family keeps its source under ``<family>/csrc/<family>.cu``
-with a plain C interface.  ``build`` compiles a source with ``nvcc`` for
+Each kernel family keeps its sources under ``<family>/csrc/``, one
+self-contained ``.cu`` per library with a plain C interface (a library is
+keyed by its one source's hash, so sources include no header of the
+repo).  ``build`` compiles a source with ``nvcc`` for
 ``sm_90a`` into ``build/`` at the repository root, named by a hash of the
 source (an edited source is rebuilt, an unchanged one is not), and
 ``load`` opens the result with ``ctypes``.  ``build_many`` starts one

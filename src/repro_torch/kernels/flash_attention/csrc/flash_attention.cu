@@ -4,6 +4,8 @@
 //   flash_fwd_kernel <- _fwd_kernel / flash_attention_fwd   (kernel.py:40, :167)
 //   flash_dq_kernel  <- _dq_kernel  / flash_attention_bwd   (kernel_bwd.py:53, :185)
 //   flash_dkv_kernel <- _dkv_kernel / flash_attention_bwd   (kernel_bwd.py:89, :212)
+// The forward takes f32 and bf16; the backward kernels here take f32 only.  The bf16
+// backward runs on the tensor cores, in flash_bwd_sm90.cu.
 //
 // What they compute (the plain versions are in ../ref.py).  q is (B, Sq, Hq, hd),
 // k and v are (B, Sk, Hkv, hd), query head h reads KV head h / G with G = Hq / Hkv,
@@ -534,8 +536,9 @@ bool valid(const Shape& p) {
 // One call per kernel.  dims = {B, Sq, Sk, Hq, Hkv, hd}; strides = {q batch, q seq,
 // q head, k batch, k seq, k head} in elements (the last axis is contiguous; o, dO and
 // dq share q's strides, v, dk and dv share k's); lse and delta are (B, Sq, Hq) f32,
-// contiguous.  bf16 != 0: q, k, v, dO and the outputs are bf16, else f32.  Each
-// returns the cudaError_t of the launch (0 on success).
+// contiguous.  bf16 != 0: q, k, v, dO and the outputs are bf16, else f32 (flash_dq
+// and flash_dkv refuse bf16).  Each returns the cudaError_t of the launch (0 on
+// success).
 #define FLASH_DISPATCH(FN, ...)                                                     \
   switch (dims[5]) {                                                                \
     case 32: return bf16 ? FN<__nv_bfloat16, 32>(__VA_ARGS__) : FN<float, 32>(__VA_ARGS__);    \
@@ -543,6 +546,15 @@ bool valid(const Shape& p) {
     case 128: return bf16 ? FN<__nv_bfloat16, 128>(__VA_ARGS__) : FN<float, 128>(__VA_ARGS__); \
     case 256: return bf16 ? FN<__nv_bfloat16, 256>(__VA_ARGS__) : FN<float, 256>(__VA_ARGS__); \
     default: return int(cudaErrorInvalidValue);                                     \
+  }
+#define FLASH_DISPATCH_F32(FN, ...)                    \
+  if (bf16) return int(cudaErrorInvalidValue);         \
+  switch (dims[5]) {                                   \
+    case 32: return FN<float, 32>(__VA_ARGS__);        \
+    case 64: return FN<float, 64>(__VA_ARGS__);        \
+    case 128: return FN<float, 128>(__VA_ARGS__);      \
+    case 256: return FN<float, 256>(__VA_ARGS__);      \
+    default: return int(cudaErrorInvalidValue);        \
   }
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -561,7 +573,7 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
   const Shape p = make_shape(dims, strides, causal, window, scale, softcap);
   if (!valid(p)) return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, p, st)
+  FLASH_DISPATCH_F32(launch_dq, q, k, v, dout, lse, delta, dq, p, st)
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -571,5 +583,5 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
   const Shape p = make_shape(dims, strides, causal, window, scale, softcap);
   if (!valid(p)) return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, p, st)
+  FLASH_DISPATCH_F32(launch_dkv, q, k, v, dout, lse, delta, dk, dv, p, st)
 }

@@ -1,7 +1,6 @@
-"""Public ops for flash attention: the CUDA kernels of
-``csrc/flash_attention.cu`` for tensors on the card, the plain versions of
-``ref.py`` for tensors on the CPU (counterpart of
-``repro/kernels/flash_attention/ops.py``).
+"""Public ops for flash attention: the CUDA kernels of ``csrc/`` for
+tensors on the card, the plain versions of ``ref.py`` for tensors on the
+CPU (counterpart of ``repro/kernels/flash_attention/ops.py``).
 
 Which path runs follows from where the tensors lie, and from nothing
 else: a CUDA tensor launches the kernel or raises.  Each kernel's wrapper
@@ -15,12 +14,25 @@ custom-VJP ``flash_attention_train``): its forward saves only
 no (Sq, Sk) tensor is kept for backward.
 
 The CUDA kernels take f32 or bf16 inputs and head dims 32, 64, 128 and
-256, and raise on anything else.
+256, and raise on anything else.  The forward runs ``flash_fwd_kernel`` of
+``csrc/flash_attention.cu`` for both dtypes.  The backward picks its
+kernels by dtype: f32 q, k, v and dO go to ``flash_dq_kernel`` and
+``flash_dkv_kernel`` of ``csrc/flash_attention.cu`` (f32 products on the
+CUDA cores), bf16 ones to ``flash_dq_sm90_kernel`` and
+``flash_dkv_sm90_kernel`` of ``csrc/flash_bwd_sm90.cu`` (``wgmma`` bf16
+products with f32 accumulators; p and dS rounded to bf16 as operands of
+the second products).  The dtype decides, nothing else: a failed build or
+launch raises.  The bf16 dK/dV kernel splits the G query heads of a KV
+head into ``ns`` slices (``_dkv_slices``) so that the grid fills the card,
+writes f32 partials into a scratch buffer, and ``flash_dkv_sum_kernel``
+adds them in slice order: both launches make one ``flash_attention_dkv``
+call, counted once in ``.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 
 import torch
@@ -34,10 +46,13 @@ from .ref import (
 )
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_bwd_sm90.cu")
 HEAD_DIMS = (32, 64, 128, 256)
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 64  # rows of a q or k tile in the bf16 backward kernels
 
 _lib: ctypes.CDLL | None = None
+_bwd_lib: ctypes.CDLL | None = None
 
 
 def _library() -> ctypes.CDLL:
@@ -53,6 +68,20 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load(BWD_SOURCE)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        tail = [p, p, i, i, f, f]  # dims, strides, causal, window, scale, softcap
+        lib.flash_dq_sm90.argtypes = [p] * 7 + tail + [p]  # ..., stream
+        lib.flash_dkv_sm90.argtypes = [p] * 10 + tail + [i, p]  # ..., slices, stream
+        for fn in (lib.flash_dq_sm90, lib.flash_dkv_sm90):
+            fn.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _check_opts(q, k, v, window, softcap) -> None:
@@ -106,6 +135,29 @@ def _rows_f32(x: torch.Tensor, q: torch.Tensor, name: str) -> torch.Tensor:
     return x.contiguous()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its data is 16-byte aligned (the bf16 kernels load
+    16-byte chunks), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _dkv_slices(q: torch.Tensor, k: torch.Tensor) -> int:
+    """Slices of the G query heads of a KV head for the bf16 dK/dV kernel:
+    doubled, while they divide G, until the grid has two blocks per SM."""
+    G = q.shape[2] // k.shape[2]
+    blocks = -(-k.shape[1] // TILE) * k.shape[2] * k.shape[0]
+    sms = _sm_count(k.device)
+    ns = 1
+    while G % (2 * ns) == 0 and blocks * ns < 2 * sms:
+        ns *= 2
+    return ns
+
+
 def _check_launch(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"flash-attention {what} launch failed: cudaError {err}")
@@ -139,15 +191,23 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal=True, window=None, sof
     (q, k, v, do), tail = _cuda_args(q, k, v, do, **opts)
     lse, delta = _rows_f32(lse, q, "lse"), _rows_f32(delta, q, "delta")
     dq = torch.empty_like(q)
-    _check_launch(_library().flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail),
-                  "dQ")
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = map(_aligned, (q, k, v, do))
+        err = _bwd_library().flash_dq_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), *tail[:6], tail[-1])
+    else:
+        err = _library().flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail)
+    _check_launch(err, "dQ")
     flash_attention_dq.launches += 1
     return dq
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=True, window=None, softcap=None):
-    """(dK, dV) (B5), summed over the query heads of each KV head."""
+    """(dK, dV) (B5), summed over the query heads of each KV head.  In bf16
+    one call launches the dK/dV kernel and the kernel that sums its slices;
+    ``.launches`` counts the call."""
     _check_opts(q, k, v, window, softcap)
     opts = dict(causal=causal, window=window, softcap=softcap)
     if _on_cpu(q, k, v, do, lse, delta):
@@ -156,9 +216,19 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=True, window=None, so
     (q, k, v, do), tail = _cuda_args(q, k, v, do, **opts)
     lse, delta = _rows_f32(lse, q, "lse"), _rows_f32(delta, q, "delta")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _check_launch(_library().flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                       lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                                       dv.data_ptr(), *tail), "dK/dV")
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = map(_aligned, (q, k, v, do))
+        ns = _dkv_slices(q, k)
+        part = torch.empty((2, ns, *k.shape), dtype=torch.float32, device=k.device)
+        err = _bwd_library().flash_dkv_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *tail[:6], ns, tail[-1])
+    else:
+        err = _library().flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                                   dv.data_ptr(), *tail)
+    _check_launch(err, "dK/dV")
     flash_attention_dkv.launches += 1
     return dk, dv
 

@@ -7,11 +7,15 @@ and offsets, sources that are not 16-byte aligned, and scale 1/3.
 flash_attention: forward, dQ and dK/dV at the full-width main path's
 shape (B 4, S 512, 32 query / 4 KV heads, hd 64) in f32 and bf16, at the
 tolerances of ``tests/test_kernels.py`` (o 2e-5 f32 / 2e-2 bf16, lse
-1e-5, f32 gradients 2e-4; bf16 gradients 1e-2 x max|g|: both sides work
-in f32 from the same bf16 inputs and round the result once); rows that
-see no key give 0; two runs give the same bits; and one reduced training
-step with the flash kernels gives bitwise the same parameters for the
-``post`` and ``dag`` issue orders.
+1e-5, f32 gradients 2e-4; bf16 gradients 1e-2 x max|g|: the bf16
+backward rounds p and dS to bf16 as operands of its tensor-core products,
+the plain versions keep them in f32, both round the result once); the
+bf16 backward also at RecurrentGemma's attention (MQA, hd 256, window
+2048), hd 32 / 128 with window and softcap, Sq != Sk and a ragged S; f32
+inputs keep the CUDA-core backward kernels bit for bit; rows that see no
+key give 0; two runs give the same bits; and one reduced training step
+with the flash kernels gives bitwise the same parameters for the ``post``
+and ``dag`` issue orders.
 
 rglru: the forward and backward kernels against their plain versions
 (the sequential loop and its reverse) at the JAX tests' first shape, a
@@ -145,6 +149,75 @@ def test_cuda_flash_kernels_match_plain_at_main_path_shape(dtype):
             assert _rel(got, want) <= 1e-2, name
         else:
             torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4, msg=name)
+
+
+BF16_BWD_CASES = [  # B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap
+    (4, 512, 512, 32, 4, 64, True, None, None),  # TinyLlama's layer
+    (1, 4096, 4096, 16, 1, 256, True, 2048, None),  # RecurrentGemma's MQA / hd 256 / window
+    (2, 256, 256, 4, 2, 32, True, 64, 20.0),  # hd 32 with window and softcap
+    (1, 384, 384, 6, 2, 128, True, 256, 30.0),  # hd 128 with window and softcap
+    (1, 256, 128, 4, 2, 64, True, 64, None),  # Sq != Sk: rows 191.. see no key
+    (1, 300, 300, 4, 2, 64, True, None, None),  # ragged S
+    (2, 300, 200, 4, 1, 128, False, 100, None),  # ragged, non-causal, Sq != Sk
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window,softcap", BF16_BWD_CASES,
+                         ids=["-".join(map(str, c)) for c in BF16_BWD_CASES])
+def test_cuda_bf16_backward_kernels_match_plain_and_repeat(B, Sq, Sk, Hq, Hkv, hd, causal,
+                                                           window, softcap):
+    """The tensor-core dQ and dK/dV kernels (bf16) against their plain
+    versions on the same inputs: 1e-2 x max|g| (p and dS are rounded to
+    bf16 as operands, the plain versions keep them in f32); a row that sees
+    no key gets dq = 0; a second run gives the same bits."""
+    from repro_torch.kernels.flash_attention.ref import _mask
+
+    dev = require_cuda()
+    q, k, v, do = _qkv(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, dev, seed=Sq + hd)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
+    delta = fa.attention_delta(o, do)
+    fa.reset_counts()
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, **opts)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, **opts)
+    torch.cuda.synchronize()
+    for fn in (fa.flash_attention_dq, fa.flash_attention_dkv):
+        assert (fn.launches, fn.ref_calls) == (1, 0), fn.__name__
+    want_dq = fa.flash_attention_dq_ref(q, k, v, do, lse, delta, **opts)
+    want_dk, want_dv = fa.flash_attention_dkv_ref(q, k, v, do, lse, delta, **opts)
+    for got, want, name in ((dq, want_dq, "dq"), (dk, want_dk, "dk"), (dv, want_dv, "dv")):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert bool(torch.isfinite(got.float()).all()), name
+        assert _rel(got, want) <= 1e-2, (name, _rel(got, want))
+    blind = ~_mask(Sq, Sk, causal, window, 0, dev).any(dim=1)
+    assert torch.equal(dq[:, blind], torch.zeros_like(dq[:, blind]))
+    assert torch.equal(fa.flash_attention_dq(q, k, v, do, lse, delta, **opts), dq)
+    dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, lse, delta, **opts)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_backward_keeps_the_cuda_core_kernels():
+    """f32 inputs go to flash_dq_kernel / flash_dkv_kernel of
+    flash_attention.cu: the wrappers' results are those kernels' bits."""
+    from repro_torch.kernels.flash_attention import ops
+
+    dev = require_cuda()
+    B, S, Hq, Hkv, hd = MAIN_SHAPE
+    q, k, v, do = _qkv(B, S, S, Hq, Hkv, hd, torch.float32, dev, seed=3)
+    o, lse = fa.flash_attention_fwd_ref(q, k, v)
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+    _, tail = ops._cuda_args(q, k, v, do, causal=True, window=None, softcap=None)
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    want_dq, want_dk, want_dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    assert ops._library().flash_dq(*ptrs, want_dq.data_ptr(), *tail) == 0
+    assert ops._library().flash_dkv(*ptrs, want_dk.data_ptr(), want_dv.data_ptr(), *tail) == 0
+    torch.cuda.synchronize()
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

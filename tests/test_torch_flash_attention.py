@@ -25,6 +25,7 @@ from repro.kernels.flash_attention.kernel_bwd import flash_attention_bwd as jax_
 from repro.kernels.flash_attention.ops import flash_attention_train as jax_train
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels.flash_attention import (
+    attention_delta,
     attention_ref,
     flash_attention_bwd,
     flash_attention_bwd_ref,
@@ -35,6 +36,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_train,
     reset_counts,
 )
+from repro_torch.kernels.flash_attention.ref import _probs_and_dscores
 
 FWD_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, softcap
     (2, 256, 4, 2, 64, True, None, None),
@@ -187,3 +189,64 @@ def test_dispatch_follows_the_device_and_counts():
         flash_attention_fwd(q, k, v, window=0)
     with pytest.raises(ValueError, match="does not fit"):
         flash_attention_fwd(q[..., :16], k, v)
+
+
+def _bwd_bf16_operands(q, k, v, do, lse, delta, *, causal=True, window=None, softcap=None):
+    """The bf16 backward kernels' arithmetic, written plainly: the f32 p and
+    dS of the plain version, rounded to bf16 where the kernels round them (as
+    operands of dq = dS k, dk = dS^T q and dv = p^T dO), sums in f32, results
+    cast to the inputs' dtype."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    p, ds, dof = _probs_and_dscores(q, k, v, do, lse, delta, causal, window, softcap)
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, k.float()).reshape(q.shape)
+    dk = torch.einsum("bkgst,bskgh->btkh", ds, qf)
+    dv = torch.einsum("bkgst,bskgh->btkh", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _within_budget(got, want, names):
+    """The card's bf16 gradient tolerance: max |diff| <= 1e-2 x max |want|."""
+    for g, w, name in zip(got, want, names):
+        g, w = _np(g), _np(w)
+        assert g.shape == w.shape, name
+        err, top = np.abs(g - w).max(), np.abs(w).max()
+        assert err <= 1e-2 * top, f"{name}: max |diff| {err:.3e} > 1e-2 x {top:.3e}"
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window,softcap", BWD_SHAPES, ids=_ids(BWD_SHAPES))
+def test_bf16_operand_rounding_within_budget_of_pallas(B, S, Hq, Hkv, hd, causal, window,
+                                                      softcap):
+    """Rounding p and dS to bf16 (the tensor-core kernels' one change of
+    numbers) against the Pallas backward in interpret mode, which keeps them
+    in f32, on the same bf16 inputs and JAX's own o and lse."""
+    q, k, v, do = _inputs(B, S, S, Hq, Hkv, hd, jnp.bfloat16, seed=7, extra=1)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = jax_fwd(q, k, v, block_q=128, block_k=128, interpret=True, return_lse=True, **opts)
+    want = jax_bwd(q, k, v, o, lse, do, block_q=128, block_k=128, interpret=True, **opts)
+    tq, tk, tv, to, tlse, tdo = map(to_torch, (q, k, v, o, lse, do))
+    got = _bwd_bf16_operands(tq, tk, tv, tdo, tlse, attention_delta(to, tdo), **opts)
+    _within_budget(got, want, ("dq", "dk", "dv"))
+
+
+ROUNDING_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, softcap
+    (1, 1024, 16, 1, 256, True, 512, None),  # RecurrentGemma's MQA / hd 256, window cut to 512
+    (1, 512, 32, 4, 64, True, None, None),  # TinyLlama's layer at batch 1
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window,softcap", ROUNDING_SHAPES,
+                         ids=_ids(ROUNDING_SHAPES))
+def test_bf16_operand_rounding_within_budget_of_plain(B, S, Hq, Hkv, hd, causal, window,
+                                                     softcap):
+    """The same rounding against the f32 plain backward at the main paths'
+    head layouts (the plain backward is held against the Pallas one above)."""
+    q, k, v, do = map(to_torch, _inputs(B, S, S, Hq, Hkv, hd, jnp.bfloat16, seed=8, extra=1))
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_fwd_ref(q, k, v, **opts)
+    delta = attention_delta(o, do)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **opts)
+    got = _bwd_bf16_operands(q, k, v, do, lse, delta, **opts)
+    _within_budget(got, want, ("dq", "dk", "dv"))
