@@ -18,18 +18,26 @@ failure exits non-zero.
    the arena for unpack at scale 1; ``split_with_sizes_copy`` too on the
    groups whose outputs share the wire's dtype).
 1b. Flash attention.  The forward (B3), dQ (B4) and dK/dV (B5) kernels
-   (bf16 dQ and dK/dV: the tensor-core kernels of ``flash_bwd_sm90.cu``;
-   f32: those of ``flash_attention.cu``) against their plain versions on
-   the same CUDA tensors: at the main path's shape (B 4, S 512, 32 query
-   / 4 KV heads, hd 64) in bf16 and f32, at every shape of the JAX
-   package's flash tests (window, softcap, non-causal, G 1-8, hd
-   128/256), and with rows that see no key (checked against
-   ``attention_ref``, exactly 0).  Tolerances: o 2e-5 (f32) / 2e-2
-   (bf16), lse 1e-5, f32 gradients 2e-4, bf16 gradients 1e-2 x max|g|.  A
-   second run must give the same bits.  Then each kernel's time per launch
-   at the main path's shape (bf16), its plain version's, and
+   (bf16: the tensor-core kernels of ``flash_sm90.cu``; f32: those of
+   ``flash_attention.cu``) against their plain versions on the same CUDA
+   tensors: at the main path's shape (B 4, S 512, 32 query / 4 KV heads,
+   hd 64) in bf16 and f32, at every shape of the JAX package's flash tests
+   (window, softcap, non-causal, G 1-8, hd 128/256), and with rows that
+   see no key (checked against ``attention_ref``, exactly 0).
+   Tolerances: o 2e-5 (f32) / 2e-2 (bf16) element by element and, for
+   bf16, 1e-2 in per-row relative L2 over the head dim; lse 1e-5, f32
+   gradients 2e-4, bf16 gradients 1e-2 x max|g|; for bf16 the largest max
+   |diff| / max|want| of o, dq, dk and dv and the largest per-row relative
+   L2 of o are printed beside the absolute figure.  A
+   second run must give the same bits.  Then forward -> backward through
+   the kernels' own (o, lse): dq, dk, dv of ``flash_attention_train`` on
+   the card within 1e-2 x max|g| of the plain backward fed the plain
+   forward's (o, lse).  Then each kernel's time per launch at the main
+   path's shape (bf16), its plain version's, and
    ``F.scaled_dot_product_attention``'s forward and backward as yardsticks
-   (dQ + dK/dV together against SDPA's backward, with the factor).
+   (dQ + dK/dV together against SDPA's backward, with the factor), and the
+   device time (torch.profiler) and host time of a call of the forward and
+   of the backward beside SDPA's.
 1c. RG-LRU, and flash at RecurrentGemma's attention.  The recurrence
    kernels ``rglru_fwd`` (B6) and ``rglru_bwd`` (its gradient) against their
    plain versions on the same CUDA tensors, at the three shapes of the JAX
@@ -42,7 +50,8 @@ failure exits non-zero.
    library yardstick).  The flash kernels at RecurrentGemma's attention (B 1,
    S 4096, 16 query heads over 1 KV head, hd 256, causal, window 2048, bf16)
    against their plain versions (a second run of all three bitwise equal),
-   timed beside SDPA with the same window mask.
+   forward -> backward through the kernels' own (o, lse) as in 1b, timed
+   beside SDPA with the same window mask.
 1d. WKV6.  The RWKV6 recurrence kernels ``wkv_fwd`` (B7) and ``wkv_bwd`` (its
    gradient) against their plain versions on the same CUDA tensors, at the
    four shapes of the JAX package's WKV tests and at the main path's
@@ -114,8 +123,7 @@ TRAIN_ARGS = [
     "--fuse", "arena", "--policy", "mg_wfbp", "--fabric", "gpu_nccl",
 ]
 PACK_SRC = "src/repro_torch/kernels/comm_pack/csrc/comm_pack.cu"
-FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
-FLASH_BWD_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_bwd_sm90.cu"
+FLASH_SM90_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_sm90.cu"
 RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
 WKV_SRC = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu"
 MAIN_ATTN = (4, 512, 32, 4, 64)  # B, S, Hq, Hkv, hd of one full-width layer
@@ -454,6 +462,10 @@ def phase_kernels(device):
 # ---------------------------------------------------------------------------
 
 
+def fmt_rel(rel: dict) -> str:
+    return ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+
+
 def flash_inputs(B, Sq, Sk, Hq, Hkv, hd, dtype, device, seed):
     import torch
 
@@ -462,10 +474,12 @@ def flash_inputs(B, Sq, Sk, Hq, Hkv, hd, dtype, device, seed):
     return mk(B, Sq, Hq, hd), mk(B, Sk, Hkv, hd), mk(B, Sk, Hkv, hd), mk(B, Sq, Hq, hd)
 
 
-def check_flash_case(shape, dtype, device, seed, errs, sq=None) -> dict:
+def check_flash_case(shape, dtype, device, seed, errs, sq=None, rel=None) -> dict:
     """One shape through the three kernels and their plain versions on the
     same CUDA tensors; dQ and dK/dV take the plain forward's lse and delta.
-    Returns each kernel's max |difference| (and fails past the tolerance)."""
+    Keeps each kernel's max |difference| in ``errs`` and, for bf16, each
+    output's max |difference| / max |want| in ``rel``, with the largest
+    per-row relative L2 error of o (and fails past the tolerance)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
 
@@ -486,17 +500,29 @@ def check_flash_case(shape, dtype, device, seed, errs, sq=None) -> dict:
 
     def close(name, got, want, tol, rel_to_max=False):
         d = (got.float() - want.float()).abs()
+        top = float(want.float().abs().max())
         if rel_to_max:
-            ok = float(d.max()) <= tol * float(want.float().abs().max())
+            ok = float(d.max()) <= tol * top
         else:
             ok = bool((d <= tol + tol * want.float().abs()).all())
         if not ok or not torch.isfinite(got.float()).all():
             fail(f"flash {name} differs from its plain version at {tag}: max |diff| "
                  f"{float(d.max()):.3e} (tolerance {tol}{' x max|g|' if rel_to_max else ''})")
+        if bf16 and rel is not None and name != "lse":
+            rel[name] = max(rel.get(name, 0.0), float(d.max()) / max(top, 1e-30))
         return float(d.max())
 
     out["fwd"] = max(close("o", o, want_o, 2e-2 if bf16 else 2e-5),
                      close("lse", lse, want_lse, 1e-5))
+    if bf16:  # o row by row: |o - want| <= 1e-2 |want| in L2 over the head dim
+        row = (o.float() - want_o.float()).norm(dim=-1) / want_o.float().norm(dim=-1)
+        row = torch.where(want_o.float().norm(dim=-1) == 0, (o != 0).any(dim=-1).float(), row)
+        worst = float(row.max())
+        if not worst <= 1e-2:
+            fail(f"flash o differs from its plain version at {tag}: per-row relative L2 "
+                 f"{worst:.3e} > 1e-2")
+        if rel is not None:
+            rel["o row L2"] = max(rel.get("o row L2", 0.0), worst)
     out["dq"] = close("dq", dq, want_dq, 1e-2 if bf16 else 2e-4, rel_to_max=bf16)
     out["dkv"] = max(close("dk", dk, want_dk, 1e-2 if bf16 else 2e-4, rel_to_max=bf16),
                      close("dv", dv, want_dv, 1e-2 if bf16 else 2e-4, rel_to_max=bf16))
@@ -504,6 +530,32 @@ def check_flash_case(shape, dtype, device, seed, errs, sq=None) -> dict:
         errs[name] = max(errs[name], e)
     return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv, "inputs": (q, k, v, do),
             "want_lse": want_lse, "delta": delta}
+
+
+def check_fwd_bwd(shape, device, seed) -> dict:
+    """Forward -> backward through the kernels' own (o, lse): dq, dk, dv of
+    ``flash_attention_train`` (bf16, on the card) against the plain backward
+    fed the plain forward's (o, lse), within 1e-2 x max|g|.  Returns each
+    gradient's max |difference| / max |want|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, Hq, Hkv, hd, causal, window, softcap = shape
+    q, k, v, do = flash_inputs(B, S, S, Hq, Hkv, hd, torch.bfloat16, device, seed)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    fa.flash_attention_train(qg, kg, vg, **opts).backward(do)
+    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
+    want = fa.flash_attention_bwd_ref(q, k, v, want_o, want_lse, do, **opts)
+    torch.cuda.synchronize()
+    out = {}
+    for name, got, w in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad), want):
+        d, top = float((got.float() - w.float()).abs().max()), float(w.float().abs().max())
+        if not d <= 1e-2 * top or not torch.isfinite(got.float()).all():
+            fail(f"flash fwd -> bwd through the kernels' own (o, lse) at {shape[:5]}: {name} "
+                 f"max |diff| {d:.3e} > 1e-2 x max|g| {top:.3e}")
+        out[name] = d / top
+    return out
 
 
 def flash_work(B, S, Hq, Hkv, hd, itemsize, window=None):
@@ -589,6 +641,11 @@ def time_flash(shape, device, seed, tag):
     # one launch timed alone also holds the host's time to enqueue it (the
     # wrapper's Python, which matters at small shapes): the device time and
     # the host time of the same calls, for both sides
+    dev_ms, dev_lib = device_ms(calls["fwd"][0]), device_ms(sdpa)
+    say(f"{tag}: flash fwd {where} bf16, device time (torch.profiler, 10 calls): {dev_ms:.4f} ms "
+        f"a call, SDPA fwd {dev_lib:.4f} ms: {dev_ms / dev_lib:.2f}x SDPA; host time of a call "
+        f"while the card is busy: ours {host_ms(calls['fwd'][0]):.4f} ms, SDPA fwd "
+        f"{host_ms(sdpa):.4f} ms")
     ours = lambda: (calls["dq"][0](), calls["dkv"][0]())
     dev_ms, dev_lib = device_ms(ours), device_ms(sdpa_bwd)
     say(f"{tag}: flash dQ + dK/dV {where} bf16, device time (torch.profiler, 10 calls): "
@@ -605,13 +662,14 @@ def phase_flash(device):
     from repro_torch.kernels import flash_attention as fa
 
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    rel = {}
     main = (*MAIN_ATTN, True, None, None)
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
-        res = check_flash_case(main, dtype, device, 0, errs)
+        res = check_flash_case(main, dtype, device, 0, errs, rel=rel)
         n += 1
         if dtype == torch.bfloat16:
-            main_errs = dict(errs)
+            main_errs, main_rel = dict(errs), dict(rel)
             # the same inputs again: every output must repeat bit for bit
             q, k, v, do = res["inputs"]
             o2, lse2 = fa.flash_attention_fwd(q, k, v, return_lse=True)
@@ -624,11 +682,12 @@ def phase_flash(device):
         del res
     for i, shape in enumerate(JAX_FWD_SHAPES + JAX_BWD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
-            check_flash_case(shape, dtype, device, 10 + i, errs)
+            check_flash_case(shape, dtype, device, 10 + i, errs, rel=rel)
             n += 1
     # rows 191.. of q see no key (k shorter than q, window 64)
     for dtype in (torch.float32, torch.bfloat16):
-        res = check_flash_case((1, 128, 4, 2, 64, True, 64, None), dtype, device, 99, errs, sq=256)
+        res = check_flash_case((1, 128, 4, 2, 64, True, 64, None), dtype, device, 99, errs, sq=256,
+                               rel=rel)
         n += 1
         q, k, v, _ = res["inputs"]
         want = fa.attention_ref(q, k, v, window=64)
@@ -642,6 +701,11 @@ def phase_flash(device):
         f"(main path bf16 max |diff|: fwd {main_errs['fwd']:.3e}, dq {main_errs['dq']:.3e}, "
         f"dkv {main_errs['dkv']:.3e}; over all cases: fwd {errs['fwd']:.3e}, dq {errs['dq']:.3e}, "
         f"dkv {errs['dkv']:.3e}); rows that see no key are 0; repeated runs bitwise equal")
+    say(f"phase 1b: bf16 max |diff| / max|want|, main path: {fmt_rel(main_rel)}; over all bf16 "
+        f"cases: {fmt_rel(rel)}")
+    fb = check_fwd_bwd(main, device, 2)
+    say(f"phase 1b: flash fwd -> bwd through the kernels' own (o, lse) at {MAIN_ATTN} bf16: "
+        f"max |diff| / max|g| {fmt_rel(fb)} (<= 1e-2)")
 
     timings = time_flash((*MAIN_ATTN, True, None, None), device, 1, "phase 1b")
     fa.reset_counts()
@@ -750,8 +814,9 @@ def phase_rg_flash(device):
     from repro_torch.kernels import flash_attention as fa
 
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    rel = {}
     window = RG_ATTN[6]
-    res = check_flash_case(RG_ATTN, torch.bfloat16, device, 7, errs)
+    res = check_flash_case(RG_ATTN, torch.bfloat16, device, 7, errs, rel=rel)
     q, k, v, do = res["inputs"]
     o2 = fa.flash_attention_fwd(q, k, v, window=window)
     dq2 = fa.flash_attention_dq(q, k, v, do, res["want_lse"], res["delta"], window=window)
@@ -762,8 +827,13 @@ def phase_rg_flash(device):
             fail(f"flash {name} at RecurrentGemma's attention: a second run gave other bits")
     say(f"phase 1c: flash fwd/dQ/dK-dV at {RG_ATTN[:5]} window {window} bf16 within tolerance of "
         f"the plain versions (max |diff| fwd {errs['fwd']:.3e}, dq {errs['dq']:.3e}, "
-        f"dkv {errs['dkv']:.3e}); repeated runs bitwise equal")
+        f"dkv {errs['dkv']:.3e}; max |diff| / max|want| {fmt_rel(rel)}); repeated runs bitwise "
+        f"equal")
     del res, q, k, v, do, o2, dq2, dk2, dv2
+    torch.cuda.empty_cache()
+    fb = check_fwd_bwd(RG_ATTN, device, 9)
+    say(f"phase 1c: flash fwd -> bwd through the kernels' own (o, lse) at {RG_ATTN[:5]} window "
+        f"{window} bf16: max |diff| / max|g| {fmt_rel(fb)} (<= 1e-2)")
     torch.cuda.empty_cache()
     timings = time_flash(RG_ATTN, device, 8, "phase 1c")
     fa.reset_counts()
@@ -1190,7 +1260,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
     from repro_torch.kernels.comm_pack.ops import SOURCE as PACK_SOURCE
-    from repro_torch.kernels.flash_attention.ops import BWD_SOURCE as FLASH_BWD_SOURCE
+    from repro_torch.kernels.flash_attention.ops import SM90_SOURCE as FLASH_SM90_SOURCE
     from repro_torch.kernels.flash_attention.ops import SOURCE as FLASH_SOURCE
     from repro_torch.kernels.rglru.ops import SOURCE as RGLRU_SOURCE
     from repro_torch.kernels.rwkv6_wkv.ops import SOURCE as WKV_SOURCE
@@ -1207,7 +1277,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     # one nvcc each, in parallel
-    built = _build.build_many([PACK_SOURCE, FLASH_SOURCE, FLASH_BWD_SOURCE, RGLRU_SOURCE,
+    built = _build.build_many([PACK_SOURCE, FLASH_SOURCE, FLASH_SM90_SOURCE, RGLRU_SOURCE,
                                WKV_SOURCE])
     say(f"build: all five libraries in {time.perf_counter() - t0:.1f} s")
     for src, (lib, log, secs) in built.items():
@@ -1250,14 +1320,16 @@ def main() -> None:
     for suffix, f_errs, f_timings, f_counts in (
             ("", flash_errs, flash_timings, counts),
             ("[recurrentgemma]", rg_flash_errs, rg_flash_timings, rg_counts)):
-        for name, replaces in (("fwd", "src/repro/kernels/flash_attention/kernel.py:40"),
-                               ("dq", "src/repro/kernels/flash_attention/kernel_bwd.py:53"),
-                               ("dkv", "src/repro/kernels/flash_attention/kernel_bwd.py:89")):
+        for name, replaces in (
+                ("fwd", "src/repro/kernels/flash_attention/kernel.py:40"),
+                ("dq", "src/repro/kernels/flash_attention/kernel_bwd.py:53"),
+                ("dkv", "src/repro/kernels/flash_attention/kernel_bwd.py:89")):
             t = f_timings[name]
             kernels.append({
                 "name": f"flash_attention.{name}{suffix}",
+                "kernel": f"flash_{name}_sm90",  # the C entry point in ``source``
                 "route": "cuda",
-                "source": FLASH_SRC if name == "fwd" else FLASH_BWD_SRC,
+                "source": FLASH_SM90_SRC,
                 "replaces": replaces,
                 "launches": f_counts[f"flash_{name}_launches"],
                 "max_abs_err": f_errs[name],

@@ -4,8 +4,8 @@
 //   flash_fwd_kernel <- _fwd_kernel / flash_attention_fwd   (kernel.py:40, :167)
 //   flash_dq_kernel  <- _dq_kernel  / flash_attention_bwd   (kernel_bwd.py:53, :185)
 //   flash_dkv_kernel <- _dkv_kernel / flash_attention_bwd   (kernel_bwd.py:89, :212)
-// The forward takes f32 and bf16; the backward kernels here take f32 only.  The bf16
-// backward runs on the tensor cores, in flash_bwd_sm90.cu.
+// All three take f32 only: the bf16 forward and backward run on the tensor cores, in
+// flash_sm90.cu.
 //
 // What they compute (the plain versions are in ../ref.py).  q is (B, Sq, Hq, hd),
 // k and v are (B, Sk, Hkv, hd), query head h reads KV head h / G with G = Hq / Hkv,
@@ -17,12 +17,11 @@
 //            dq = ds k                           (delta = rowsum(dO * o), t = tanh)
 //   dK/dV    dv = sum over the G heads of p^T dO, dk = sum over the G heads of ds^T q
 //
-// Bound.  At the main path's shape (B 4, S 512, 32 query / 4 KV heads, hd 64, bf16)
-// one launch moves ~19-28 MB and does 4-9 GFLOP of causal products: the forward
-// and dQ are bound by device memory (~6-8 us at 3.35 TB/s), dK/dV by the bf16
-// tensor-core rate (~9 us at 989 TFLOP/s).  These kernels are the simple, right
-// first version: every product runs in f32 on the CUDA cores, so they sit far
-// above that bound.  wgmma/TMA tiles are later work.
+// Bound.  At the main path's shape (B 4, S 512, 32 query / 4 KV heads, hd 64) one
+// launch in f32 moves ~38-56 MB and does 4-9 GFLOP of causal products.  These
+// kernels are the simple, right first version: every product runs in f32 on the
+// CUDA cores, far above that bound.  The main path trains in bf16 and runs
+// flash_sm90.cu's kernels.
 //
 // Design.  The TPU kernels carry their f32 accumulators in VMEM scratch across a
 // sequential grid axis.  Here each block owns its output tile and loops over the
@@ -40,17 +39,16 @@
 //            one writer and one summation order, so every run gives the same bits
 //            (a recomputed forward under activation checkpointing equals the
 //            first, and the data-parallel issue orders stay bitwise equal).
-// Tiles are staged in shared memory as f32 (bf16 inputs are widened on load), rows
-// padded to hd + 1 floats so that the threads of a warp that read one column of
-// different rows hit different banks.  256 threads form a 16 x 16 grid; thread
-// (ty, tx) owns rows ty + 16 i and columns tx + 16 j of every tile, so a row's
-// max and sum reduce over the 16 lanes of a half-warp with shuffles.  hd 256 uses
-// 32-row tiles to stay inside the 227 KB of shared memory a block may have.
+// Tiles are staged in shared memory as f32, rows padded to hd + 1 floats so that
+// the threads of a warp that read one column of different rows hit different
+// banks.  256 threads form a 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i and
+// columns tx + 16 j of every tile, so a row's max and sum reduce over the 16 lanes
+// of a half-warp with shuffles.  hd 256 uses 32-row tiles to stay inside the
+// 227 KB of shared memory a block may have.
 // Masked scores use the flag of the mask, never a sentinel value, so a row that
 // sees no key contributes p = 0 everywhere (the TPU kernel's -1e30 sentinel gives
 // such a row exp(0) = 1 weights; its documented semantics and attention_ref give 0).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,9 +73,7 @@ struct Tiles {  // rows of a q tile and of a k tile
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // Rows [row0, row0 + ROWS) of one head into dst (ROWS x (HD + 1) f32); rows at or
 // past n read as 0.
@@ -536,19 +532,9 @@ bool valid(const Shape& p) {
 // One call per kernel.  dims = {B, Sq, Sk, Hq, Hkv, hd}; strides = {q batch, q seq,
 // q head, k batch, k seq, k head} in elements (the last axis is contiguous; o, dO and
 // dq share q's strides, v, dk and dv share k's); lse and delta are (B, Sq, Hq) f32,
-// contiguous.  bf16 != 0: q, k, v, dO and the outputs are bf16, else f32 (flash_dq
-// and flash_dkv refuse bf16).  Each returns the cudaError_t of the launch (0 on
-// success).
-#define FLASH_DISPATCH(FN, ...)                                                     \
-  switch (dims[5]) {                                                                \
-    case 32: return bf16 ? FN<__nv_bfloat16, 32>(__VA_ARGS__) : FN<float, 32>(__VA_ARGS__);    \
-    case 64: return bf16 ? FN<__nv_bfloat16, 64>(__VA_ARGS__) : FN<float, 64>(__VA_ARGS__);    \
-    case 128: return bf16 ? FN<__nv_bfloat16, 128>(__VA_ARGS__) : FN<float, 128>(__VA_ARGS__); \
-    case 256: return bf16 ? FN<__nv_bfloat16, 256>(__VA_ARGS__) : FN<float, 256>(__VA_ARGS__); \
-    default: return int(cudaErrorInvalidValue);                                     \
-  }
+// contiguous.  Every tensor is f32 (flash_sm90.cu takes bf16).  Each returns the
+// cudaError_t of the launch (0 on success).
 #define FLASH_DISPATCH_F32(FN, ...)                    \
-  if (bf16) return int(cudaErrorInvalidValue);         \
   switch (dims[5]) {                                   \
     case 32: return FN<float, 32>(__VA_ARGS__);        \
     case 64: return FN<float, 64>(__VA_ARGS__);        \
@@ -559,17 +545,17 @@ bool valid(const Shape& p) {
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                          const int* dims, const long long* strides, int causal, int window,
-                         float scale, float softcap, int bf16, void* stream) {
+                         float scale, float softcap, void* stream) {
   const Shape p = make_shape(dims, strides, causal, window, scale, softcap);
   if (!valid(p)) return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, p, st)
+  FLASH_DISPATCH_F32(launch_fwd, q, k, v, o, lse, p, st)
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dq, const int* dims,
                         const long long* strides, int causal, int window, float scale,
-                        float softcap, int bf16, void* stream) {
+                        float softcap, void* stream) {
   const Shape p = make_shape(dims, strides, causal, window, scale, softcap);
   if (!valid(p)) return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -579,7 +565,7 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, void* dk, void* dv,
                          const int* dims, const long long* strides, int causal, int window,
-                         float scale, float softcap, int bf16, void* stream) {
+                         float scale, float softcap, void* stream) {
   const Shape p = make_shape(dims, strides, causal, window, scale, softcap);
   if (!valid(p)) return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,28 +1,33 @@
-// Flash-attention backward for Hopper (sm_90a) on the tensor cores: dQ and dK/dV
-// for bf16 q, k, v and dO.
+// Flash attention for Hopper (sm_90a) on the tensor cores: the forward, dQ and
+// dK/dV for bf16 q, k, v and dO.
 //
-// Replaces the Pallas TPU kernels of repro/kernels/flash_attention/kernel_bwd.py
-// for bf16 inputs (f32 inputs keep flash_dq_kernel / flash_dkv_kernel of
-// flash_attention.cu; ops.py picks by dtype):
+// Replaces the Pallas TPU kernels of repro/kernels/flash_attention/ for bf16
+// inputs (f32 inputs keep flash_fwd_kernel / flash_dq_kernel / flash_dkv_kernel
+// of flash_attention.cu; ops.py picks by dtype):
+//   flash_fwd_sm90_kernel                        <- _fwd_kernel (kernel.py:40, :167)
 //   flash_dq_sm90_kernel                         <- _dq_kernel  (kernel_bwd.py:53, :185)
 //   flash_dkv_sm90_kernel + flash_dkv_sum_kernel <- _dkv_kernel (kernel_bwd.py:89, :212)
 //
-// What they compute is what flash_attention.cu's backward computes (plain
-// versions in ../ref.py): with s = softcap(q k^T * hd^-1/2) under the causal /
-// window mask, t = tanh, delta = rowsum(dO * o),
+// What they compute is what flash_attention.cu computes (plain versions in
+// ../ref.py): with s = softcap(q k^T * hd^-1/2) under the causal / window mask,
+// t = tanh, delta = rowsum(dO * o),
+//   o = softmax(s) v,  lse = m + log(l)  (m the row max, l = sum exp(s - m)),
 //   p = exp(s - lse),  ds = p * (dO v^T - delta) * (1 - t^2) * hd^-1/2,
 //   dq = ds k,  dv = sum over the G query heads of p^T dO,  dk = the same of ds^T q.
 // A masked (query, key) pair gets p = 0 by the mask's flag, never by a sentinel,
-// so a row that sees no key contributes nothing and gets dq = 0.  The one change
-// of numbers: p and ds are formed in f32 registers and rounded to bf16 as the
-// operands of the second products (dq, dk, dv); every product accumulates in f32.
+// so a row that sees no key gets o = 0, lse = m + log(max(l, 1e-30)) = -1e30 and
+// dq = 0.  The one change of numbers: p (forward and backward) and ds are formed
+// in f32 registers and rounded to bf16 as the operands of the second products
+// (o, dq, dk, dv); the forward's l sums the f32 p; every product accumulates in
+// f32.
 //
 // Bound.  At RecurrentGemma's attention (B 1, S 4096, 16 query heads over 1 KV
-// head, hd 256, causal, window 2048) dQ does 155 GFLOP and dK/dV 206 GFLOP over
-// the visible pairs: 0.16 and 0.21 ms at 989 TFLOP/s bf16, against ~40 MB of
-// inputs and outputs (12 us at 3.35 TB/s).  At TinyLlama's (B 4, S 512, 32 / 4
-// heads, hd 64, causal) dQ is bound by its 28 MB (8 us), dK/dV by its 8.6 GFLOP
-// (9 us).  So both are tensor-core work: every product is a wgmma.
+// head, hd 256, causal, window 2048) the forward does 103 GFLOP, dQ 155 GFLOP and
+// dK/dV 206 GFLOP over the visible pairs: 0.10, 0.16 and 0.21 ms at 989 TFLOP/s
+// bf16, against ~40 MB of inputs and outputs (12 us at 3.35 TB/s).  At TinyLlama's
+// (B 4, S 512, 32 / 4 heads, hd 64, causal) the forward and dQ are bound by their
+// 19 / 28 MB (6 / 8 us), dK/dV by its 8.6 GFLOP (9 us).  So all three are
+// tensor-core work: every product is a wgmma.
 //
 // Design.
 // - Tiles are 64 rows (queries or keys) by the head dim, bf16, in shared memory in
@@ -30,20 +35,29 @@
 //   16-byte chunk c of row r stored at chunk c ^ (r % 8).  hd 32 is zero-padded to
 //   one 64-wide panel.  wgmma reads one tile both ways through its descriptor:
 //   K-major where the head dim is the reduction (S = Q K^T, dP = dO V^T) and
-//   N-major where the 64 rows are (dQ += dS K, dV += P^T dO, dK += dS^T Q), so
-//   nothing is transposed in memory.
-// - P and dS never go to device memory.  The accumulator of a 64 x 64 product
-//   holds, per thread, exactly the elements that the A operand of the next wgmma
-//   wants from registers (rows 16 w + l/4 (+8), columns 2 (l%4) (+1) (+8) of each
-//   16-wide step), so they are rounded to bf16 pairs in place and fed as A.
+//   N-major where the 64 rows are (O += P V, dQ += dS K, dV += P^T dO,
+//   dK += dS^T Q), so nothing is transposed in memory.
+// - P and dS never go to shared or device memory.  The accumulator of a 64 x 64
+//   product holds, per thread, exactly the elements that the A operand of the next
+//   wgmma wants from registers (rows 16 w + l/4 (+8), columns 2 (l%4) (+1) (+8) of
+//   each 16-wide step), so they are rounded to bf16 pairs in place and fed as A.
 // - Streamed tiles arrive by 16-byte cp.async (zero-filled past the sequence end
 //   and past hd) into two stages: the next tile's loads run under the current
 //   tile's products.  All threads load and compute (a single-role double buffer).
+// - Forward: one block per (128 query rows, q head, b), two warpgroups of 64 query
+//   rows each sharing every K/V stage; Q stays resident.  Per key tile each
+//   warpgroup forms S = Q K^T with the same m64n64k16 steps as dQ (so the
+//   backward recomputes the forward's very s), keeps the row max m and sum l in
+//   f32 registers (a row lives in one quad of lanes: two shuffles), rescales O by
+//   exp(m_old - m_new) and adds P V.  A warpgroup skips the key tiles that its
+//   rows cannot see; the block loops over the tiles that some row of it can see.
+//   Shared memory at hd 256: Q 64 KB, 2 stages of K, V 128 KB.  Registers per
+//   thread at hd 256: O 128, S 32, P 16.
 // - dQ: one warpgroup per block, one block per (64 q rows, q head, b), looping
 //   over the 64-key tiles its rows can see.  Q and dO stay resident.  Registers
 //   per thread at hd 256: dQ 128, S 32, dP 32.  Shared memory: Q, dO 2 x 32 KB,
 //   2 stages of K, V 4 x 32 KB: 192 KB.  Blocks are numbered heavy first (causal:
-//   the q tiles that see the most keys).
+//   the q tiles that see the most keys); so are the forward's.
 // - dK/dV: two warpgroups per block, one block per (64 keys, KV head, b, slice of
 //   the G query heads), looping over the slice's heads and the q tiles that see
 //   its keys.  At hd 256 dK and dV take 128 registers a thread each, more than one
@@ -58,7 +72,8 @@
 //   k tiles alone are half a wave); each block writes f32 partial dK / dV for its
 //   slice, and flash_dkv_sum_kernel adds the slices in slice order and casts.
 //   Blocks are numbered heavy first (causal: the k tiles that the most rows see).
-// - No atomics: every output has one summation order, so runs repeat bit for bit.
+// - No atomics and no split over keys: every output has one writer and one
+//   summation order, so runs repeat bit for bit.
 // Shape, the masks and the score are flash_attention.cu's, copied: each library is
 // built from its one source.
 
@@ -74,10 +89,13 @@ constexpr int kTile = 64;                 // rows of every q and k tile
 constexpr int kPanelBytes = kTile * 128;  // one 64-wide panel of a tile
 constexpr int kDqThreads = 128;           // one warpgroup
 constexpr int kDkvThreads = 256;          // two warpgroups
+constexpr int kFwdWarpgroups = 2;         // forward: 64 query rows each
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -1e30f;         // running max of a row that has seen no key yet
 
 struct Shape {
   int B, Sq, Sk, Hq, Hkv, G;
-  long long qsb, qss, qsh;  // element strides of q, dO, dq: batch, sequence, head
+  long long qsb, qss, qsh;  // element strides of q, o, dO, dq: batch, sequence, head
   long long ksb, kss, ksh;  // element strides of k, v
   int causal, window;       // window <= 0: no window
   float scale, softcap;     // softcap <= 0: no softcap
@@ -378,7 +396,151 @@ struct Dims {
   static constexpr int KS = HDP / 16;              // 16-deep steps over the head dim
   static constexpr size_t dq_smem = 6 * TB + 1024;  // Q, dO, 2 x (K, V), alignment
   static constexpr size_t dkv_smem = 6 * TB + 32 * 128 * 4 + 4 * kTile * 4 + 1024;
+  static constexpr size_t fwd_smem = (kFwdWarpgroups + 4) * TB + 1024;  // Q, 2 x (K, V), alignment
 };
+
+// Max and sum over the quad of lanes that holds one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128 * kFwdWarpgroups, 1)
+flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                      Shape p, int n_qt) {
+  using D = Dims<HD>;
+  constexpr int HDP = D::HDP, TB = D::TB, NWG = kFwdWarpgroups, NT = 128 * NWG, BQ = kTile * NWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // Q tiles, then the K/V stages
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int bh = blockIdx.x % (p.Hq * p.B), t = blockIdx.x / (p.Hq * p.B);
+  const int q0 = (p.causal ? n_qt - 1 - t : t) * BQ;  // heavy tiles first
+  const int h = bh % p.Hq, b = bh / p.Hq;
+  const long long qbase = b * p.qsb + h * p.qsh;
+  const long long kbase = b * p.ksb + (h / p.G) * p.ksh;
+  const int qw = q0 + wg * kTile;  // this warpgroup's first row
+  const uint32_t sQ = base + wg * TB;
+
+  int lo, hi, kt0, wlo, whi;
+  key_range(p, q0, min(q0 + BQ, p.Sq), &lo, &hi);
+  const int n_it = tiles_of(lo, hi, &kt0);
+  key_range(p, qw, min(qw + kTile, p.Sq), &wlo, &whi);  // keys this warpgroup's rows see
+  if (qw >= p.Sq) whi = wlo;
+  const bool rows_whole = qw + kTile <= p.Sq;  // all 64 rows of this warpgroup exist
+
+  float acc[HDP / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+
+  auto load_kv = [&](int it) {
+    const uint32_t sK = base + (NWG + 2 * (it & 1)) * TB;
+    const int k0 = (kt0 + it) * kTile;
+    load_tile<HD, HDP, NT>(sK, k, kbase, p.kss, k0, p.Sk, tid);
+    load_tile<HD, HDP, NT>(sK + TB, v, kbase, p.kss, k0, p.Sk, tid);
+  };
+  if (n_it > 0) {
+#pragma unroll
+    for (int w = 0; w < NWG; ++w)
+      load_tile<HD, HDP, NT>(base + w * TB, q, qbase, p.qss, q0 + w * kTile, p.Sq, tid);
+    load_kv(0);
+    cp_commit();
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const uint32_t sK = base + (NWG + 2 * (it & 1)) * TB, sV = sK + TB;
+    const int k0 = (kt0 + it) * kTile;
+    if (it + 1 < n_it) {  // the other stage was released at the end of the last step
+      load_kv(it + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    tiles_ready();
+
+    if (k0 < whi && k0 + kTile > wlo) {  // uniform over the warpgroup
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D::KS; ++kk) Wgmma<64>::ss<0>(s, tile_k(sQ, kk), tile_k(sK, kk));
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+
+      // every pair of the tile visible to every row: no test per pair
+      const bool whole = rows_whole && k0 + kTile <= p.Sk &&
+                         (!p.causal || k0 + kTile - 1 <= qw) &&
+                         (p.window <= 0 || qw + kTile - 1 - k0 < p.window);
+      uint32_t vis = 0;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float dc;
+        s[i] = score(p, s[i], &dc);
+        if (whole || visible(p, qw + acc_row(warp, lane, i), k0 + acc_col(lane, i))) {
+          vis |= 1u << i;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        }
+      }
+      float corr[2], ml[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        corr[r] = exp2f((m[r] - mx[r]) * kLog2e);
+        m[r] = mx[r];
+        ml[r] = mx[r] * kLog2e;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = (vis >> i) & 1u ? exp2f(fmaf(s[i], kLog2e, -ml[r])) : 0.f;  // P
+        rs[r] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+      for (int i = 0; i < HDP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      uint32_t a[4][4];
+      to_operand(s, a);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) Wgmma<HDP>::template rs<1>(acc, a[kk], tile_n(sV, kk));
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+    }
+    __syncthreads();  // this stage is free for the step after next
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);  // a row that sees no key: acc = 0
+  }
+#pragma unroll
+  for (int i = 0; i < HDP / 2; i += 2) {
+    const int qpos = qw + acc_row(warp, lane, i), col = acc_col(lane, i), r = (i >> 1) & 1;
+    if (qpos < p.Sq && col < HD)
+      *reinterpret_cast<__nv_bfloat162*>(o + qbase + qpos * p.qss + col) =
+          __floats2bfloat162_rn(acc[i] * inv[r], acc[i + 1] * inv[r]);
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = qw + acc_row(warp, lane, 2 * r);
+      if (qpos < p.Sq)
+        lse[(static_cast<long long>(b) * p.Sq + qpos) * p.Hq + h] = m[r] + logf(fmaxf(l[r], 1e-30f));
+    }
+  }
+}
 
 template <int HD>
 __global__ void __launch_bounds__(kDqThreads, 1)
@@ -620,6 +782,21 @@ flash_dkv_sum_kernel(const float4* __restrict__ dk_part, const float4* __restric
 int n_tiles(int n) { return (n + kTile - 1) / kTile; }
 
 template <int HD>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& p,
+               cudaStream_t stream) {
+  constexpr size_t smem = Dims<HD>::fwd_smem;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_sm90_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (attr != cudaSuccess) return int(attr);
+  constexpr int BQ = kTile * kFwdWarpgroups;
+  const int n_qt = (p.Sq + BQ - 1) / BQ;
+  flash_fwd_sm90_kernel<HD><<<n_qt * p.Hq * p.B, 128 * kFwdWarpgroups, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, p, n_qt);
+  return int(cudaGetLastError());
+}
+
+template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, void* dq, const Shape& p, cudaStream_t stream) {
   constexpr size_t smem = Dims<HD>::dq_smem;
@@ -685,11 +862,11 @@ bool valid(const Shape& p) {
 }  // namespace
 
 // dims = {B, Sq, Sk, Hq, Hkv, hd}; strides = {q batch, q seq, q head, k batch, k seq,
-// k head} in elements (the last axis is contiguous; dO and dq share q's strides, v
-// shares k's), multiples of 8, and every pointer 16-byte aligned; lse and delta are
-// (B, Sq, Hq) f32, contiguous.  All tensors bf16 but lse, delta and the partials.
+// k head} in elements (the last axis is contiguous; o, dO and dq share q's strides,
+// v shares k's), multiples of 8, and every pointer 16-byte aligned; lse and delta
+// are (B, Sq, Hq) f32, contiguous.  All tensors bf16 but lse, delta and the partials.
 // Each returns the cudaError_t of its launches (0 on success).
-#define BWD_DISPATCH(FN, ...)                    \
+#define SM90_DISPATCH(FN, ...)                   \
   switch (dims[5]) {                             \
     case 32: return FN<32>(__VA_ARGS__);         \
     case 64: return FN<64>(__VA_ARGS__);         \
@@ -698,23 +875,31 @@ bool valid(const Shape& p) {
     default: return int(cudaErrorInvalidValue);  \
   }
 
+extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse,
+                              const int* dims, const long long* strides, int causal, int window,
+                              float scale, float softcap, void* stream) {
+  const Shape p = make_shape(dims, strides, causal, window, scale, softcap);
+  if (!valid(p)) return int(cudaErrorInvalidValue);
+  SM90_DISPATCH(launch_fwd, q, k, v, o, lse, p, static_cast<cudaStream_t>(stream))
+}
+
 extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, void* dq, const int* dims,
                              const long long* strides, int causal, int window, float scale,
                              float softcap, void* stream) {
   const Shape p = make_shape(dims, strides, causal, window, scale, softcap);
   if (!valid(p)) return int(cudaErrorInvalidValue);
-  BWD_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, p, static_cast<cudaStream_t>(stream))
+  SM90_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, p, static_cast<cudaStream_t>(stream))
 }
 
 // dk_part and dv_part: f32 scratch of ns x B x Sk x Hkv x hd each; ns divides G.
 extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, float* dk_part,
-                              float* dv_part, void* dk, void* dv, const int* dims,
+                              float* dv_part, void* dk, void* dv, int ns, const int* dims,
                               const long long* strides, int causal, int window, float scale,
-                              float softcap, int ns, void* stream) {
+                              float softcap, void* stream) {
   const Shape p = make_shape(dims, strides, causal, window, scale, softcap);
   if (!valid(p) || ns < 1 || p.G % ns != 0) return int(cudaErrorInvalidValue);
-  BWD_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk_part, dv_part, dk, dv, p, ns,
+  SM90_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk_part, dv_part, dk, dv, p, ns,
                static_cast<cudaStream_t>(stream))
 }

@@ -14,16 +14,16 @@ custom-VJP ``flash_attention_train``): its forward saves only
 no (Sq, Sk) tensor is kept for backward.
 
 The CUDA kernels take f32 or bf16 inputs and head dims 32, 64, 128 and
-256, and raise on anything else.  The forward runs ``flash_fwd_kernel`` of
-``csrc/flash_attention.cu`` for both dtypes.  The backward picks its
-kernels by dtype: f32 q, k, v and dO go to ``flash_dq_kernel`` and
-``flash_dkv_kernel`` of ``csrc/flash_attention.cu`` (f32 products on the
-CUDA cores), bf16 ones to ``flash_dq_sm90_kernel`` and
-``flash_dkv_sm90_kernel`` of ``csrc/flash_bwd_sm90.cu`` (``wgmma`` bf16
-products with f32 accumulators; p and dS rounded to bf16 as operands of
-the second products).  The dtype decides, nothing else: a failed build or
-launch raises.  The bf16 dK/dV kernel splits the G query heads of a KV
-head into ``ns`` slices (``_dkv_slices``) so that the grid fills the card,
+256, and raise on anything else.  Every kernel wrapper picks its kernel by
+dtype: f32 q, k, v (and dO) go to ``flash_fwd_kernel``, ``flash_dq_kernel``
+and ``flash_dkv_kernel`` of ``csrc/flash_attention.cu`` (f32 products on
+the CUDA cores), bf16 ones to ``flash_fwd_sm90_kernel``,
+``flash_dq_sm90_kernel`` and ``flash_dkv_sm90_kernel`` of
+``csrc/flash_sm90.cu`` (``wgmma`` bf16 products with f32 accumulators; p
+and dS rounded to bf16 as operands of the second products).  The dtype
+decides, nothing else: a failed build or launch raises.  The bf16 dK/dV
+kernel splits the G query heads of a KV head into ``ns`` slices
+(``_dkv_slices``) so that the grid fills the card,
 writes f32 partials into a scratch buffer, and ``flash_dkv_sum_kernel``
 adds them in slice order: both launches make one ``flash_attention_dkv``
 call, counted once in ``.launches``.
@@ -46,13 +46,13 @@ from .ref import (
 )
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BWD_SOURCE = SOURCE.with_name("flash_bwd_sm90.cu")
+SM90_SOURCE = SOURCE.with_name("flash_sm90.cu")
 HEAD_DIMS = (32, 64, 128, 256)
-_BF16 = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64  # rows of a q or k tile in the bf16 backward kernels
+DTYPES = (torch.float32, torch.bfloat16)
+TILE = 64  # rows of a q or k tile in the bf16 kernels
 
 _lib: ctypes.CDLL | None = None
-_bwd_lib: ctypes.CDLL | None = None
+_sm90_lib: ctypes.CDLL | None = None
 
 
 def _library() -> ctypes.CDLL:
@@ -60,7 +60,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [p, p, i, i, f, f, i, p]  # dims, strides, causal, window, scale, softcap, bf16, stream
+        tail = [p, p, i, i, f, f, p]  # dims, strides, causal, window, scale, softcap, stream
         lib.flash_fwd.argtypes = [p] * 5 + tail
         lib.flash_dq.argtypes = [p] * 7 + tail
         lib.flash_dkv.argtypes = [p] * 8 + tail
@@ -70,18 +70,19 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _bwd_library() -> ctypes.CDLL:
-    global _bwd_lib
-    if _bwd_lib is None:
-        lib = _build.load(BWD_SOURCE)
+def _sm90_library() -> ctypes.CDLL:
+    global _sm90_lib
+    if _sm90_lib is None:
+        lib = _build.load(SM90_SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [p, p, i, i, f, f]  # dims, strides, causal, window, scale, softcap
-        lib.flash_dq_sm90.argtypes = [p] * 7 + tail + [p]  # ..., stream
-        lib.flash_dkv_sm90.argtypes = [p] * 10 + tail + [i, p]  # ..., slices, stream
-        for fn in (lib.flash_dq_sm90, lib.flash_dkv_sm90):
+        tail = [p, p, i, i, f, f, p]  # dims, strides, causal, window, scale, softcap, stream
+        lib.flash_fwd_sm90.argtypes = [p] * 5 + tail
+        lib.flash_dq_sm90.argtypes = [p] * 7 + tail
+        lib.flash_dkv_sm90.argtypes = [p] * 10 + [i] + tail  # ..., slices, ...
+        for fn in (lib.flash_fwd_sm90, lib.flash_dq_sm90, lib.flash_dkv_sm90):
             fn.restype = ctypes.c_int
-        _bwd_lib = lib
-    return _bwd_lib
+        _sm90_lib = lib
+    return _sm90_lib
 
 
 def _check_opts(q, k, v, window, softcap) -> None:
@@ -112,7 +113,7 @@ def _cuda_args(*tensors, causal, window, softcap):
     """Checks the kernels' conditions on (q, k, v[, dO]); returns them
     contiguous and the trailing launcher arguments."""
     dt = tensors[0].dtype
-    if dt not in _BF16 or any(t.dtype != dt for t in tensors):
+    if dt not in DTYPES or any(t.dtype != dt for t in tensors):
         raise TypeError(f"the flash-attention kernels take float32 or bfloat16 q, k, v and dO "
                         f"of one dtype, got {[str(t.dtype) for t in tensors]}")
     q, k = tensors[0], tensors[1]
@@ -123,7 +124,7 @@ def _cuda_args(*tensors, causal, window, softcap):
     dims = (ctypes.c_int * 6)(B, Sq, k.shape[1], Hq, k.shape[2], hd)
     strides = (ctypes.c_longlong * 6)(*tensors[0].stride()[:3], *tensors[1].stride()[:3])
     tail = [dims, strides, int(causal), 0 if window is None else int(window),
-            float(hd**-0.5), 0.0 if softcap is None else float(softcap), _BF16[dt],
+            float(hd**-0.5), 0.0 if softcap is None else float(softcap),
             torch.cuda.current_stream(q.device).cuda_stream]
     return tensors, tail
 
@@ -175,8 +176,14 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None, retu
         (q, k, v), tail = _cuda_args(q, k, v, **opts)
         o = torch.empty_like(q)
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-        _check_launch(_library().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                           o.data_ptr(), lse.data_ptr(), *tail), "forward")
+        if q.dtype == torch.bfloat16:
+            q, k, v = map(_aligned, (q, k, v))
+            err = _sm90_library().flash_fwd_sm90(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                 o.data_ptr(), lse.data_ptr(), *tail)
+        else:
+            err = _library().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                       lse.data_ptr(), *tail)
+        _check_launch(err, "forward")
         flash_attention_fwd.launches += 1
     return (o, lse) if return_lse else o
 
@@ -193,9 +200,9 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal=True, window=None, sof
     dq = torch.empty_like(q)
     if q.dtype == torch.bfloat16:
         q, k, v, do = map(_aligned, (q, k, v, do))
-        err = _bwd_library().flash_dq_sm90(
+        err = _sm90_library().flash_dq_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), *tail[:6], tail[-1])
+            delta.data_ptr(), dq.data_ptr(), *tail)
     else:
         err = _library().flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail)
@@ -220,10 +227,10 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=True, window=None, so
         q, k, v, do = map(_aligned, (q, k, v, do))
         ns = _dkv_slices(q, k)
         part = torch.empty((2, ns, *k.shape), dtype=torch.float32, device=k.device)
-        err = _bwd_library().flash_dkv_sm90(
+        err = _sm90_library().flash_dkv_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *tail[:6], ns, tail[-1])
+            dv.data_ptr(), ns, *tail)
     else:
         err = _library().flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),

@@ -33,7 +33,8 @@ TOP = 15  # kernels listed by device time
 #: Kernel classes, first match wins (lower-cased kernel names).
 CLASSES = (
     ("flash_attention", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-                         "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel", "flash_dkv_sum_kernel")),
+                         "flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
+                         "flash_dkv_sum_kernel")),
     ("rglru", ("rglru_fwd_kernel", "rglru_bwd_kernel")),
     ("rwkv6_wkv", ("wkv_fwd_kernel", "wkv_bwd_state_kernel", "wkv_bwd_decay_kernel")),
     ("comm_pack", ("pack_kernel", "unpack_kernel")),

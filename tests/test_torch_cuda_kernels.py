@@ -8,14 +8,17 @@ flash_attention: forward, dQ and dK/dV at the full-width main path's
 shape (B 4, S 512, 32 query / 4 KV heads, hd 64) in f32 and bf16, at the
 tolerances of ``tests/test_kernels.py`` (o 2e-5 f32 / 2e-2 bf16, lse
 1e-5, f32 gradients 2e-4; bf16 gradients 1e-2 x max|g|: the bf16
-backward rounds p and dS to bf16 as operands of its tensor-core products,
-the plain versions keep them in f32, both round the result once); the
-bf16 backward also at RecurrentGemma's attention (MQA, hd 256, window
-2048), hd 32 / 128 with window and softcap, Sq != Sk and a ragged S; f32
-inputs keep the CUDA-core backward kernels bit for bit; rows that see no
-key give 0; two runs give the same bits; and one reduced training step
-with the flash kernels gives bitwise the same parameters for the ``post``
-and ``dag`` issue orders.
+kernels round p (and dS) to bf16 as operands of their second tensor-core
+products, the plain versions keep them in f32, both round the result
+once); the bf16 forward also at every shape of the JAX package's forward
+tests, at RecurrentGemma's attention (MQA, hd 256, window 2048) and with
+Sq != Sk; the bf16 backward at RecurrentGemma's attention, hd 32 / 128
+with window and softcap, Sq != Sk and a ragged S; forward -> backward
+through the kernels' own (o, lse) at both main shapes; f32 inputs keep
+the CUDA-core kernels bit for bit; rows that see no key give 0; two runs
+give the same bits; and one reduced training step with the flash kernels
+gives bitwise the same parameters for the ``post`` and ``dag`` issue
+orders.
 
 rglru: the forward and backward kernels against their plain versions
 (the sequential loop and its reverse) at the JAX tests' first shape, a
@@ -195,6 +198,96 @@ def test_cuda_bf16_backward_kernels_match_plain_and_repeat(B, Sq, Sk, Hq, Hkv, h
     assert torch.equal(fa.flash_attention_dq(q, k, v, do, lse, delta, **opts), dq)
     dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, lse, delta, **opts)
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+BF16_FWD_CASES = [  # B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap
+    # the JAX package's forward test shapes (tests/test_kernels.py)
+    (2, 256, 256, 4, 2, 64, True, None, None),
+    (1, 512, 512, 8, 8, 128, True, None, None),
+    (2, 256, 256, 4, 1, 64, True, 128, None),
+    (1, 256, 256, 2, 2, 64, True, None, 50.0),
+    (1, 256, 256, 4, 2, 64, False, None, None),
+    (1, 384, 384, 6, 2, 128, True, 256, 30.0),
+    (1, 128, 128, 4, 4, 256, True, None, None),
+    (4, 512, 512, 32, 4, 64, True, None, None),  # TinyLlama's layer
+    (1, 4096, 4096, 16, 1, 256, True, 2048, None),  # RecurrentGemma's MQA / hd 256 / window
+    (1, 256, 128, 4, 2, 64, True, 64, None),  # Sq != Sk: rows 191.. see no key
+    (2, 300, 200, 4, 1, 128, False, 100, None),  # ragged, non-causal, Sq > Sk
+    (2, 200, 300, 4, 2, 32, True, None, 20.0),  # hd 32, Sq < Sk, softcap
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window,softcap", BF16_FWD_CASES,
+                         ids=["-".join(map(str, c)) for c in BF16_FWD_CASES])
+def test_cuda_bf16_forward_kernel_matches_plain_and_repeats(B, Sq, Sk, Hq, Hkv, hd, causal,
+                                                            window, softcap):
+    """The tensor-core forward (bf16) against its plain version on the same
+    inputs: o 2e-2 element by element and 1e-2 in per-row relative L2 over
+    the head dim, lse 1e-5 (p is rounded to bf16 as the operand of P V, the
+    plain version keeps it in f32); a row that sees no key gets o = 0
+    exactly; a second run gives the same bits."""
+    from repro_torch.kernels.flash_attention.ref import _mask
+
+    dev = require_cuda()
+    q, k, v, _ = _qkv(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, dev, seed=Sq + hd + 1)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    fa.reset_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_fwd.ref_calls) == (1, 0)
+    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape and lse.shape == want_lse.shape
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    blind = ~_mask(Sq, Sk, causal, window, 0, dev).any(dim=1)
+    seen = ~blind[None, :, None]
+    row = (o.float() - want_o.float()).norm(dim=-1) / want_o.float().norm(dim=-1)
+    assert float(row[seen.expand_as(row)].max()) <= 1e-2
+    assert torch.equal(o[:, blind], torch.zeros_like(o[:, blind]))
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_forward_keeps_the_cuda_core_kernel():
+    """f32 inputs go to flash_fwd_kernel of flash_attention.cu: the
+    wrapper's results are that kernel's bits."""
+    from repro_torch.kernels.flash_attention import ops
+
+    dev = require_cuda()
+    B, S, Hq, Hkv, hd = MAIN_SHAPE
+    q, k, v, _ = _qkv(B, S, S, Hq, Hkv, hd, torch.float32, dev, seed=4)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    _, tail = ops._cuda_args(q, k, v, causal=True, window=None, softcap=None)
+    want_o, want_lse = torch.empty_like(q), torch.empty_like(lse)
+    assert ops._library().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), want_o.data_ptr(),
+                                    want_lse.data_ptr(), *tail) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window", [(4, 512, 32, 4, 64, None),
+                                                   (1, 4096, 16, 1, 256, 2048)],
+                         ids=["tinyllama", "recurrentgemma"])
+def test_cuda_fwd_to_bwd_through_the_kernels_own_o_and_lse(B, S, Hq, Hkv, hd, window):
+    """The training op on the card (bf16): the backward kernels read the
+    forward kernel's own (o, lse).  dq, dk, dv lie within 1e-2 x max|g| of
+    the plain backward fed the plain forward's (o, lse)."""
+    dev = require_cuda()
+    q, k, v, do = _qkv(B, S, S, Hq, Hkv, hd, torch.bfloat16, dev, seed=5)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    fa.reset_counts()
+    fa.flash_attention_train(qg, kg, vg, window=window).backward(do)
+    torch.cuda.synchronize()
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv):
+        assert (fn.launches, fn.ref_calls) == (1, 0), fn.__name__
+    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v, window=window)
+    want = fa.flash_attention_bwd_ref(q, k, v, want_o, want_lse, do, window=window)
+    for got, w, name in zip((qg.grad, kg.grad, vg.grad), want, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(got.float()).all()), name
+        assert _rel(got, w) <= 1e-2, (name, _rel(got, w))
 
 
 @pytest.mark.cuda

@@ -5,7 +5,10 @@ against the JAX package's Pallas kernels (run in interpret mode, as
 The same inputs, made with numpy (bf16 ones rounded once, by JAX, and
 carried over bit for bit), go through both packages.  Tolerances are
 those of ``tests/test_kernels.py``: o 2e-5 (f32) and 2e-2 (bf16), lse
-1e-5, gradients 2e-4.  Shapes are its rows with the sequence cut to at
+1e-5, gradients 2e-4.  The bf16 tensor-core kernels' one change of
+numbers, written plainly (``_fwd_bf16_operands``, ``_bwd_bf16_operands``),
+is held within the card's bf16 budgets: o 2e-2 and lse 1e-5 for the
+forward, 1e-2 x max|g| for the gradients.  Shapes are its rows with the sequence cut to at
 most 256, so that interpret mode stays fast, plus the reduced model's
 head dim 32.  The CUDA kernels themselves are held against these plain
 versions on the card (``tests/test_torch_cuda_kernels.py``,
@@ -36,7 +39,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_train,
     reset_counts,
 )
-from repro_torch.kernels.flash_attention.ref import _probs_and_dscores
+from repro_torch.kernels.flash_attention.ref import NEG_INF, _mask, _probs_and_dscores, _scores
 
 FWD_SHAPES = [  # B, S, Hq, Hkv, hd, causal, window, softcap
     (2, 256, 4, 2, 64, True, None, None),
@@ -250,3 +253,81 @@ def test_bf16_operand_rounding_within_budget_of_plain(B, S, Hq, Hkv, hd, causal,
     want = flash_attention_bwd_ref(q, k, v, o, lse, do, **opts)
     got = _bwd_bf16_operands(q, k, v, do, lse, delta, **opts)
     _within_budget(got, want, ("dq", "dk", "dv"))
+
+
+def _fwd_bf16_operands(q, k, v, *, causal=True, window=None, softcap=None):
+    """The bf16 forward kernel's arithmetic, written plainly: 64-key tiles in
+    order, f32 scores, the running row max m and sum l in f32 (l sums the
+    f32 p), p rounded to bf16 as the operand of P V, sums in f32, o = acc /
+    l cast to the inputs' dtype, lse = m + log(max(l, 1e-30)).  A row that
+    sees no key gets o = 0 and lse = -1e30, as the plain forward gives."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    s, _ = _scores(q, k, softcap)  # (B, Hkv, G, Sq, Sk)
+    mask = _mask(Sq, Sk, causal, window, 0, q.device)
+    vf = v.float()
+    m = torch.full((*s.shape[:-1], 1), NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*s.shape[:-1], hd))
+    for k0 in range(0, Sk, 64):
+        st, mt = s[..., k0:k0 + 64], mask[:, k0:k0 + 64]
+        m_new = torch.maximum(m, torch.where(mt, st, NEG_INF).amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(mt, torch.exp(st - m_new), 0.0)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bkgst,btkh->bkgsh", p.bfloat16().float(),
+                                        vf[:, k0:k0 + 64])
+        m = m_new
+    o = (acc / torch.where(l == 0.0, 1.0, l)).permute(0, 3, 1, 2, 4).reshape(q.shape)
+    lse = (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0]  # (B, Hkv, G, Sq)
+    return o.to(q.dtype), lse.reshape(B, Hq, Sq).transpose(1, 2).contiguous()
+
+
+def _fwd_within_budget(o, lse, want_o, want_lse):
+    """The card's bf16 forward tolerance: o 2e-2 element by element and 1e-2
+    in per-row relative L2 over the head dim (a row of zeros stays zeros),
+    lse 1e-5."""
+    o, want_o = (torch.tensor(_np(x)) for x in (o, want_o))
+    np.testing.assert_allclose(o.numpy(), want_o.numpy(), rtol=2e-2, atol=2e-2, err_msg="o")
+    err, ref = (o - want_o).norm(dim=-1), want_o.norm(dim=-1)
+    assert bool((err <= 1e-2 * ref).all()), float((err / ref.clamp(min=1e-30)).max())
+    np.testing.assert_allclose(_np(lse), _np(want_lse), rtol=1e-5, atol=1e-5, err_msg="lse")
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window,softcap", FWD_SHAPES, ids=_ids(FWD_SHAPES))
+def test_fwd_bf16_operand_rounding_within_budget_of_pallas(B, S, Hq, Hkv, hd, causal, window,
+                                                          softcap):
+    """Rounding p to bf16 for P V, over an online softmax of 64-key tiles (the
+    tensor-core forward's one change of numbers), against the Pallas forward
+    in interpret mode on the same bf16 inputs."""
+    q, k, v = _inputs(B, S, S, Hq, Hkv, hd, jnp.bfloat16, seed=9)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    jo, jlse = jax_fwd(q, k, v, block_q=128, block_k=128, interpret=True, return_lse=True, **opts)
+    o, lse = _fwd_bf16_operands(to_torch(q), to_torch(k), to_torch(v), **opts)
+    assert o.dtype == torch.bfloat16 and lse.shape == (B, S, Hq)
+    _fwd_within_budget(o, lse, jo, jlse)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window,softcap", ROUNDING_SHAPES,
+                         ids=_ids(ROUNDING_SHAPES))
+def test_fwd_bf16_operand_rounding_within_budget_of_plain(B, S, Hq, Hkv, hd, causal, window,
+                                                         softcap):
+    """The same rounding against the f32 plain forward at the main paths'
+    head layouts (the plain forward is held against the Pallas one above)."""
+    q, k, v = map(to_torch, _inputs(B, S, S, Hq, Hkv, hd, jnp.bfloat16, seed=10))
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    want_o, want_lse = flash_attention_fwd_ref(q, k, v, **opts)
+    o, lse = _fwd_bf16_operands(q, k, v, **opts)
+    _fwd_within_budget(o, lse, want_o, want_lse)
+
+
+def test_fwd_bf16_operands_rows_that_see_no_key():
+    """Rows that see no key (q longer than k, window 64): o = 0 and lse =
+    -1e30, as the plain forward gives, and the kernel's tiling agrees with it
+    elsewhere."""
+    q, k, v = map(to_torch, _inputs(1, 256, 128, 4, 2, 64, jnp.bfloat16, seed=11))
+    o, lse = _fwd_bf16_operands(q, k, v, window=64)
+    want_o, want_lse = flash_attention_fwd_ref(q, k, v, window=64)
+    assert torch.equal(o[:, 191:], torch.zeros_like(o[:, 191:]))
+    assert torch.equal(lse[:, 191:], want_lse[:, 191:])
+    _fwd_within_budget(o, lse, want_o, want_lse)

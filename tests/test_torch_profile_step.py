@@ -11,6 +11,8 @@ NAMES = [
      "flash_attention"),
     ("void (anonymous namespace)::flash_dq_kernel<float, 64, 64, 64>(...)", "flash_attention"),
     ("void (anonymous namespace)::flash_dkv_kernel<float, 64, 64, 64>(...)", "flash_attention"),
+    ("void (anonymous namespace)::flash_fwd_sm90_kernel<256>(__nv_bfloat16 const*, ...)",
+     "flash_attention"),
     ("void (anonymous namespace)::flash_dq_sm90_kernel<256>(__nv_bfloat16 const*, ...)",
      "flash_attention"),
     ("void (anonymous namespace)::flash_dkv_sm90_kernel<64>(__nv_bfloat16 const*, ...)",
