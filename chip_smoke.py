@@ -59,8 +59,15 @@ failure exits non-zero.
    ds_final: out / s_final within 2e-4 (+ 2e-4 relative), every gradient
    (dr, dk, dv, dw, du, ds0) within 2e-4 x max(1, max|g|); a strong-decay
    case (w in (0.05, 0.3), T 256); a run split at T/2 and threaded through
-   s_final -> s0 matches one run; a second run gives the same bits.  Then
-   each kernel's time per launch at the main path's shape (bf16 r/k/v, no
+   s_final -> s0 matches one run; a second run gives the same bits.  The
+   chunked forward (64-step chunks of 16-step sub-chunks) also alone, out /
+   s_final at the same gate and a second run bitwise equal: at T below, at
+   and past its boundaries (1, 15, 16, 63, 64, 65, 4096 + 17; K 64 bf16 and
+   K 32 f32 with s0), with w holding exact zeros and with chunks whose first
+   30 decays are 1e-30 (main path's shape), and a run split at T/2 + 17, off
+   the chunk grid, threaded through s_final -> s0; the largest forward
+   reading is printed as a share of the gate.  Then each kernel's time per
+   launch at the main path's shape (bf16 r/k/v, no
    s0 / ds_final, as the path calls them) beside its bound and its plain
    version's (no single PyTorch call computes the recurrence, so no library
    yardstick).
@@ -865,7 +872,29 @@ def phase_wkv(device):
     from repro_torch.kernels import rwkv6_wkv as wk
 
     errs = {"fwd": 0.0, "bwd": 0.0}
+    gate = {"share": 0.0, "at": ""}  # the largest forward |diff| / (2e-4 + 2e-4 |ref|)
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+    def check_out(out, s_final, want_out, want_s, tag):
+        for name, got, ref in (("out", out, want_out), ("s_final", s_final, want_s)):
+            d = (got - ref).abs()
+            if not bool((d <= 2e-4 + 2e-4 * ref.abs()).all()) or not torch.isfinite(got).all():
+                fail(f"wkv {name} differs from its plain version at {tag}: max |diff| "
+                     f"{float(d.max()):.3e}")
+            errs["fwd"] = max(errs["fwd"], float(d.max()))
+            share = float((d / (2e-4 + 2e-4 * ref.abs())).max())
+            if share > gate["share"]:
+                gate.update(share=share, at=f"{name} at {tag}")
+
+    def check_fwd(r, k, v, w, u, s0, tag):
+        out, s_final = wk.wkv_fwd(r, k, v, w, u, s0)
+        want_out, want_s = wk.wkv_ref(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        check_out(out, s_final, want_out, want_s, tag)
+        out2, s2 = wk.wkv_fwd(r, k, v, w, u, s0)
+        if not (torch.equal(out2, out) and torch.equal(s2, s_final)):
+            fail(f"wkv: a second forward on the same inputs gave other bits at {tag}")
+        return out, s_final
 
     def check(inputs, tag):
         r, k, v, w, u, s0, dout, ds = inputs
@@ -874,12 +903,7 @@ def phase_wkv(device):
         want_out, want_s = wk.wkv_ref(r, k, v, w, u, s0)
         want = wk.wkv_bwd_ref(r, k, v, w, u, s0, dout, ds)
         torch.cuda.synchronize()
-        for name, got, ref in (("out", out, want_out), ("s_final", s_final, want_s)):
-            d = (got - ref).abs()
-            if not bool((d <= 2e-4 + 2e-4 * ref.abs()).all()) or not torch.isfinite(got).all():
-                fail(f"wkv {name} differs from its plain version at {tag}: max |diff| "
-                     f"{float(d.max()):.3e}")
-            errs["fwd"] = max(errs["fwd"], float(d.max()))
+        check_out(out, s_final, want_out, want_s, tag)
         if (grads[-1] is None) != (s0 is None):
             fail(f"wkv ds0 is {grads[-1]!r} with s0 {'absent' if s0 is None else 'given'} at {tag}")
         for name, got, ref in zip(names, grads, want):
@@ -922,6 +946,39 @@ def phase_wkv(device):
         f"(max |diff| out/s_final {errs['fwd']:.3e}, gradients {errs['bwd']:.3e}; strong decay "
         f"included); split at T/2 through s_final -> s0 {split:.3e}; repeated runs bitwise equal")
 
+    # --- the chunked forward alone: its chunk and sub-chunk boundaries, the decays
+    # where exponents could cancel or underflow, a split off the chunk grid
+    n_fwd = 0
+    for Tb in (1, 15, 16, 63, 64, 65, 4096 + 17):
+        for shape, dtype, with_s0 in (((1, Tb, H, K), torch.bfloat16, False),
+                                      ((1, Tb, 4, 32), torch.float32, True)):
+            rb, kb, vb, wb, ub, s0b, _, _ = wkv_inputs(*shape, device, 80 + Tb, dtype)
+            check_fwd(rb, kb, vb, wb, ub, s0b if with_s0 else None,
+                      f"{shape} {str(dtype)[6:]}{' s0' if with_s0 else ''}")
+            n_fwd += 1
+    x = torch.rand(r.shape, device=device, generator=torch.Generator(device=device).manual_seed(2))
+    w_zero = torch.where(x < 0.3, torch.zeros_like(w), w)
+    w_mixed = 0.985 + 0.01 * x
+    w_mixed[:, torch.arange(T, device=device) % 64 < 30] = 1e-30
+    for name, wd in (("w with 30% exact zeros", w_zero),
+                     ("w 1e-30 in steps 0-29 of every 64, ~0.99 after", w_mixed)):
+        check_fwd(r, k, v, wd, u, None, f"{MAIN_WKV} bf16 {name}")
+        n_fwd += 1
+    h = T // 2 + 17
+    out_a, s_a = wk.wkv_fwd(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u)
+    out_b, s_b = wk.wkv_fwd(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s_a)
+    want_out, want_s = wk.wkv_ref(r, k, v, w, u)
+    check_out(torch.cat([out_a, out_b], 1), s_b, want_out, want_s,
+              f"{MAIN_WKV} split at T/2 + 17 through s_final -> s0")
+    off_grid = max(float((torch.cat([out_a, out_b], 1) - out).abs().max()),
+                   float((s_b - s_final).abs().max()))
+    say(f"phase 1d: chunked wkv fwd within the gate on {n_fwd} more cases (T 1, 15, 16, 63, 64, "
+        f"65, 4113 at K 64 bf16 and K 32 f32 + s0; exact-zero and 1e-30-then-0.99 decays) and "
+        f"split at T/2 + 17 (off the 64-step grid; {off_grid:.3e} from one run); largest forward "
+        f"reading {gate['share']:.4f} of the gate |d| <= 2e-4 + 2e-4 |ref| ({gate['at']}); "
+        f"repeats bitwise equal")
+    del w_zero, w_mixed, x, out_a, out_b, want_out, want_s
+
     # --- timing at the main path's shape, as the path calls them (bf16 r/k/v,
     # no s0, no ds_final)
     elems, steps_states = B * T * H * K, B * T * H * K * K
@@ -948,7 +1005,7 @@ def phase_wkv(device):
             f"recurrence), {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, bound "
             f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
             f"({t['bound_ms'] / t['ms'] * 100:.1f}% of bound)")
-    del r, k, v, w, u, dout, out, out_a, out_b
+    del r, k, v, w, u, dout, out
     torch.cuda.empty_cache()
     wk.reset_counts()
     return errs, timings

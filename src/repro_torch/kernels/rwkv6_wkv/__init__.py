@@ -2,7 +2,7 @@
 them, and their plain versions."""
 
 from .ops import WKV6Function, reset_counts, wkv, wkv_bwd, wkv_fwd
-from .ref import wkv_bwd_ref, wkv_ref
+from .ref import wkv_bwd_ref, wkv_chunked_ref, wkv_ref
 
 __all__ = [
     "WKV6Function",
@@ -10,6 +10,7 @@ __all__ = [
     "wkv",
     "wkv_bwd",
     "wkv_bwd_ref",
+    "wkv_chunked_ref",
     "wkv_fwd",
     "wkv_ref",
 ]

@@ -6,9 +6,8 @@
 Which path runs follows from where the tensors lie, and from nothing
 else: a CUDA tensor launches the kernel or raises.  Each kernel's wrapper
 (``wkv_fwd``, ``wkv_bwd``) counts its calls that launched in ``.launches``
-(``wkv_bwd`` launches its two kernels in one call, counted once) and its
-calls that took the plain version in ``.ref_calls``; ``reset_counts()``
-zeroes them.
+(each launches two kernels in one call, counted once) and its calls that
+took the plain version in ``.ref_calls``; ``reset_counts()`` zeroes them.
 
 ``wkv`` is the differentiable op (``WKV6Function``): its forward launches
 ``wkv_fwd`` and saves ``(r, k, v, w, u, s0)``, its backward launches
@@ -31,6 +30,7 @@ from .ref import wkv_bwd_ref, wkv_ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 HEAD_SIZES = (32, 64)
+CHUNK = 64  # steps per chunk of the forward kernels (``kL`` in the source)
 
 _lib: ctypes.CDLL | None = None
 
@@ -40,7 +40,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wkv_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.wkv_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.wkv_bwd.argtypes = [p] * 16 + [i] * 5 + [p]
         lib.wkv_fwd.restype = lib.wkv_bwd.restype = ctypes.c_int
         _lib = lib
@@ -108,7 +108,9 @@ def wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             u: torch.Tensor, s0: torch.Tensor | None = None):
     """The WKV6 recurrence (B7): ``out`` (B, T, H, K) f32 and ``s_final``
     (B, H, K, K) f32, from r, k, v, w (B, T, H, K), u (H, K) and the
-    initial state ``s0`` (zero when None)."""
+    initial state ``s0`` (zero when None).  On the card: the chunked
+    kernels, with the state at the start of every 64-step chunk in a
+    scratch tensor (``wkv_chunked_ref`` is their arithmetic on the CPU)."""
     B, T, H, K = _check_shapes({"r": r, "k": k, "v": v, "w": w}, u, {"s0": s0})
     if _on_cpu(r, k, v, w, u, s0):
         wkv_fwd.ref_calls += 1
@@ -116,10 +118,12 @@ def wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     (r, k, v, w, u, s0), bf16 = _kernel_inputs(r, k, v, w, u, K, s0=s0)
     out = torch.empty(B, T, H, K, dtype=torch.float32, device=r.device)
     s_final = torch.empty(B, H, K, K, dtype=torch.float32, device=r.device)
+    chunk_states = torch.empty(B, H, -(-T // CHUNK), K, K, dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     _check_launch(_library().wkv_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), _ptr(s0),
-        out.data_ptr(), s_final.data_ptr(), B, T, H, K, bf16, stream), "forward")
+        out.data_ptr(), s_final.data_ptr(), chunk_states.data_ptr(), B, T, H, K, bf16, stream),
+        "forward")
     wkv_fwd.launches += 1
     return out, s_final
 

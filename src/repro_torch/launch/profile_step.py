@@ -36,7 +36,8 @@ CLASSES = (
                          "flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
                          "flash_dkv_sum_kernel")),
     ("rglru", ("rglru_fwd_kernel", "rglru_bwd_kernel")),
-    ("rwkv6_wkv", ("wkv_fwd_kernel", "wkv_bwd_state_kernel", "wkv_bwd_decay_kernel")),
+    ("rwkv6_wkv", ("wkv_fwd_state_kernel", "wkv_fwd_out_kernel", "wkv_bwd_state_kernel",
+                   "wkv_bwd_decay_kernel")),
     ("comm_pack", ("pack_kernel", "unpack_kernel")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),

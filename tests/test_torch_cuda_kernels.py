@@ -36,7 +36,10 @@ and the main path's (1, 4096, 64, 64), with and without s0 and ds_final,
 r/k/v in f32 and bf16: out / s_final within 2e-4 (the tolerance of
 ``tests/test_kernels.py``), gradients within 2e-4 x max(1, max|g|); strong
 decays (w in (0.05, 0.3)); a run split at T/2 and threaded through
-s_final -> s0 matches one run; two runs give the same bits; the autograd op
+s_final -> s0 matches one run; two runs give the same bits; the chunked
+forward also at T below, at and past its 16- and 64-step boundaries (1 to
+4096 + 17, K 32 and 64), with exact-zero decays and chunks that start with
+30 decays of 1e-30, and split at T/2 + 17 off the chunk grid; the autograd op
 launches both kernels; and reduced RWKV6 trains bitwise equal under
 ``post`` and ``dag``.
 
@@ -507,6 +510,66 @@ def test_cuda_wkv_strong_decay_and_state_threading():
     r, k, v, w, u, *_ = _wkv_inputs(1, 1024, 4, 64, dev, seed=6, dtype=torch.bfloat16)
     out, s_final = wk.wkv_fwd(r, k, v, w, u)
     h = 512
+    out_a, s_a = wk.wkv_fwd(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u)
+    out_b, s_b = wk.wkv_fwd(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s_a)
+    _wkv_close(torch.cat([out_a, out_b], dim=1), out, "out")
+    _wkv_close(s_b, s_final, "s_final")
+
+
+def _wkv_fwd_check(r, k, v, w, u, s0=None):
+    """wkv_fwd launches (once) and holds out / s_final at the gate against
+    wkv_ref; a second call gives the same bits."""
+    wk.reset_counts()
+    out, s_final = wk.wkv_fwd(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert (wk.wkv_fwd.launches, wk.wkv_fwd.ref_calls) == (1, 0)
+    want_out, want_s = wk.wkv_ref(r, k, v, w, u, s0)
+    _wkv_close(out, want_out, "out")
+    _wkv_close(s_final, want_s, "s_final")
+    out2, s2 = wk.wkv_fwd(r, k, v, w, u, s0)
+    assert torch.equal(out2, out) and torch.equal(s2, s_final)
+    return out, s_final
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [32, 64])
+@pytest.mark.parametrize("T", [1, 15, 16, 63, 64, 65, 4096 + 17])
+def test_cuda_wkv_fwd_chunk_boundaries(T, K):
+    """The forward's 64-step chunks and 16-step sub-chunks: T below, at and
+    past each boundary, r/k/v in f32 and bf16, with and without s0."""
+    dev = require_cuda()
+    for dtype, with_s0 in ((torch.float32, True), (torch.bfloat16, False)):
+        r, k, v, w, u, s0, _, _ = _wkv_inputs(1, T, 4, K, dev, seed=T, dtype=dtype)
+        _wkv_fwd_check(r, k, v, w, u, s0 if with_s0 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["zeros", "mixed"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_wkv_fwd_zero_and_mixed_decays(mode, dtype):
+    """w with exact zeros (the log floor), and chunks whose first 30 steps
+    decay by 1e-30 and the rest by ~0.99 (exponents never cancel)."""
+    dev = require_cuda()
+    B, T, H, K = 1, 1024, 4, 64
+    r, k, v, w, u, s0, _, _ = _wkv_inputs(B, T, H, K, dev, seed=8, dtype=TORCH_DT[dtype])
+    x = torch.rand(w.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    if mode == "zeros":
+        w = torch.where(x < 0.3, torch.zeros_like(w), w)
+    else:
+        w = 0.985 + 0.01 * x
+        w[:, torch.arange(T, device=dev) % 64 < 30] = 1e-30
+    _wkv_fwd_check(r, k, v, w, u, s0)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_fwd_split_off_the_chunk_grid():
+    """A run split at T/2 + 17, off the 64-step grid, and threaded through
+    s_final -> s0 matches one run and the plain version."""
+    dev = require_cuda()
+    B, T, H, K = 1, 4096, 8, 64
+    r, k, v, w, u, *_ = _wkv_inputs(B, T, H, K, dev, seed=10, dtype=torch.bfloat16)
+    out, s_final = _wkv_fwd_check(r, k, v, w, u)
+    h = T // 2 + 17
     out_a, s_a = wk.wkv_fwd(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u)
     out_b, s_b = wk.wkv_fwd(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s_a)
     _wkv_close(torch.cat([out_a, out_b], dim=1), out, "out")

@@ -21,6 +21,10 @@ NAMES = [
      "flash_attention"),
     ("void (anonymous namespace)::rglru_bwd_kernel(...)", "rglru"),
     ("void (anonymous namespace)::wkv_bwd_decay_kernel(...)", "rwkv6_wkv"),
+    ("void (anonymous namespace)::wkv_fwd_state_kernel<64, __nv_bfloat16>((anonymous "
+     "namespace)::Args<__nv_bfloat16>)", "rwkv6_wkv"),
+    ("void (anonymous namespace)::wkv_fwd_out_kernel<32, float>((anonymous "
+     "namespace)::Args<float>)", "rwkv6_wkv"),
     ("void (anonymous namespace)::unpack_kernel<float>(...)", "comm_pack"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),

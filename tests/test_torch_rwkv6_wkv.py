@@ -12,6 +12,13 @@ versions and its autograd op against the JAX package's, on the CPU.
   max|g|);
 - the ``WKV6Function`` autograd op by ``torch.autograd.gradcheck`` in f64;
 - dispatch: CPU tensors take the plain versions and count ``ref_calls``;
+- ``wkv_chunked_ref``, the CPU mirror of the forward kernel's chunked
+  arithmetic, against ``wkv_ref`` and the JAX oracle at the same 2e-4 +
+  2e-4 |ref| gate: the JAX test shapes and ragged T (1, 15, 17, 65, 200),
+  K 32 and 64, with and without s0, f32 and bf16 r/k/v; default, strong,
+  extreme (1e-12..1e-6) and near-1 decays, w with exact zeros and a chunk
+  whose first 30 steps decay by 1e-30; and in f64 against ``wkv_ref`` in
+  f64 at 1e-10;
 - two facts about the reference: where a chunk's decay product underflows
   1e-30, the JAX chunked form and the Pallas kernel leave the sequential
   recurrence, and where it falls to ~1e-20 the chunked form's gradient
@@ -37,6 +44,7 @@ from repro_torch.kernels.rwkv6_wkv import (
     wkv_fwd,
     wkv_ref,
 )
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_ref
 
 TOL = 2e-4
 GRAD_REL = 2e-4
@@ -58,6 +66,42 @@ def _inputs(B, T, H, K, seed=0, w_range=None):
         w = rng.uniform(*w_range, (B, T, H, K)).astype(np.float32)
     u = 0.5 * n(H, K)
     return r, k, v, w, u, n(B, H, K, K), n(B, T, H, K), n(B, H, K, K)
+
+
+#: The chunk-boundary shapes of the chunked mirror: T below, at and past its
+#: 16-step sub-chunks and 64-step chunks.
+RAGGED = [(1, 1, 2, 32), (2, 15, 2, 64), (1, 17, 2, 32), (1, 65, 2, 64), (2, 200, 2, 32)]
+DECAYS = ("default", "strong", "extreme", "near1", "zeros", "mixed")
+
+
+def _decay(mode, B, T, H, K, seed):
+    """w for one decay regime: the tests' default ~(0.63, 0.999); strong
+    (0.05, 0.3); extreme 10^U(-12, -6); near-1 (0.9999, 0.99999); the default
+    with ~30% exact zeros; mixed: 1e-30 in steps 0-29 of every 64, ~0.99 in
+    the rest."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (B, T, H, K))
+    if mode == "strong":
+        w = 0.05 + 0.25 * x
+    elif mode == "extreme":
+        w = 10.0 ** (-12.0 + 6.0 * x)
+    elif mode == "near1":
+        w = 0.9999 + 0.00009 * x
+    elif mode == "mixed":
+        w = 0.985 + 0.01 * x
+        w[:, np.arange(T) % 64 < 30] = 1e-30
+    else:
+        w = np.exp(-np.exp(-6.0 + 5.2 * x))
+        if mode == "zeros":
+            w[rng.uniform(0.0, 1.0, w.shape) < 0.3] = 0.0
+    return w.astype(np.float32)
+
+
+def _gate_close(got, want):
+    """|got - want| <= 2e-4 + 2e-4 |want| everywhere (chip_smoke.py's gate)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(got - want)
+    assert np.isfinite(got).all() and (d <= 2e-4 + 2e-4 * np.abs(want)).all(), float(d.max())
 
 
 def _t(x):
@@ -223,3 +267,50 @@ def test_reference_chunked_gradient_overflows_where_a_chunk_decay_is_tiny():
     for name, g, jg in zip(("dr", "dk", "dv", "dw", "du"), got, want):
         assert np.isfinite(np.asarray(jg)).all()
         _grad_close(g, jg, name)
+
+
+def _mirror_case(r, k, v, w, u, s0):
+    """``wkv_chunked_ref`` against the port's ``wkv_ref`` and the JAX oracle
+    on the same inputs (r, k, v torch tensors, f32 or bf16)."""
+    out, s_final = wkv_chunked_ref(r, k, v, w, u, s0)
+    assert out.shape == r.shape and out.dtype == s_final.dtype == torch.float32
+    want_out, want_s = wkv_ref(r, k, v, w, u, s0)
+    _gate_close(out, want_out)
+    _gate_close(s_final, want_s)
+    j = lambda x: None if x is None else jnp.asarray(x.float().numpy())
+    jax_out, jax_s = jax_wkv_ref(*map(j, (r, k, v, w, u, s0)))
+    _gate_close(out, jax_out)
+    _gate_close(s_final, jax_s)
+
+
+@pytest.mark.parametrize("B,T,H,K", [s[:4] for s in SHAPES] + RAGGED)
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_chunked_mirror_matches_sequential_and_jax(B, T, H, K, with_s0, dtype):
+    r, k, v, w, u, s0, _, _ = map(_t, _inputs(B, T, H, K, seed=T + K))
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    _mirror_case(r.to(dt), k.to(dt), v.to(dt), w, u, s0 if with_s0 else None)
+
+
+@pytest.mark.parametrize("mode", DECAYS)
+@pytest.mark.parametrize("K", [32, 64])
+def test_chunked_mirror_holds_every_decay(mode, K):
+    B, T, H = 1, 200, 2
+    r, k, v, _, u, s0, _, _ = map(_t, _inputs(B, T, H, K, seed=K))
+    _mirror_case(r, k, v, _t(_decay(mode, B, T, H, K, seed=K + 1)), u, s0)
+
+
+@pytest.mark.parametrize("mode", DECAYS)
+@pytest.mark.parametrize("K", [32, 64])
+def test_chunked_mirror_matches_sequential_in_f64(mode, K):
+    """The scheme itself is exact: in f64 it gives the sequential recurrence
+    to 1e-10, exact zeros and 1e-30 decays included (the floor e^-88 of a
+    zero decay moves nothing above 1e-30)."""
+    B, T, H = 2, 130, 2
+    r, k, v, _, u, s0, _, _ = (x.double() for x in map(_t, _inputs(B, T, H, K, seed=3)))
+    w = _t(_decay(mode, B, T, H, K, seed=4)).double()
+    out, s_final = wkv_chunked_ref(r, k, v, w, u, s0)
+    want_out, want_s = wkv_ref(r, k, v, w, u, s0)
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), want_out.numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(s_final.numpy(), want_s.numpy(), rtol=0, atol=1e-10)
