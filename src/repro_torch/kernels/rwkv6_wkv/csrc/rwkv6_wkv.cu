@@ -76,15 +76,16 @@
 // Bound.  The forward reads r, k, v (2 B each in bf16) and w (4 B) and writes out
 // (4 B): 14 B per (b, t, h, k), 235 MB at the main path's (1, 4096, 64, 64), 0.070 ms
 // at 3.35 TB/s.  Its arithmetic is 5 FLOP per state element per step (r·S: 2;
-// w S + k v: 3), 5.37 GFLOP, 0.080 ms on the f32 CUDA cores (67 TFLOP/s): bound by
-// operations.  The chunked form moves the products to the tensor cores, at the cost
-// of the scratch S_c (67 MB written and read again, ~0.04 ms) and of the serial walk
-// over 64 chunks; what holds it now is latency: the walk's chunk steps, and in the
-// chunk kernel the block's phases with two blocks (16 warps) an SM.  The backward
-// reads r, k, v, w, dout and writes dr, dk, dv, dw (f32): 30 B per element, 503 MB,
+// w S + k v: 3), 5.37 GFLOP: 0.033 ms in 3xTF32 on the tensor cores (495 / 3 TFLOP/s),
+// the path its products take, so it is bound by bytes (0.080 ms on the f32 CUDA cores
+// at 67 TFLOP/s, where the sequential kernel did them).  The chunked form pays for the
+// scratch S_c (67 MB written and read again, ~0.04 ms) and for the serial walk over
+// 64 chunks; what holds it now is latency: the walk's chunk steps, and in the chunk
+// kernel the block's phases with two blocks (16 warps) an SM.  The backward reads
+// r, k, v, w, dout and writes dr, dk, dv, dw (f32): 30 B per element, 503 MB,
 // 0.150 ms; 14 FLOP per state element per step (S recomputed: 3, dS: 3, dS·k, dS·v,
-// S·do, dS⊙S: 2 each), 15.0 GFLOP, 0.224 ms: bound by operations too; it still walks
-// the steps one at a time on the CUDA cores.
+// S·do, dS⊙S: 2 each), 15.0 GFLOP, 0.224 ms on the f32 CUDA cores: bound by
+// operations; it still walks the steps one at a time there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -334,9 +335,23 @@ constexpr int kOutThreads = 256;  // wkv_fwd_out_kernel: 8 warps
 constexpr float kLwFloor = -88.f * 1.4426950408889634f;  // log2 of e^-88
 
 // The log decay in log2 units, floored: a w that underflowed to 0 decays by
-// e^-88 (below f32's normal range) instead of giving -inf - (-inf).  lg2.approx
-// is off by at most ~2^-22 in the log; a subnormal w flushes to 0, so to the floor.
+// e^-88 (below f32's normal range) instead of giving -inf - (-inf).  lg2.approx is
+// off by up to ~2^-22 in the log, absolute: a few 1e-6 of |log2 w| >= 0.093 below
+// w = 15/16, but ~1% of a log of 1e-5, and the walk sums thousands of them (at w in
+// (0.9999, 0.99999) that missed the gate by ~50x).  So from 15/16 up, where w - 1
+// is exact, the log is log1p(w - 1) from its series to x^6: truncation below 1e-8
+// and rounding below 2e-7 of the log, in 6 FMAs (log1pf's general path made the
+// forward ~1.3x slower).  A subnormal w flushes to 0, so to the floor.
 __device__ __forceinline__ float log2_decay(float w) {
+  const float x = w - 1.f;
+  if (x >= -0.0625f) {
+    float p = fmaf(x, -1.f / 6.f, 0.2f);
+    p = fmaf(x, p, -0.25f);
+    p = fmaf(x, p, 1.f / 3.f);
+    p = fmaf(x, p, -0.5f);
+    p = fmaf(x, p, 1.f);
+    return x * p * 1.4426950408889634f;
+  }
   float y;
   asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(w));
   return fmaxf(y, kLwFloor);
@@ -876,9 +891,14 @@ bool valid(int B, int T, int H, int K) {
 
 }  // namespace
 
+// The forward's chunk and sub-chunk lengths in steps: the wrapper sizes the scratch
+// from the first and holds its CPU mirror to both.
+extern "C" int wkv_fwd_chunk() { return kL; }
+extern "C" int wkv_fwd_sub() { return kSub; }
+
 // r, k, v: (B, T, H, K), f32 (bf16 = 0) or bf16 (bf16 = 1); w, out: (B, T, H, K) f32;
 // u: (H, K) f32; s0, s_final: (B, H, K, K) f32; s0 may be null (a zero state); scratch
-// chunk_states: (B, H, ceil(T / 64), K, K) f32.  All contiguous; K is 32 or 64.  Two
+// chunk_states: (B, H, ceil(T / wkv_fwd_chunk()), K, K) f32.  All contiguous; K is 32 or 64.  Two
 // launches on `stream`.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int wkv_fwd(const void* r, const void* k, const void* v, const float* w,
                        const float* u, const float* s0, float* out, float* s_final,

@@ -26,11 +26,10 @@ import pathlib
 import torch
 
 from .. import _build
-from .ref import wkv_bwd_ref, wkv_ref
+from .ref import CHUNK, SUB, wkv_bwd_ref, wkv_ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "rwkv6_wkv.cu"
 HEAD_SIZES = (32, 64)
-CHUNK = 64  # steps per chunk of the forward kernels (``kL`` in the source)
 
 _lib: ctypes.CDLL | None = None
 
@@ -43,6 +42,12 @@ def _library() -> ctypes.CDLL:
         lib.wkv_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.wkv_bwd.argtypes = [p] * 16 + [i] * 5 + [p]
         lib.wkv_fwd.restype = lib.wkv_bwd.restype = ctypes.c_int
+        lib.wkv_fwd_chunk.restype = lib.wkv_fwd_sub.restype = ctypes.c_int
+        # the scratch is sized by CHUNK, and wkv_chunked_ref mirrors CHUNK and SUB
+        built = (lib.wkv_fwd_chunk(), lib.wkv_fwd_sub())
+        if built != (CHUNK, SUB):
+            raise RuntimeError(f"{SOURCE.name} chunks the forward as (chunk, sub) {built}, "
+                               f"ref.py as {(CHUNK, SUB)}")
         _lib = lib
     return _lib
 

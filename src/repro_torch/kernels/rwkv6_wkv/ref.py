@@ -45,6 +45,9 @@ import torch.nn.functional as F
 #: Floor of the log decay: a w that underflowed to 0 decays by e^-88 (below
 #: f32's normal range) instead of giving log 0 - log 0.
 LW_FLOOR = -88.0
+#: Steps per chunk and per sub-chunk of the forward kernels (``kL`` and ``kSub``
+#: of ``csrc/rwkv6_wkv.cu``; the wrapper checks both when it loads the library).
+CHUNK, SUB = 64, 8
 
 
 def _dtype(*tensors: torch.Tensor | None) -> torch.dtype:
@@ -126,13 +129,14 @@ def _running(x: torch.Tensor, dim: int, reverse: bool = False) -> tuple[torch.Te
 
 
 def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-                    u: torch.Tensor, s0: torch.Tensor | None = None, chunk: int = 64,
-                    sub: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+                    u: torch.Tensor, s0: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked WKV6 that the forward kernels compute: ``out`` (B, T, H, K)
     and ``s_final`` (B, H, K, K), in f32 (f64 for f64 inputs).
 
     With ``lw = max(log w, -88)`` (0 past T) and ``P(a, b) = Σ_{a<=m<b} lw_m``
-    over a chunk's local steps, a chunk that starts at state S_c gives::
+    over a chunk's local steps (chunks of ``CHUNK`` steps in sub-chunks of
+    ``SUB``), a chunk that starts at state S_c gives::
 
         out_i   = r_i·(e^{P(0,i)} ⊙ S_c) + Σ_{j<i} [Σ_k r_i k_j e^{P(j+1,i)}] v_j
                   + (r_i·(u⊙k_i)) v_i
@@ -150,8 +154,7 @@ def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.
       the sub-chunks after J, and the decay ``e^{Σ tot}``.
     Nothing divides by a cumulative decay, so it holds for any w in [0, 1).
     """
-    if chunk % sub:
-        raise ValueError(f"chunk {chunk} is not a multiple of sub {sub}")
+    chunk, sub = CHUNK, SUB
     dt = _dtype(r, k, v, w, u, s0)
     B, T, H, K = r.shape
     NC, NS = -(-T // chunk), chunk // sub

@@ -37,9 +37,11 @@ r/k/v in f32 and bf16: out / s_final within 2e-4 (the tolerance of
 ``tests/test_kernels.py``), gradients within 2e-4 x max(1, max|g|); strong
 decays (w in (0.05, 0.3)); a run split at T/2 and threaded through
 s_final -> s0 matches one run; two runs give the same bits; the chunked
-forward also at T below, at and past its 16- and 64-step boundaries (1 to
+forward also at T below, at and past its 8- and 64-step boundaries (1 to
 4096 + 17, K 32 and 64), with exact-zero decays and chunks that start with
-30 decays of 1e-30, and split at T/2 + 17 off the chunk grid; the autograd op
+30 decays of 1e-30, with decays in (0.9999, 0.99999) against the plain
+version in f64 (out at T 529, s_final at T 529 and 4096 + 17), and split at
+T/2 + 17 off the chunk grid; the autograd op
 launches both kernels; and reduced RWKV6 trains bitwise equal under
 ``post`` and ``dag``.
 
@@ -533,9 +535,9 @@ def _wkv_fwd_check(r, k, v, w, u, s0=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [32, 64])
-@pytest.mark.parametrize("T", [1, 15, 16, 63, 64, 65, 4096 + 17])
+@pytest.mark.parametrize("T", [1, 8, 9, 15, 16, 63, 64, 65, 4096 + 17])
 def test_cuda_wkv_fwd_chunk_boundaries(T, K):
-    """The forward's 64-step chunks and 16-step sub-chunks: T below, at and
+    """The forward's 64-step chunks and 8-step sub-chunks: T below, at and
     past each boundary, r/k/v in f32 and bf16, with and without s0."""
     dev = require_cuda()
     for dtype, with_s0 in ((torch.float32, True), (torch.bfloat16, False)):
@@ -559,6 +561,30 @@ def test_cuda_wkv_fwd_zero_and_mixed_decays(mode, dtype):
         w = 0.985 + 0.01 * x
         w[:, torch.arange(T, device=dev) % 64 < 30] = 1e-30
     _wkv_fwd_check(r, k, v, w, u, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("T,state_only", [(512 + 17, False), (4096 + 17, True)],
+                         ids=["T529", "T4113-s_final"])
+def test_cuda_wkv_fwd_near_one_decays(T, state_only, dtype):
+    """w in (0.9999, 0.99999): each step's log decay is ~1e-5, and an error
+    in it adds up over the whole walk.  The f32 sequential loop's own
+    rounding adds up too (past the gate from a few hundred steps on, see
+    ``tests/test_torch_rwkv6_wkv.py``), so the kernel is held at the same
+    gate against wkv_ref in f64: out and s_final at T 529, s_final, which
+    carries the whole walk's decay, at T 4113."""
+    dev = require_cuda()
+    r, k, v, w, u, s0, _, _ = _wkv_inputs(1, T, 8, 64, dev, seed=11, dtype=TORCH_DT[dtype],
+                                          w_range=(0.9999, 0.99999))
+    wk.reset_counts()
+    out, s_final = wk.wkv_fwd(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert (wk.wkv_fwd.launches, wk.wkv_fwd.ref_calls) == (1, 0)
+    want_out, want_s = wk.wkv_ref(*(t.double() for t in (r, k, v, w, u, s0)))
+    if not state_only:
+        _wkv_close(out.double(), want_out, "out")
+    _wkv_close(s_final.double(), want_s, "s_final")
 
 
 @pytest.mark.cuda

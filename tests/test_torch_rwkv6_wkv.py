@@ -69,8 +69,9 @@ def _inputs(B, T, H, K, seed=0, w_range=None):
 
 
 #: The chunk-boundary shapes of the chunked mirror: T below, at and past its
-#: 16-step sub-chunks and 64-step chunks.
-RAGGED = [(1, 1, 2, 32), (2, 15, 2, 64), (1, 17, 2, 32), (1, 65, 2, 64), (2, 200, 2, 32)]
+#: 8-step sub-chunks and 64-step chunks.
+RAGGED = [(1, 1, 2, 32), (1, 8, 2, 64), (2, 9, 2, 32), (2, 15, 2, 64), (1, 17, 2, 32),
+          (1, 65, 2, 64), (2, 200, 2, 32)]
 DECAYS = ("default", "strong", "extreme", "near1", "zeros", "mixed")
 
 
@@ -298,6 +299,28 @@ def test_chunked_mirror_holds_every_decay(mode, K):
     B, T, H = 1, 200, 2
     r, k, v, _, u, s0, _, _ = map(_t, _inputs(B, T, H, K, seed=K))
     _mirror_case(r, k, v, _t(_decay(mode, B, T, H, K, seed=K + 1)), u, s0)
+
+
+@pytest.mark.parametrize("T,state_only", [(512 + 17, False), (4096 + 17, True)],
+                         ids=["T529", "T4113-s_final"])
+def test_chunked_mirror_near_one_decays_against_f64(T, state_only):
+    """w in (0.9999, 0.99999), bf16 r/k/v: the mirror in f32 holds the gate
+    against the sequential recurrence in f64, out and s_final at T 529,
+    s_final (which carries the whole walk's decay) at T 4113.  The f32
+    sequential loop does not: its rounding adds up over the steps, past the
+    gate at T 4113, so the card's near-1 cases are held against f64."""
+    B, H, K = 1, 2, 64
+    r, k, v, _, u, _, _, _ = map(_t, _inputs(B, T, H, K, seed=5))
+    r, k, v = (x.to(torch.bfloat16) for x in (r, k, v))
+    w = _t(_decay("near1", B, T, H, K, seed=6))
+    out, s_final = wkv_chunked_ref(r, k, v, w, u)
+    want_out, want_s = wkv_ref(*(x.double() for x in (r, k, v, w, u)))
+    if not state_only:
+        _gate_close(out.double(), want_out)
+    _gate_close(s_final.double(), want_s)
+    if state_only:
+        f32_out, _ = wkv_ref(r, k, v, w, u)
+        assert float(((f32_out - want_out).abs() / (2e-4 + 2e-4 * want_out.abs())).max()) > 1
 
 
 @pytest.mark.parametrize("mode", DECAYS)
