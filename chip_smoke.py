@@ -70,12 +70,22 @@ failure exits non-zero.
    and s_final at T 512 + 17, s_final at 4096 + 17: the f32 loop's own
    rounding is past the gate there, and its reading is printed); the
    largest forward reading, and the near-1 cases', are printed as shares of
-   the gate.  Then each kernel's
-   time per launch at the main path's shape (bf16 r/k/v, no s0 / ds_final,
-   as the path calls them) beside its bound and its plain version's (no
-   single PyTorch call computes the recurrence, so no library yardstick).
-   The forward's operations count at the rate of 3xTF32 on the tensor cores
-   (its products' path), the backward's at the f32 CUDA cores'.
+   the gate.  The chunked backward also alone, all six gradients at the
+   gradient gate, no value non-finite, a second run bitwise equal, the
+   forward's chunk states handed over giving the same bits as those the
+   call computes: at the main path's shape (bf16) with w 10^U(-12, -6), with
+   1e-30 in steps 0-29 of every 64, with 30% exact zeros, and with w in
+   (0.9999, 0.99999) against the plain version in f64; at T 1, 8, 9, 63, 64,
+   65, 4096 + 17 (K 64 bf16 with s0 and ds_final, K 32 f32); the largest
+   gradient reading is printed as a share of the gate, with where it
+   occurred.  Then each kernel's
+   time per call at the main path's shape (bf16 r/k/v, no s0 / ds_final,
+   the backward given the forward's chunk states, as the path calls them;
+   the backward also without them) beside its bound and its plain
+   version's (no single PyTorch call computes the recurrence, so no library
+   yardstick).  Both count their operations at the rate of 3xTF32 on the
+   tensor cores, the path their products take (the f32 CUDA cores' figure
+   is printed beside it).
 2. Reduced model.  Reduced tinyllama in fp32 with the flash kernels, loss
    and every gradient on the card against the same model on the CPU (the
    kernels' plain versions; loss rtol 1e-5, gradient max-abs <= 1e-4 x
@@ -914,29 +924,38 @@ def phase_wkv(device):
             fail(f"wkv: a second forward on the same inputs gave other bits at {tag}")
         return share
 
-    def check(inputs, tag):
-        r, k, v, w, u, s0, dout, ds = inputs
-        out, s_final = wk.wkv_fwd(r, k, v, w, u, s0)
-        grads = wk.wkv_bwd(r, k, v, w, u, s0, dout, ds)
-        want_out, want_s = wk.wkv_ref(r, k, v, w, u, s0)
-        want = wk.wkv_bwd_ref(r, k, v, w, u, s0, dout, ds)
+    bgate = {"share": 0.0, "at": ""}  # the largest gradient |diff| / (2e-4 max(1, max|g|))
+
+    def check_bwd(inputs, tag, exact=False):
+        """wkv_bwd against wkv_bwd_ref (in f64 on f64 copies if ``exact``): every
+        gradient within the gate and finite; with the forward's chunk states handed
+        over, and a second run, the same bits."""
+        grads = wk.wkv_bwd(*inputs)
+        if (grads[-1] is None) != (inputs[5] is None):
+            fail(f"wkv ds0 is {grads[-1]!r} with s0 {'absent' if inputs[5] is None else 'given'} "
+                 f"at {tag}")
+        want = wk.wkv_bwd_ref(*(None if t is None else t.double() for t in inputs)
+                              if exact else inputs)
         torch.cuda.synchronize()
-        check_out(out, s_final, want_out, want_s, tag)
-        if (grads[-1] is None) != (s0 is None):
-            fail(f"wkv ds0 is {grads[-1]!r} with s0 {'absent' if s0 is None else 'given'} at {tag}")
         for name, got, ref in zip(names, grads, want):
             if ref is None:
                 continue
-            d = float((got - ref).abs().max())
-            if not d <= 2e-4 * max(1.0, float(ref.abs().max())):
+            d = float((got.double() - ref.double()).abs().max())
+            share = d / (2e-4 * max(1.0, float(ref.abs().max())))
+            if not share <= 1.0 or not torch.isfinite(got).all():
                 fail(f"wkv {name} differs from its plain version at {tag}: max |diff| {d:.3e}, "
-                     f"max |g| {float(ref.abs().max()):.3e}")
+                     f"{share:.3f} of the gate")
             errs["bwd"] = max(errs["bwd"], d)
-        out2, s2 = wk.wkv_fwd(r, k, v, w, u, s0)
-        grads2 = wk.wkv_bwd(r, k, v, w, u, s0, dout, ds)
-        if not (torch.equal(out2, out) and torch.equal(s2, s_final) and all(
-                (a is None and b is None) or torch.equal(a, b) for a, b in zip(grads, grads2))):
-            fail(f"wkv: a second run on the same inputs gave other bits at {tag}")
+            if share > bgate["share"]:
+                bgate.update(share=share, at=f"{name} at {tag}")
+        states = wk.ops._wkv_fwd(*inputs[:6])[2]
+        for again in (wk.wkv_bwd(*inputs, chunk_states=states), wk.wkv_bwd(*inputs)):
+            if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(grads, again)):
+                fail(f"wkv bwd: handed chunk states or a second run gave other bits at {tag}")
+
+    def check(inputs, tag):
+        check_fwd(*inputs[:6], tag)
+        check_bwd(inputs, tag)
 
     n = 0
     for i, shape in enumerate(JAX_WKV_SHAPES + [MAIN_WKV]):
@@ -1015,42 +1034,72 @@ def phase_wkv(device):
         f"{near1[512 + 17]:.4f}, s_final at T 4113 {near1[T + 17]:.4f} of the gate (the f32 "
         f"sequential loop's out and s_final at T 4113: {f32_loop:.4f}, not gated); repeats "
         f"bitwise equal")
-    del w_zero, w_mixed, x, out_a, out_b, want_out, want_s
+    del w_zero, w_mixed, out_a, out_b, want_out, want_s
+
+    # --- the chunked backward alone: the decays where dw through d(log w) / w went
+    # wrong (small and exactly zero w), near-1 decays against f64, its boundaries
+    w_extreme = 10.0 ** (-12.0 + 6.0 * x)
+    w_mixed = 0.985 + 0.01 * x
+    w_mixed[:, torch.arange(T, device=device) % 64 < 30] = 1e-30
+    w_zero = torch.where(x < 0.3, torch.zeros_like(w), w)
+    w_near1 = 0.9999 + 0.00009 * x
+    n_bwd = 0
+    for name, wd, exact in (("w 10^U(-12, -6)", w_extreme, False),
+                            ("w 1e-30 in steps 0-29 of every 64, ~0.99 after", w_mixed, False),
+                            ("w with 30% exact zeros", w_zero, False),
+                            ("w in (0.9999, 0.99999) against f64", w_near1, True)):
+        check_bwd((r, k, v, wd, u, None, dout, None), f"{MAIN_WKV} bf16 {name}", exact)
+        n_bwd += 1
+    del w_extreme, w_mixed, w_zero, w_near1, x
+    for Tb in (1, 8, 9, 63, 64, 65, 4096 + 17):
+        for shape, dtype, with_state in (((1, Tb, 8, K), torch.bfloat16, True),
+                                         ((1, Tb, 4, 32), torch.float32, False)):
+            rb, kb, vb, wb, ub, s0b, dob, dsb = wkv_inputs(*shape, device, 90 + Tb, dtype)
+            check_bwd((rb, kb, vb, wb, ub, s0b if with_state else None, dob,
+                       dsb if with_state else None),
+                      f"{shape} {str(dtype)[6:]}{' s0/ds_final' if with_state else ''}")
+            n_bwd += 1
+    say(f"phase 1d: chunked wkv bwd within the gate on {n_bwd} more cases (at {MAIN_WKV} bf16 "
+        f"w 10^U(-12, -6), 1e-30-then-0.99, 30% exact zeros, and near 1 against f64; T 1, 8, 9, "
+        f"63, 64, 65, 4113 at K 64 bf16 + s0/ds_final and K 32 f32); largest gradient reading "
+        f"{bgate['share']:.4f} of the gate |d| <= 2e-4 max(1, max|g|) ({bgate['at']}); no "
+        f"value non-finite; the forward's chunk states handed over give the same bits; "
+        f"repeats bitwise equal")
 
     # --- timing at the main path's shape, as the path calls them (bf16 r/k/v,
-    # no s0, no ds_final)
+    # no s0, no ds_final; the backward given the forward's chunk states)
     elems, steps_states = B * T * H * K, B * T * H * K * K
     # bytes: each input read once, each output written once; operations per state
-    # element per step: forward r·S (2) and S w + k v (3); backward the same state
-    # recomputed (3), dS (3), dS·k, dS·v, S·do, dS⊙S (2 each).  The forward's products
-    # run in 3xTF32 on the tensor cores (three TF32 passes each), the backward's on
-    # the f32 CUDA cores
-    work = {"fwd": ((3 * 2 + 4 + 4) * elems + 4 * H * K + 4 * B * H * K * K, 5 * steps_states,
-                    PEAK_FLOPS["tf32"] / 3),
-            "bwd": ((3 * 2 + 4 + 4 + 4 * 4) * elems + 2 * 4 * H * K, 14 * steps_states,
-                    PEAK_FLOPS["float32"])}
+    # element per step: forward r·S (2) and S w + k v (3); backward the state (3),
+    # dS (3), dS·k, dS·v, S·do, dS⊙S (2 each).  Both run their products in 3xTF32 on
+    # the tensor cores (three TF32 passes each)
+    work = {"fwd": ((3 * 2 + 4 + 4) * elems + 4 * H * K + 4 * B * H * K * K, 5 * steps_states),
+            "bwd": ((3 * 2 + 4 + 4 + 4 * 4) * elems + 2 * 4 * H * K, 14 * steps_states)}
+    states = wk.ops._wkv_fwd(r, k, v, w, u, None)[2]
     calls = {"fwd": (lambda: wk.wkv_fwd(r, k, v, w, u), lambda: wk.wkv_ref(r, k, v, w, u)),
-             "bwd": (lambda: wk.wkv_bwd(r, k, v, w, u, None, dout),
+             "bwd": (lambda: wk.wkv_bwd(r, k, v, w, u, None, dout, chunk_states=states),
                      lambda: wk.wkv_bwd_ref(r, k, v, w, u, None, dout))}
     timings = {}
     for name, (kern, plain) in calls.items():
-        nbytes, flops, rate = work[name]
+        nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / rate * 1e3
+        t_ops = flops / (PEAK_FLOPS["tf32"] / 3) * 1e3
         timings[name] = t = {
-            "ms": median_ms(kern), "plain_ms": median_ms(plain, reps=3, warmup=1),
+            "ms": median_ms(kern), "device_ms": device_ms(kern),
+            "plain_ms": median_ms(plain, reps=3, warmup=1),
             "library_ms": None, "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
-        say(f"phase 1d: wkv {name} {MAIN_WKV} bf16 r/k/v, one launch: {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library none (no PyTorch call computes the WKV "
-            f"recurrence), {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, bound "
-            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
-            f"({t['bound_ms'] / t['ms'] * 100:.1f}% of bound)"
-            + (f"; the same operations on the f32 CUDA cores, as the sequential kernel "
-               f"did them: {flops / PEAK_FLOPS['float32'] * 1e6:.2f} us"
-               if name == "fwd" else ""))
-    del r, k, v, w, u, dout, out
+        say(f"phase 1d: wkv {name} {MAIN_WKV} bf16 r/k/v, one call: {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, library none (no PyTorch "
+            f"call computes the WKV recurrence), {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"GFLOP, bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+            f"({t['bound_ms'] / t['ms'] * 100:.1f}% of bound); the same operations on the "
+            f"f32 CUDA cores: {flops / PEAK_FLOPS['float32'] * 1e6:.2f} us"
+            + (f"; without the forward's chunk states (its walk in the call) "
+               f"{median_ms(lambda: wk.wkv_bwd(r, k, v, w, u, None, dout)):.4f} ms"
+               if name == "bwd" else ""))
+    del r, k, v, w, u, dout, out, states
     torch.cuda.empty_cache()
     wk.reset_counts()
     return errs, timings
@@ -1342,14 +1391,32 @@ def phase_rwkv_full_width(device):
     return counts
 
 
+def demangle(names: list[str]) -> list[str]:
+    """Kernel names as ``name<template arguments>`` (c++filt, where the
+    machine has it; else as ptxas gave them)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        return names
+    if len(out) != len(names):
+        return names
+    return [x.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+            for x in out]
+
+
 def report_ptxas(log: str) -> None:
-    """One line per kernel of ptxas's report: registers and spills."""
-    name = None
+    """One line per kernel of ptxas's report: registers, spills, shared memory."""
+    rows, name, frame = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line.strip()
-        elif "registers" in line or "spill" in line:
-            say(f"ptxas: {name}: {line.split(':', 1)[-1].strip()}")
+        elif "spill" in line:
+            frame = line.split(":", 1)[-1].strip()
+        elif "registers" in line:
+            rows.append((name, f"{line.split(':', 1)[-1].strip()}; {frame}"))
+    for shown, (_, props) in zip(demangle([n for n, _ in rows]), rows):
+        say(f"ptxas: {shown}: {props}")
 
 
 def main() -> None:

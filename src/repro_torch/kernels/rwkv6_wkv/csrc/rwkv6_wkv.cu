@@ -4,7 +4,9 @@
 //   wkv_fwd_state_kernel,        <- _wkv_kernel / wkv_pallas  (kernel.py:31, :91, pallas_call
 //   wkv_fwd_out_kernel              :117), the forward, in two launches
 //   wkv_bwd_state_kernel,        its gradient; the JAX package has no kernel for it (JAX
-//   wkv_bwd_decay_kernel            differentiates the jnp chunked form, models/rwkv6.py:177)
+//   wkv_bwd_dv_kernel,              differentiates the jnp chunked form, models/rwkv6.py:177)
+//   wkv_bwd_grad_kernel,
+//   wkv_bwd_du_kernel
 //
 // What they compute (the plain versions are in ../ref.py).  Per batch row b and head
 // h, over a (K, K) f32 state S from s0 (absent: 0); r, k, v (B, T, H, K) in f32 or
@@ -14,22 +16,17 @@
 //   backward  from dout and ds_final (absent: 0), with dS_t the gradient with respect
 //             to the state after step t (dS_{T-1} = ds_final):
 //     dv_t[v] = Σ_k dS_t[k,v] k_t[k]     + (r_t·(u⊙k_t)) do_t[v]
-//     dk_t[k] = Σ_v dS_t[k,v] v_t[v]     + u[k] r_t[k] (do_t·v_t)          (= dkˢ + ...)
-//     dr_t[k] = Σ_v S_{t-1}[k,v] do_t[v] + u[k] k_t[k] (do_t·v_t)          (= drˢ + ...)
+//     dk_t[k] = Σ_v dS_t[k,v] v_t[v]     + u[k] r_t[k] (do_t·v_t)
+//     dr_t[k] = Σ_v S_{t-1}[k,v] do_t[v] + u[k] k_t[k] (do_t·v_t)
 //     dw_t[k] = Σ_v dS_t[k,v] S_{t-1}[k,v]
 //     du[k]   = Σ_{b,t} r_t[k] k_t[k] (do_t·v_t)
 //     dS_{t-1} = diag(w_t) dS_t + r_tᵀ do_t,   ds0 = dS_{-1}.
-//   dw needs S_{t-1} in a reverse walk.  Recomputing it as (S_t - k_tᵀv_t) / w_t is
-//   unstable, so dw goes through the log of the decay: with x_t = r_t ⊙ drˢ_t,
-//     dlogw_t = Σ_{m >= t} gb_m,   gb_m = x_{m+1} - k_m ⊙ dkˢ_m   (x_T = 0),
-//   plus Σ_v ds_final ⊙ S_{T-1} at m = T-1, and dw_t = dlogw_t / w_t.  Exact for any
-//   decay in (0, 1): nothing divides by a cumulative product of decays (the TPU
-//   kernel's k / max(W_inc, 1e-30) breaks where a chunk's decay underflows 1e-30).
 //
-// The forward: a chunked form on the tensor cores (its CPU mirror is
-// ../ref.py:wkv_chunked_ref).  With lw = max(log w, -88) (the floor turns a w that
-// underflowed to 0 into a decay below f32's normal range) and P(a, b) = Σ_{a<=m<b} lw_m
-// over a chunk's local steps, a chunk of n <= 64 steps from state S_c gives
+// Both directions run in chunks of 64 steps on the tensor cores (CPU mirrors:
+// ../ref.py:wkv_chunked_ref and wkv_bwd_chunked_ref).  With lw = max(log w, -88) (the
+// floor turns a w that underflowed to 0 into a decay below f32's normal range) and
+// P(a, b) = Σ_{a<=m<b} lw_m over a chunk's local steps, a chunk of n <= 64 steps from
+// state S_c gives
 //   out_i   = r_i·(e^{P(0,i)} ⊙ S_c) + Σ_{j<i} [Σ_k r_i k_j e^{P(j+1,i)}] v_j
 //             + (r_i·(u⊙k_i)) v_i
 //   S_{c+1} = e^{P(0,n)} ⊙ S_c + Σ_j (k_j ⊙ e^{P(j+1,n)})ᵀ v_j.
@@ -47,45 +44,51 @@
 //       the 64 x 64 weight matrix A (sub-chunk pairs on the tensor cores, the
 //       diagonal sub-chunks and the bonus on the CUDA cores), then
 //       out = (r e^{P(0,i)}) S_c + A V on the tensor cores.
+//
+// The backward, with dS_{c+1} the cotangent at the end of chunk c:
+//   dS_c = e^{P(0,n)} ⊙ dS_{c+1} + Σ_i (r_i ⊙ e^{P(0,i)})ᵀ do_i, and
+//   dv_t = (k_t ⊙ e^{P(t+1,n)}) dS_{c+1} + Σ_{i>t} A_it do_i + (k_t·(u⊙r_t)) do_t.
+// Read backward in time within a chunk (step i -> n - 1 - i), these are the forward's
+// state update and output with r and k swapped and do in v's place.  So the forward's
+// two kernels run them, templated on the direction (kRev: chunks walked last to first,
+// each chunk's rows loaded and stored in reverse order, one more type for the v slot):
+//   wkv_bwd_state_kernel  the forward's state walk backward: dS_c of every chunk to a
+//       second scratch, ds0 at its end (from ds_final);
+//   wkv_bwd_dv_kernel     the forward's chunk kernel backward: dv, from dS_{c+1}.
+//   wkv_bwd_grad_kernel   grid (ceil(T / 64) K / 32, B·H), all chunks at once, 32 of
+//       the K columns a block: dr, dk, dw and the chunk's du partial, from S_c (the
+//       forward's scratch) and dS_{c+1}.  On the tensor cores: M = dO Vᵀ, H = dO S_cᵀ and
+//       G = V dS_{c+1}ᵀ.  Then one warp a sub-chunk I, one lane a column k, on the CUDA
+//       cores (every term below is elementwise in k): for t in I, with S the state at
+//       the start of I and dS the cotangent at its end,
+//         dr_t = Y_t[t] + u k_t (do_t·v_t),        Y_t[i] = (S_{t-1} do_i)[k]
+//         dk_t = e^{suf_t} (dS v_t) + Σ_{i∈I, i>t} r_i e^{P(t+1,i)} (do_i·v_t) + bonus
+//         dw_t = e^{suf_t} Σ_v dS ⊙ S_{t-1} + Σ_{i∈I, i>t} r_i e^{P(t+1,i)} Y_t[i].
+//       S do_i, dS v_j and Σ_v dS ⊙ S at the sub-chunk's ends are sums over the other
+//       sub-chunks in pieces (every factor e^{sum of pieces} <= 1); inside I they walk
+//       by the recurrence itself (x <- w_t x + k_t ·), and the sums over i are Horner's
+//       rule in w.  dw is the product of the two states, never d(log w) / w: nothing
+//       divides by a decay, and any w in [0, 1) (exact zeros, 1e-30) is exact to rounding.
+//   wkv_bwd_du_kernel     du[h] = the chunks' partials summed over b, then c, in order.
 // Products in 3xTF32 (mma.sync m16n8k8): each f32 operand is hi = tf32(x) plus lo =
 // tf32(x - hi), and a·b = a.lo b.hi + a.hi b.lo + a.hi b.hi in that order (a bf16
 // operand is exact in TF32 and skips its lo).  One TF32 or bf16 pass is off by ~100x
-// the 2e-4 tolerance; three are within it.
-//
-// The backward: each column v of S evolves on its own (S[:, v] <- w ⊙ S[:, v] + k v[v]),
-// and so does each row k (S[k, :] <- w[k] S[k, :] + k[k] v): the update is
-// elementwise.  Only the products reduce, over k for dv, over v for dr and dk.  So a
-// block owns 32 rows (or columns) of one (b, h) and gives each 8 threads, adjacent
-// lanes: a thread keeps K/8 elements of its row (column) in registers, the strip
-// {p, p+8, p+16, ...} (p the thread's part), and three xor shuffles sum the 8 partial
-// products.  K = 64 takes two blocks per (b, h).  The block stages 16 steps of r, k, v,
-// w and dout as f32 in shared memory with coalesced loads, the next tile's loads in
-// flight in registers while the current tile is computed; per-step scalars
-// (r·(u⊙k), do·v) are summed by a warp each; outputs of a tile are staged and written
-// as 128-byte rows.
-//   wkv_bwd_state_kernel blockIdx.z = 0: row layout, forward time (recomputes S from
-//                        s0): dr, x_t = r_t ⊙ drˢ_t, per-(b, h) du partials and
-//                        Σ_v ds_final ⊙ S_{T-1};  blockIdx.z = 1: column layout,
-//                        reverse time over dS: dv.
-//   wkv_bwd_decay_kernel row layout, reverse time over dS: dk, the dlogw sum, dw,
-//                        ds0, and du summed over b in order.
-// One fixed order of operations and no atomics: every run gives the same bits
-// (activation checkpointing reruns the forward, and the data-parallel issue orders
-// must stay bitwise equal).
+// the 2e-4 tolerance; three are within it.  One fixed order of operations and no
+// atomics: every run gives the same bits (activation checkpointing reruns the forward,
+// and the data-parallel issue orders must stay bitwise equal).
 //
 // Bound.  The forward reads r, k, v (2 B each in bf16) and w (4 B) and writes out
 // (4 B): 14 B per (b, t, h, k), 235 MB at the main path's (1, 4096, 64, 64), 0.070 ms
 // at 3.35 TB/s.  Its arithmetic is 5 FLOP per state element per step (r·S: 2;
 // w S + k v: 3), 5.37 GFLOP: 0.033 ms in 3xTF32 on the tensor cores (495 / 3 TFLOP/s),
 // the path its products take, so it is bound by bytes (0.080 ms on the f32 CUDA cores
-// at 67 TFLOP/s, where the sequential kernel did them).  The chunked form pays for the
-// scratch S_c (67 MB written and read again, ~0.04 ms) and for the serial walk over
-// 64 chunks; what holds it now is latency: the walk's chunk steps, and in the chunk
-// kernel the block's phases with two blocks (16 warps) an SM.  The backward reads
-// r, k, v, w, dout and writes dr, dk, dv, dw (f32): 30 B per element, 503 MB,
-// 0.150 ms; 14 FLOP per state element per step (S recomputed: 3, dS: 3, dS·k, dS·v,
-// S·do, dS⊙S: 2 each), 15.0 GFLOP, 0.224 ms on the f32 CUDA cores: bound by
-// operations; it still walks the steps one at a time there.
+// at 67 TFLOP/s).  The chunked form pays for the scratch S_c (67 MB written and read
+// again, ~0.04 ms) and for the serial walk over 64 chunks.  The backward reads r, k,
+// v, w, dout and writes dr, dk, dv, dw (f32): 30 B per element, 503 MB, 0.150 ms; 14
+// FLOP per state element per step (S: 3, dS: 3, dS·k, dS·v, S·do, dS⊙S: 2 each), 15.0
+// GFLOP: 0.091 ms at 3xTF32's rate, 0.224 ms on the f32 CUDA cores: bound by bytes.
+// Outside that bound: the scratches (S_c read, 67 MB; dS_c written and read, 134 MB)
+// and the inputs that its four kernels each read again.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,245 +96,32 @@
 
 namespace {
 
-constexpr int kParts = 8;                  // threads that share one column (row)
-constexpr int kOwned = 32;                 // columns (rows) a block owns
-constexpr int kThreads = kParts * kOwned;  // 256
-constexpr int kTS = 16;                    // time steps staged per tile
-
-enum Role { kDr, kDv, kDk };
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// Sum over the 8 lanes of one part group; every lane gets the same bits (each
-// level adds the same two values, in either order).
-__device__ __forceinline__ float part_sum(float p) {
-  p += __shfl_xor_sync(0xffffffffu, p, 1);
-  p += __shfl_xor_sync(0xffffffffu, p, 2);
-  p += __shfl_xor_sync(0xffffffffu, p, 4);
-  return p;
-}
-
-template <typename In>
+// The kernels' operands.  VIn is the type of the v slot: the forward's v (In), or do
+// (f32) where the backward runs the forward's kernels with other operands in its slots.
+template <typename In, typename VIn = In>
 struct Args {
-  const In *r, *k, *v;
-  const float *w, *u, *s0, *dout, *dsT;  // dsT: ds_final, may be null; s0 may be null
-  float *out, *sT;                       // forward outputs
-  float* sc;                             // forward scratch: S_c of every chunk (B, H, NC, K, K)
-  float *dr, *dk, *dv, *dw, *du, *ds0;   // backward outputs; ds0 may be null
-  float *x;                              // (B, T, H, K): x_t = r_t ⊙ drˢ_t
-  float *part;                           // (2, B, H, K): du partials, Σ_v dsT ⊙ S_{T-1}
+  const In *r, *k;
+  const VIn* v;
+  const float *w, *u, *s0, *dout;    // s0 may be null
+  float *out, *sT;                   // forward outputs
+  float* sc;                         // S_c of every chunk (B, H, NC, K, K)
+  float* dsc;                        // dS_{c+1} of every chunk (B, H, NC, K, K)
+  float *dr, *dk, *dw, *du;          // backward outputs
+  float* part;                       // (B, H, NC, K): the chunks' du partials
   int B, T, H;
 };
 
-template <int K>
-struct Smem {
-  float r[kTS][K], k[kTS][K], v[kTS][K], w[kTS][K], d[kTS][K];
-  float x[kTS][kOwned];                  // the decay pass's x of the owned rows
-  float o0[kTS][kOwned], o1[kTS][kOwned];  // outputs of the owned index, per step
-  float sc[kTS];                         // per-step scalar: r·(u⊙k) or do·v
-  float u[K];
-};
-
-// One role over all of T for the block's (b, h) and its 32 owned columns (rows).
-template <int K, int R, typename In>
-__device__ __forceinline__ void wkv_pass(const Args<In>& a, Smem<K>& sm) {
-  constexpr int S = K / kParts;              // state elements a thread keeps
-  constexpr bool kRev = R == kDv || R == kDk;  // reverse time
-  constexpr bool kBonus = R == kDv;              // scalar r·(u⊙k), else do·v
-  constexpr int kLoads = kTS * K / kThreads;  // elements of one array per thread per tile
-  constexpr int kXLoads = kTS * kOwned / kThreads;
-
-  const int tid = threadIdx.x, part = tid & (kParts - 1), own = tid >> 3;
-  const int idx = blockIdx.x * kOwned + own;  // the owned column (row)
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int T_ = a.T;
-  const long long HK = (long long)a.H * K;
-  const long long seq0 = ((long long)b * T_ * a.H + h) * K;  // (b, 0, h, 0)
-  const long long st0 = (long long)bh * K * K;                // (b, h, 0, 0)
-  const long long row0 = (long long)bh * K;                   // (b, h, 0)
-  const long long plane = (long long)a.B * a.H * K;
-
-  if (tid < K) sm.u[tid] = a.u[h * K + tid];
-
-  // the state strip: element i is S[part + 8 i][idx] (columns) or S[idx][part + 8 i]
-  // (rows); in the backward's reverse passes it holds dS
-  float M[S];
-  const float* init = R == kDr ? a.s0 : a.dsT;
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const int j = part + kParts * i;
-    const long long at = R == kDv ? st0 + (long long)j * K + idx : st0 + (long long)idx * K + j;
-    M[i] = init != nullptr ? init[at] : 0.f;
-  }
-  float acc = 0.f, x_next = 0.f;  // kDr: du partial; kDk: dlogw sum, x_{t+1}
-  if constexpr (R == kDk) acc = a.part[plane + row0 + idx];
-
-  float pr[kLoads], pk[kLoads], pv[kLoads], pw[kLoads], pd[kLoads], px[kXLoads];
-  auto load = [&](int tile) {
-    const int t0 = tile * kTS;
-#pragma unroll
-    for (int e = 0; e < kLoads; ++e) {
-      const int flat = tid + e * kThreads, s = flat / K, c = flat % K;
-      const bool in = t0 + s < T_;
-      const long long off = seq0 + (long long)(t0 + s) * HK + c;
-      pr[e] = in ? to_f(a.r[off]) : 0.f;
-      pk[e] = in ? to_f(a.k[off]) : 0.f;
-      pv[e] = in ? to_f(a.v[off]) : 0.f;
-      pw[e] = in ? a.w[off] : 1.f;
-      pd[e] = in ? a.dout[off] : 0.f;
-    }
-    if constexpr (R == kDk) {
-#pragma unroll
-      for (int e = 0; e < kXLoads; ++e) {
-        const int flat = tid + e * kThreads, s = flat / kOwned, c = flat % kOwned;
-        const bool in = t0 + s < T_;
-        px[e] = in ? a.x[seq0 + (long long)(t0 + s) * HK + blockIdx.x * kOwned + c] : 0.f;
-      }
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int e = 0; e < kLoads; ++e) {
-      const int flat = tid + e * kThreads, s = flat / K, c = flat % K;
-      sm.r[s][c] = pr[e];
-      sm.k[s][c] = pk[e];
-      sm.v[s][c] = pv[e];
-      sm.w[s][c] = pw[e];
-      sm.d[s][c] = pd[e];
-    }
-    if constexpr (R == kDk) {
-#pragma unroll
-      for (int e = 0; e < kXLoads; ++e) {
-        const int flat = tid + e * kThreads;
-        sm.x[flat / kOwned][flat % kOwned] = px[e];
-      }
-    }
-  };
-
-  const int n_tiles = (T_ + kTS - 1) / kTS;
-  int tile = kRev ? n_tiles - 1 : 0;
-  load(tile);
-  for (int it = 0; it < n_tiles; ++it) {
-    store();  // the previous tile's readers passed the barrier after its compute
-    __syncthreads();
-    {  // per-step scalars, one warp per step, lanes over K in a fixed order
-      const int warp = tid >> 5, lane = tid & 31;
-      for (int s = warp; s < kTS; s += kThreads / 32) {
-        float p = 0.f;
-        for (int c = lane; c < K; c += 32)
-          p += kBonus ? sm.r[s][c] * sm.u[c] * sm.k[s][c] : sm.d[s][c] * sm.v[s][c];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-        if (lane == 0) sm.sc[s] = p;
-      }
-    }
-    __syncthreads();
-    const int t0 = tile * kTS, n = min(kTS, T_ - t0);
-    const int next = kRev ? tile - 1 : tile + 1;
-    if (it + 1 < n_tiles) load(next);  // in flight while this tile is computed
-    for (int q = 0; q < n; ++q) {
-      const int s = kRev ? n - 1 - q : q;
-      float p = 0.f;
-      if constexpr (R == kDr) {  // row idx = k: drˢ = S_{t-1}[k, :]·do
-#pragma unroll
-        for (int i = 0; i < S; ++i) p = fmaf(M[i], sm.d[s][part + kParts * i], p);
-        p = part_sum(p);
-        const float rk = sm.r[s][idx], kk = sm.k[s][idx], wk = sm.w[s][idx];
-        const float ukd = sm.u[idx] * sm.sc[s];
-        acc = fmaf(rk * kk, sm.sc[s], acc);
-        if (part == 0) {
-          sm.o0[s][own] = fmaf(ukd, kk, p);
-          sm.o1[s][own] = rk * p;
-        }
-#pragma unroll
-        for (int i = 0; i < S; ++i) M[i] = fmaf(wk, M[i], kk * sm.v[s][part + kParts * i]);
-      } else if constexpr (R == kDv) {  // column idx = v: dv = dS[:, v]·k + bonus do
-        const float dd = sm.d[s][idx];
-#pragma unroll
-        for (int i = 0; i < S; ++i) p = fmaf(M[i], sm.k[s][part + kParts * i], p);
-        p = part_sum(p);
-        if (part == 0) sm.o0[s][own] = fmaf(sm.sc[s], dd, p);
-#pragma unroll
-        for (int i = 0; i < S; ++i) {
-          const int j = part + kParts * i;
-          M[i] = fmaf(sm.w[s][j], M[i], sm.r[s][j] * dd);
-        }
-      } else {  // kDk, row idx = k: dkˢ = dS[k, :]·v, the dlogw sum, dw
-#pragma unroll
-        for (int i = 0; i < S; ++i) p = fmaf(M[i], sm.v[s][part + kParts * i], p);
-        p = part_sum(p);
-        const float rk = sm.r[s][idx], kk = sm.k[s][idx], wk = sm.w[s][idx];
-        acc = fmaf(-kk, p, acc + x_next);
-        x_next = sm.x[s][own];
-        if (part == 0) {
-          sm.o0[s][own] = fmaf(sm.u[idx] * rk, sm.sc[s], p);
-          sm.o1[s][own] = acc / wk;
-        }
-#pragma unroll
-        for (int i = 0; i < S; ++i) M[i] = fmaf(wk, M[i], rk * sm.d[s][part + kParts * i]);
-      }
-    }
-    __syncthreads();  // the tile's outputs are staged
-    float* o0 = R == kDr ? a.dr : R == kDv ? a.dv : a.dk;
-    float* o1 = R == kDr ? a.x : a.dw;
-    for (int e = tid; e < n * kOwned; e += kThreads) {
-      const int s = e / kOwned, c = e % kOwned;
-      const long long off = seq0 + (long long)(t0 + s) * HK + blockIdx.x * kOwned + c;
-      o0[off] = sm.o0[s][c];
-      if constexpr (R == kDr || R == kDk) o1[off] = sm.o1[s][c];
-    }
-    tile = next;
-  }
-
-  if constexpr (R == kDr) {
-    float fin = 0.f;  // Σ_v ds_final[k, v] S_{T-1}[k, v]
-    if (a.dsT != nullptr) {
-#pragma unroll
-      for (int i = 0; i < S; ++i)
-        fin = fmaf(a.dsT[st0 + (long long)idx * K + part + kParts * i], M[i], fin);
-    }
-    fin = part_sum(fin);
-    if (part == 0) {
-      a.part[row0 + idx] = acc;
-      a.part[plane + row0 + idx] = fin;
-    }
-  } else if constexpr (R == kDk) {
-    if (a.ds0 != nullptr) {
-#pragma unroll
-      for (int i = 0; i < S; ++i) a.ds0[st0 + (long long)idx * K + part + kParts * i] = M[i];
-    }
-    if (b == 0 && part == 0) {  // du[h, k]: the partials summed over b, in order
-      float du = 0.f;
-      for (int bb = 0; bb < a.B; ++bb) du += a.part[((long long)bb * a.H + h) * K + idx];
-      a.du[h * K + idx] = du;
-    }
-  }
-}
-
-template <int K, typename In>
-__global__ void __launch_bounds__(kThreads) wkv_bwd_state_kernel(Args<In> a) {
-  __shared__ Smem<K> sm;
-  if (blockIdx.z == 0)
-    wkv_pass<K, kDr>(a, sm);
-  else
-    wkv_pass<K, kDv>(a, sm);
-}
-
-template <int K, typename In>
-__global__ void __launch_bounds__(kThreads) wkv_bwd_decay_kernel(Args<In> a) {
-  __shared__ Smem<K> sm;
-  wkv_pass<K, kDk>(a, sm);
-}
-
 // ---------------------------------------------------------------------------
-// The forward: the chunked form, its products on the tensor cores in 3xTF32.
+// The chunked form, its products on the tensor cores in 3xTF32.
 // ---------------------------------------------------------------------------
 
 constexpr int kL = 64;            // steps per chunk
 constexpr int kSub = 8;           // steps per sub-chunk
 constexpr int kNS = kL / kSub;    // sub-chunks per chunk
-constexpr int kOutThreads = 256;  // wkv_fwd_out_kernel: 8 warps
+constexpr int kOutThreads = 256;  // the chunk kernels: 8 warps
 constexpr float kLwFloor = -88.f * 1.4426950408889634f;  // log2 of e^-88
 
 // The log decay in log2 units, floored: a w that underflowed to 0 decays by
@@ -447,18 +237,18 @@ __device__ __forceinline__ void load_rows(T* dst, int ss, const T* src, long lon
   }
 }
 
-// wkv_fwd_state_kernel: one block per 32 value columns of one (b, h), 4K threads:
-// warp w owns the state rows 16 (w / 2) .. + 15 and the 16 columns 16 (w % 2) .. + 15
-// of the block's 32, in its mma accumulators, and every thread two (sub-chunk,
-// column) pieces of a chunk.  Two stages of k, v, w: the next chunk's are in flight
-// while the current one is computed.
+// The state walk (wkv_fwd_state_kernel; backward in time, wkv_bwd_state_kernel): one
+// block per 32 value columns of one (b, h), 4K threads: warp w owns the state rows
+// 16 (w / 2) .. + 15 and the 16 columns 16 (w % 2) .. + 15 of the block's 32, in its
+// mma accumulators, and every thread two (sub-chunk, column) pieces of a chunk.  Two
+// stages of k, v, w: the next chunk's are in flight while the current one is computed.
 constexpr int kSlice = 32;  // value columns a block
 constexpr int kStages = 2;  // chunks of k, v, w in shared memory
 
-template <int K, typename In>
+template <int K, typename In, typename VIn>
 struct StateSmem {
   In k[kStages][kL][K + 8];
-  In v[kStages][kL][kSlice + 8];  // the block's columns
+  VIn v[kStages][kL][kSlice + 8];  // the block's columns
   float w[kStages][kL][K];
   float kt[kL][K + 8];      // k_j e^{P(j+1, n)}, the product's A operand (transposed)
   float tot[kNS][K];        // sub-chunk totals of lw
@@ -467,13 +257,15 @@ struct StateSmem {
 template <int K>
 constexpr int kStateThreads = 4 * K;  // two pieces a thread
 
-template <int K, typename In>
-__global__ void __launch_bounds__(kStateThreads<K>) wkv_fwd_state_kernel(Args<In> a) {
+// kRev: the chunks from last to first, each one's rows from last to first; S_c goes to
+// the scratch slot of its chunk.
+template <int K, typename In, typename VIn, bool kRev>
+__device__ __forceinline__ void state_walk(const Args<In, VIn>& a) {
   constexpr int kThr = kStateThreads<K>;
-  constexpr bool kBExact = sizeof(In) == 2;  // bf16 v is exact in TF32
+  constexpr bool kBExact = sizeof(VIn) == 2;  // bf16 v is exact in TF32
   static_assert(kThr / 32 == (K / 16) * (kSlice / 16), "a warp a 16 x 16 tile of the slice");
   extern __shared__ __align__(16) unsigned char wkv_smem[];
-  StateSmem<K, In>& sm = *reinterpret_cast<StateSmem<K, In>*>(wkv_smem);
+  StateSmem<K, In, VIn>& sm = *reinterpret_cast<StateSmem<K, In, VIn>*>(wkv_smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int v0 = blockIdx.x * kSlice;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
@@ -485,12 +277,13 @@ __global__ void __launch_bounds__(kStateThreads<K>) wkv_fwd_state_kernel(Args<In
   const int nc = 16 * (warp & 1);                             // and columns, in the block's
   const int Jp = tid / K, kc = tid % K;  // the thread's pieces: sub-chunks 2 Jp, 2 Jp + 1
 
+  auto chunk_of = [&](int c) { return kRev ? NC - 1 - c : c; };  // the c-th walked
   auto load = [&](int c, int stage) {
-    const int t0 = c * kL, n = min(kL, T_ - t0);
-    const long long at = seq0 + (long long)t0 * HK;
-    load_rows(&sm.k[stage][0][0], K + 8, a.k + at, HK, kL, K, n, tid, kThr);
-    load_rows(&sm.v[stage][0][0], kSlice + 8, a.v + at + v0, HK, kL, kSlice, n, tid, kThr);
-    load_rows(&sm.w[stage][0][0], K, a.w + at, HK, kL, K, n, tid, kThr);
+    const int t0 = chunk_of(c) * kL, n = min(kL, T_ - t0);
+    const long long at = seq0 + (long long)(kRev ? t0 + n - 1 : t0) * HK, gs = kRev ? -HK : HK;
+    load_rows(&sm.k[stage][0][0], K + 8, a.k + at, gs, kL, K, n, tid, kThr);
+    load_rows(&sm.v[stage][0][0], kSlice + 8, a.v + at + v0, gs, kL, kSlice, n, tid, kThr);
+    load_rows(&sm.w[stage][0][0], K, a.w + at, gs, kL, K, n, tid, kThr);
     cp_async_commit();
   };
 
@@ -514,11 +307,11 @@ __global__ void __launch_bounds__(kStateThreads<K>) wkv_fwd_state_kernel(Args<In
 
   load(0, 0);
   for (int c = 0; c < NC; ++c) {
-    const int stage = c % kStages, n = min(kL, T_ - c * kL);
+    const int stage = c % kStages, n = min(kL, T_ - chunk_of(c) * kL);
     cp_async_wait<0>();
     __syncthreads();  // chunk c has landed; chunk c - 1's buffers are no longer read
     if (c + 1 < NC) load(c + 1, (c + 1) % kStages);
-    store_state(a.sc + st0 * NC + (long long)c * K * K);  // S_c
+    store_state(a.sc + st0 * NC + (long long)chunk_of(c) * K * K);  // S_c
 
     // the pieces (J, kc), two a thread: the suffixes of lw in sub-chunk J in
     // registers, its total
@@ -593,10 +386,24 @@ __global__ void __launch_bounds__(kStateThreads<K>) wkv_fwd_state_kernel(Args<In
   store_state(a.sT + st0);
 }
 
-// wkv_fwd_out_kernel: one block per chunk of one (b, h), 8 warps.
 template <int K, typename In>
+__global__ void __launch_bounds__(kStateThreads<K>) wkv_fwd_state_kernel(Args<In> a) {
+  state_walk<K, In, In, false>(a);
+}
+
+// dS_c of every chunk into a.sc, ds0 into a.sT: the walk backward in time from a.s0
+// (ds_final), with r in k's slot and do in v's.
+template <int K, typename In>
+__global__ void __launch_bounds__(kStateThreads<K>) wkv_bwd_state_kernel(Args<In, float> a) {
+  state_walk<K, In, float, true>(a);
+}
+
+// The chunk kernel (wkv_fwd_out_kernel; backward in time, wkv_bwd_dv_kernel): one
+// block per chunk of one (b, h), 8 warps.
+template <int K, typename In, typename VIn>
 struct OutSmem {
-  In r[kL][K + 8], k[kL][K + 8], v[kL][K + 8];
+  In r[kL][K + 8], k[kL][K + 8];
+  VIn v[kL][K + 8];
   float w[kL][K + 4];     // w, then lw (log2 units), then k_j e^{suf_j}
   float S[K][K + 8];      // S_c ([k][v])
   float pre[kL][K + 4];   // prefix exponents, then r_i e^{P(0, i)}
@@ -606,22 +413,25 @@ struct OutSmem {
   float u[K];
 };
 
-template <int K, typename In>
-__global__ void __launch_bounds__(kOutThreads) wkv_fwd_out_kernel(Args<In> a) {
+// kRev: the chunk's rows loaded and stored from last to first.
+template <int K, typename In, typename VIn, bool kRev>
+__device__ __forceinline__ void chunk_out(const Args<In, VIn>& a) {
   static_assert(kSub == 8 && kL == 64, "16-row tiles are two sub-chunks; four tiles a chunk");
   extern __shared__ __align__(16) unsigned char wkv_smem[];
-  OutSmem<K, In>& sm = *reinterpret_cast<OutSmem<K, In>*>(wkv_smem);
-  constexpr bool kBExact = sizeof(In) == 2;
+  OutSmem<K, In, VIn>& sm = *reinterpret_cast<OutSmem<K, In, VIn>*>(wkv_smem);
+  constexpr bool kBExact = sizeof(VIn) == 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int c = blockIdx.x, bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int T_ = a.T, NC = (T_ + kL - 1) / kL, t0 = c * kL, n = min(kL, T_ - t0);
   const long long HK = (long long)a.H * K;
   const long long at = ((long long)b * T_ * a.H + h) * K + (long long)t0 * HK;  // (b, t0, h, 0)
+  // row i of the block is step i of the chunk, or step n - 1 - i backward in time
+  const long long row0 = kRev ? at + (long long)(n - 1) * HK : at, gs = kRev ? -HK : HK;
 
-  load_rows(&sm.r[0][0], K + 8, a.r + at, HK, kL, K, n, tid, kOutThreads);
-  load_rows(&sm.k[0][0], K + 8, a.k + at, HK, kL, K, n, tid, kOutThreads);
-  load_rows(&sm.v[0][0], K + 8, a.v + at, HK, kL, K, n, tid, kOutThreads);
-  load_rows(&sm.w[0][0], K + 4, a.w + at, HK, kL, K, n, tid, kOutThreads);
+  load_rows(&sm.r[0][0], K + 8, a.r + row0, gs, kL, K, n, tid, kOutThreads);
+  load_rows(&sm.k[0][0], K + 8, a.k + row0, gs, kL, K, n, tid, kOutThreads);
+  load_rows(&sm.v[0][0], K + 8, a.v + row0, gs, kL, K, n, tid, kOutThreads);
+  load_rows(&sm.w[0][0], K + 4, a.w + row0, gs, kL, K, n, tid, kOutThreads);
   cp_async_commit();
   load_rows(&sm.S[0][0], K + 8, a.sc + ((long long)bh * NC + c) * K * K, K, K, K, K, tid,
             kOutThreads);
@@ -829,49 +639,419 @@ __global__ void __launch_bounds__(kOutThreads) wkv_fwd_out_kernel(Args<In> a) {
     for (int q = 0; q < NT; ++q) {
       const int col = 8 * (nt0 + q) + 2 * t;
       if (i0 < n)
-        *reinterpret_cast<float2*>(a.out + at + i0 * HK + col) = make_float2(d[q][0], d[q][1]);
+        *reinterpret_cast<float2*>(a.out + row0 + i0 * gs + col) = make_float2(d[q][0], d[q][1]);
       if (i1 < n)
-        *reinterpret_cast<float2*>(a.out + at + i1 * HK + col) = make_float2(d[q][2], d[q][3]);
+        *reinterpret_cast<float2*>(a.out + row0 + i1 * gs + col) = make_float2(d[q][2], d[q][3]);
     }
   }
 }
 
 template <int K, typename In>
-int launch_fwd(const Args<In>& a, cudaStream_t st) {
-  const int NC = (a.T + kL - 1) / kL;
-  const int state_bytes = sizeof(StateSmem<K, In>), out_bytes = sizeof(OutSmem<K, In>);
-  static const cudaError_t state_attr = cudaFuncSetAttribute(
-      wkv_fwd_state_kernel<K, In>, cudaFuncAttributeMaxDynamicSharedMemorySize, state_bytes);
-  if (state_attr != cudaSuccess) return int(state_attr);
-  static const cudaError_t out_attr = cudaFuncSetAttribute(
-      wkv_fwd_out_kernel<K, In>, cudaFuncAttributeMaxDynamicSharedMemorySize, out_bytes);
-  if (out_attr != cudaSuccess) return int(out_attr);
-  wkv_fwd_state_kernel<K, In>
-      <<<dim3(K / kSlice, a.B * a.H), kStateThreads<K>, state_bytes, st>>>(a);
-  const int err = int(cudaGetLastError());
-  if (err) return err;
-  wkv_fwd_out_kernel<K, In><<<dim3(NC, a.B * a.H), kOutThreads, out_bytes, st>>>(a);
+__global__ void __launch_bounds__(kOutThreads) wkv_fwd_out_kernel(Args<In> a) {
+  chunk_out<K, In, In, false>(a);
+}
+
+// dv into a.out, from dS_{c+1} in a.sc: the chunk kernel backward in time, with k in
+// r's slot, r in k's and do in v's.
+template <int K, typename In>
+__global__ void __launch_bounds__(kOutThreads) wkv_bwd_dv_kernel(Args<In, float> a) {
+  chunk_out<K, In, float, true>(a);
+}
+
+// wkv_bwd_grad_kernel: one block per chunk of one (b, h) and 32 of its K columns (rows
+// of S), 8 warps; warp I owns sub-chunk I in the CUDA-core phases, lane x column x.
+constexpr int kCols = 32;  // columns a block
+
+template <int K, typename In>
+struct GradOperands {  // the products' operands, dead once the products are done
+  In v[kL][K + 8];
+  float d[kL][K + 4];                         // do
+  float S[kCols][K + 4], dS[kCols][K + 4];  // the block's rows of S_c and dS_{c+1}
+};
+
+struct GradPieces {
+  float rh[kL][kCols], kh[kL][kCols];  // r_i e^{pre_i}, k_j e^{suf_j}
+  // W[J + 1][L] = Σ_{j∈J, i∈L} rh_i kh_j (do_i·v_j) for J + 2 <= L; J = -1 stands for
+  // S_c (W[0][L] = Σ_{i∈L} rh_i (S_c do_i)), L = kNS for dS_{c+1} (W[J + 1][kNS] =
+  // Σ_{j∈J} kh_j (dS_{c+1} v_j)), and W[0][kNS] = Σ_v dS_{c+1} ⊙ S_c
+  float W[kNS + 1][kNS + 1][kCols];
+};
+
+template <int K, typename In>
+struct GradSmem {
+  In r[kL][kCols + 8], k[kL][kCols + 8];
+  float w[kL][kCols + 4];
+  float M[kL][kL + 4];     // do_i·v_j
+  float H[kL][kCols + 4];  // S_c do_i, then S at the start of i's sub-chunk times do_i
+  float G[kL][kCols + 4];  // dS_{c+1} v_j, then dS at the end of j's sub-chunk times v_j
+  float tot[kNS][kCols];
+  float c0[kCols];         // Σ_v dS_{c+1} ⊙ S_c
+  float part[kNS][kCols];  // du partial of each sub-chunk
+  float u[kCols];
+  union {
+    GradOperands<K, In> ops;
+    GradPieces pc;
+  };
+};
+
+template <int K, typename In>
+__global__ void __launch_bounds__(kOutThreads) wkv_bwd_grad_kernel(Args<In> a) {
+  static_assert(kSub == 8 && kL == 64 && kOutThreads / 32 == kNS && kCols == 32,
+                "one warp a sub-chunk, one lane a column");
+  constexpr bool kVExact = sizeof(In) == 2;  // bf16 v is exact in TF32
+  extern __shared__ __align__(16) unsigned char wkv_smem[];
+  GradSmem<K, In>& sm = *reinterpret_cast<GradSmem<K, In>*>(wkv_smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  // a chunk's column blocks side by side in the grid: the second reads v and do from L2
+  const int c = blockIdx.x / (K / kCols), c0 = blockIdx.x % (K / kCols) * kCols;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int T_ = a.T, NC = (T_ + kL - 1) / kL, t0 = c * kL, n = min(kL, T_ - t0);
+  const long long HK = (long long)a.H * K;
+  const long long at = ((long long)b * T_ * a.H + h) * K + (long long)t0 * HK;  // (b, t0, h, 0)
+  const long long st = (((long long)bh * NC + c) * K + c0) * K;  // row c0 of S_c
+
+  load_rows(&sm.r[0][0], kCols + 8, a.r + at + c0, HK, kL, kCols, n, tid, kOutThreads);
+  load_rows(&sm.k[0][0], kCols + 8, a.k + at + c0, HK, kL, kCols, n, tid, kOutThreads);
+  load_rows(&sm.w[0][0], kCols + 4, a.w + at + c0, HK, kL, kCols, n, tid, kOutThreads);
+  load_rows(&sm.ops.v[0][0], K + 8, a.v + at, HK, kL, K, n, tid, kOutThreads);
+  load_rows(&sm.ops.d[0][0], K + 4, a.dout + at, HK, kL, K, n, tid, kOutThreads);
+  load_rows(&sm.ops.S[0][0], K + 4, a.sc + st, K, kCols, K, kCols, tid, kOutThreads);
+  load_rows(&sm.ops.dS[0][0], K + 4, a.dsc + st, K, kCols, K, kCols, tid, kOutThreads);
+  cp_async_commit();
+  if (tid < kCols) sm.u[tid] = a.u[h * K + c0 + tid];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 1. On the tensor cores: M = dO Vᵀ (its 16 x 8 tiles that reach the diagonal or
+  //    below), H = dO S_cᵀ and Gᵀ = dS_{c+1} Vᵀ over the block's columns (rows of S).
+  //    Warp (p, half) takes rows 16 p of dO: the M tiles q = half, half + 2, ... <= 2p
+  //    + 1 and the H tiles 2 half, 2 half + 1; and of the 16 Gᵀ tiles 4, 3, 1 or 0 (for
+  //    p = 0 .. 3), all in one row block pg of dS.  One A fragment a row block and step.
+  {
+    static_assert(kCols / 8 == 4 && kL == 64, "two H tiles a warp, 16 Gᵀ tiles");
+    const int p = warp >> 1, half = warp & 1, nm = p + 1;
+    auto first = [](int w) { return w < 2 ? 4 * w : w < 4 ? 3 * w + 2 : w < 6 ? w + 10 : 16; };
+    const int g0 = first(warp), ng = first(warp + 1) - g0, pg = g0 / 8 % 2, q0 = g0 % 8;
+    const int i0 = 16 * p + g, i1 = i0 + 8, k0r = 16 * pg + g, k1r = k0r + 8;
+    float dm[4][4] = {}, dh[2][4] = {}, dg[4][4] = {};
+#pragma unroll 2
+    for (int kb = 0; kb < K / 8; ++kb) {
+      const int k0 = 8 * kb + t, k1 = k0 + 4;
+      FragA fa;
+      fa.set(sm.ops.d[i0][k0], sm.ops.d[i1][k0], sm.ops.d[i0][k1], sm.ops.d[i1][k1]);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        if (x < nm) {
+          const int j = 8 * (half + 2 * x) + g;
+          FragB fb;
+          fb.set(to_f(sm.ops.v[j][k0]), to_f(sm.ops.v[j][k1]));
+          mma3<kVExact>(dm[x], fa, fb);
+        }
+      }
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        const int kk = 8 * (2 * half + y) + g;
+        FragB fb;
+        fb.set(sm.ops.S[kk][k0], sm.ops.S[kk][k1]);
+        mma3<false>(dh[y], fa, fb);
+      }
+      if (ng > 0) {
+        FragA fs;
+        fs.set(sm.ops.dS[k0r][k0], sm.ops.dS[k1r][k0], sm.ops.dS[k0r][k1], sm.ops.dS[k1r][k1]);
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          if (y < ng) {
+            const int j = 8 * (q0 + y) + g;
+            FragB fb;
+            fb.set(to_f(sm.ops.v[j][k0]), to_f(sm.ops.v[j][k1]));
+            mma3<kVExact>(dg[y], fs, fb);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      if (x < nm) {
+        const int col = 8 * (half + 2 * x) + 2 * t;
+        *reinterpret_cast<float2*>(&sm.M[i0][col]) = make_float2(dm[x][0], dm[x][1]);
+        *reinterpret_cast<float2*>(&sm.M[i1][col]) = make_float2(dm[x][2], dm[x][3]);
+      }
+    }
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      const int col = 8 * (2 * half + y) + 2 * t;
+      *reinterpret_cast<float2*>(&sm.H[i0][col]) = make_float2(dh[y][0], dh[y][1]);
+      *reinterpret_cast<float2*>(&sm.H[i1][col]) = make_float2(dh[y][2], dh[y][3]);
+    }
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      if (y < ng) {  // stored transposed into G
+        const int jc = 8 * (q0 + y) + 2 * t;
+        sm.G[jc][k0r] = dg[y][0];
+        sm.G[jc + 1][k0r] = dg[y][1];
+        sm.G[jc][k1r] = dg[y][2];
+        sm.G[jc + 1][k1r] = dg[y][3];
+      }
+    }
+  }
+  if (tid < kCols) {
+    float p = 0.f;
+    for (int v = 0; v < K; ++v) p = fmaf(sm.ops.dS[tid][v], sm.ops.S[tid][v], p);
+    sm.c0[tid] = p;
+  }
+  __syncthreads();  // the operands are dead: rh, kh and W take their space
+
+  // 2. The pieces of sub-chunk I = warp in column `lane`: lw (log2 units), the
+  //    prefixes into rh, the suffixes into kh and registers, the total.
+  const int I = warp;
+  float suf[kSub];
+  {
+    float l[kSub], p = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSub; ++s) {
+      const int i = kSub * I + s;
+      l[s] = i < n ? log2_decay(sm.w[i][lane]) : 0.f;
+      sm.pc.rh[i][lane] = to_f(sm.r[i][lane]) * exp2_neg(p);
+      p += l[s];
+    }
+    sm.tot[I][lane] = p;
+    float q = 0.f;
+#pragma unroll
+    for (int s = kSub - 1; s >= 0; --s) {
+      const int i = kSub * I + s;
+      suf[s] = q;
+      sm.pc.kh[i][lane] = to_f(sm.k[i][lane]) * exp2_neg(q);
+      q += l[s];
+    }
+  }
+  __syncthreads();
+
+  // 3. The sums across sub-chunks: with eb[J + 1] = e^{totals strictly between J and I}
+  //    (J = -1: all before I) and ea[L] = e^{totals strictly between I and L} (L = kNS:
+  //    all after I), each summed in increasing order,
+  //      H_i <- Xc_i = eb[0] H_i + Σ_{J<I} eb[J + 1] Σ_{j∈J} (do_i·v_j) kh_j   (i in I)
+  //      G_j <- Zc_j = ea[kNS] G_j + Σ_{L>I} ea[L] Σ_{i∈L} (do_i·v_j) rh_i     (j in I)
+  //    and this warp's terms of W.
+  float eb[kNS + 1], ea[kNS + 1];
+#pragma unroll
+  for (int J = -1; J < kNS; ++J) {
+    float x = 0.f, y = 0.f;
+#pragma unroll
+    for (int m = 0; m < kNS; ++m) {
+      x += m > J && m < I ? sm.tot[m][lane] : 0.f;
+      y += m > I && m < J + 1 ? sm.tot[m][lane] : 0.f;
+    }
+    eb[J + 1] = exp2_neg(x);  // for J < I
+    ea[J + 1] = exp2_neg(y);  // for J + 1 > I
+  }
+  {
+    float x[kSub], rh[kSub], hh = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSub; ++s) {
+      const int i = kSub * I + s;
+      rh[s] = sm.pc.rh[i][lane];
+      x[s] = eb[0] * sm.H[i][lane];
+      hh = fmaf(rh[s], sm.H[i][lane], hh);
+    }
+    if (I >= 1) sm.pc.W[0][I][lane] = hh;
+#pragma unroll
+    for (int J = 0; J < kNS - 1; ++J) {
+      if (J < I) {
+        float kh[kSub];
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) kh[j] = sm.pc.kh[kSub * J + j][lane];
+        float wsum = 0.f;
+#pragma unroll
+        for (int s = 0; s < kSub; ++s) {
+          const float* mrow = &sm.M[kSub * I + s][kSub * J];
+          const float4 m0 = *reinterpret_cast<const float4*>(mrow);
+          const float4 m1 = *reinterpret_cast<const float4*>(mrow + 4);
+          float pk = m0.x * kh[0];
+          pk = fmaf(m0.y, kh[1], pk);
+          pk = fmaf(m0.z, kh[2], pk);
+          pk = fmaf(m0.w, kh[3], pk);
+          pk = fmaf(m1.x, kh[4], pk);
+          pk = fmaf(m1.y, kh[5], pk);
+          pk = fmaf(m1.z, kh[6], pk);
+          pk = fmaf(m1.w, kh[7], pk);
+          x[s] = fmaf(eb[J + 1], pk, x[s]);
+          wsum = fmaf(rh[s], pk, wsum);
+        }
+        if (J + 2 <= I) sm.pc.W[J + 1][I][lane] = wsum;
+      }
+    }
+    float z[kSub], gg = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSub; ++s) {
+      const int j = kSub * I + s;
+      z[s] = ea[kNS] * sm.G[j][lane];
+      gg = fmaf(sm.pc.kh[j][lane], sm.G[j][lane], gg);
+    }
+    if (I + 2 <= kNS) sm.pc.W[I + 1][kNS][lane] = gg;
+#pragma unroll
+    for (int L = 1; L < kNS; ++L) {
+      if (L > I) {
+        float pr[kSub] = {};
+#pragma unroll
+        for (int x = 0; x < kSub; ++x) {
+          const int i = kSub * L + x;
+          const float ri = sm.pc.rh[i][lane];
+          const float4 m0 = *reinterpret_cast<const float4*>(&sm.M[i][kSub * I]);
+          const float4 m1 = *reinterpret_cast<const float4*>(&sm.M[i][kSub * I + 4]);
+          pr[0] = fmaf(m0.x, ri, pr[0]);
+          pr[1] = fmaf(m0.y, ri, pr[1]);
+          pr[2] = fmaf(m0.z, ri, pr[2]);
+          pr[3] = fmaf(m0.w, ri, pr[3]);
+          pr[4] = fmaf(m1.x, ri, pr[4]);
+          pr[5] = fmaf(m1.y, ri, pr[5]);
+          pr[6] = fmaf(m1.z, ri, pr[6]);
+          pr[7] = fmaf(m1.w, ri, pr[7]);
+        }
+#pragma unroll
+        for (int s = 0; s < kSub; ++s) z[s] = fmaf(ea[L], pr[s], z[s]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSub; ++s) {  // rows of I: read by this warp alone
+      sm.H[kSub * I + s][lane] = x[s];
+      sm.G[kSub * I + s][lane] = z[s];
+    }
+  }
+  if (tid < kCols) sm.pc.W[0][kNS][tid] = sm.c0[tid];
+  __syncthreads();
+
+  // 4. phi = Σ_v dS ⊙ S at the start of I (dS the cotangent at the end of I, S the state
+  //    at its start) from W, then the walk through I's steps.
+  float phi = 0.f;
+#pragma unroll
+  for (int J = -1; J < kNS - 1; ++J) {
+    if (J < I) {
+      float inner = ea[kNS] * sm.pc.W[J + 1][kNS][lane];
+#pragma unroll
+      for (int L = 1; L < kNS; ++L)
+        if (L > I) inner = fmaf(ea[L], sm.pc.W[J + 1][L][lane], inner);
+      phi = fmaf(eb[J + 1], inner, phi);
+    }
+  }
+  float y[kSub], z[kSub], wv[kSub], rv[kSub], kv[kSub];
+#pragma unroll
+  for (int s = 0; s < kSub; ++s) {
+    const int i = kSub * I + s;
+    y[s] = sm.H[i][lane];
+    z[s] = sm.G[i][lane];
+    wv[s] = sm.w[i][lane];
+    rv[s] = to_f(sm.r[i][lane]);
+    kv[s] = to_f(sm.k[i][lane]);
+  }
+  const float uk = sm.u[lane];
+  float* const dr = a.dr + at + c0 + lane;
+  float* const dk = a.dk + at + c0 + lane;
+  float* const dw = a.dw + at + c0 + lane;
+  float du = 0.f;
+#pragma unroll
+  for (int s = 0; s < kSub; ++s) {
+    const int i = kSub * I + s;
+    const float mss = sm.M[i][i];
+    float zy = 0.f, zm = 0.f;  // Σ_{x>s} r_x Π_{s<m<x} w_m (Y_x, M[x][i]): Horner's rule
+#pragma unroll
+    for (int x = kSub - 1; x > s; --x) {
+      zy = fmaf(wv[x], zy, rv[x] * y[x]);
+      zm = fmaf(wv[x], zm, rv[x] * sm.M[kSub * I + x][i]);
+    }
+    const float es = exp2_neg(suf[s]);
+    if (i < n) {
+      dr[i * HK] = fmaf(uk * kv[s], mss, y[s]);
+      dk[i * HK] = fmaf(uk * rv[s], mss, fmaf(es, z[s], zm));
+      dw[i * HK] = fmaf(es, phi, zy);
+    }
+    du = fmaf(rv[s] * kv[s], mss, du);
+    phi = fmaf(wv[s], phi, kv[s] * z[s]);
+#pragma unroll
+    for (int x = s + 1; x < kSub; ++x) y[x] = fmaf(wv[s], y[x], kv[s] * sm.M[kSub * I + x][i]);
+  }
+  sm.part[I][lane] = du;
+  __syncthreads();
+  if (tid < kCols) {  // the chunk's du partial: its sub-chunks' in order
+    float p = 0.f;
+#pragma unroll
+    for (int x = 0; x < kNS; ++x) p += sm.part[x][tid];
+    a.part[((long long)bh * NC + c) * K + c0 + tid] = p;
+  }
+}
+
+// du[h, k]: the chunks' partials of head h, over b, then c, in order.
+__global__ void wkv_bwd_du_kernel(const float* part, float* du, int B, int NC, int H) {
+  const int h = blockIdx.x, k = threadIdx.x, K = blockDim.x;
+  float s = 0.f;
+  for (int b = 0; b < B; ++b)
+    for (int c = 0; c < NC; ++c) s += part[(((long long)b * H + h) * NC + c) * K + k];
+  du[h * K + k] = s;
+}
+
+// Opts kKernel in to `bytes` of dynamic shared memory (once), then launches it.
+template <auto kKernel, typename A>
+int launch(dim3 grid, int threads, int bytes, const A& a, cudaStream_t st) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return int(attr);
+  kKernel<<<grid, threads, bytes, st>>>(a);
   return int(cudaGetLastError());
 }
 
 template <int K, typename In>
-int launch_bwd(const Args<In>& a, cudaStream_t st) {
-  wkv_bwd_state_kernel<K, In><<<dim3(K / kOwned, a.B * a.H, 2), kThreads, 0, st>>>(a);
-  int err = int(cudaGetLastError());
+int launch_fwd(const Args<In>& a, cudaStream_t st) {
+  const int NC = (a.T + kL - 1) / kL;
+  const int err = launch<wkv_fwd_state_kernel<K, In>>(
+      dim3(K / kSlice, a.B * a.H), kStateThreads<K>, sizeof(StateSmem<K, In, In>), a, st);
   if (err) return err;
-  wkv_bwd_decay_kernel<K, In><<<dim3(K / kOwned, a.B * a.H), kThreads, 0, st>>>(a);
+  return launch<wkv_fwd_out_kernel<K, In>>(dim3(NC, a.B * a.H), kOutThreads,
+                                           sizeof(OutSmem<K, In, In>), a, st);
+}
+
+// states_ready: a.sc holds the forward's S_c; else the forward's walk fills it first,
+// its s_final passing through ds0.
+template <int K, typename In>
+int launch_bwd(const Args<In>& a, bool states_ready, const float* ds_final, float* dv,
+               float* ds0, cudaStream_t st) {
+  const int NC = (a.T + kL - 1) / kL, BH = a.B * a.H;
+  int err;
+  if (!states_ready) {
+    Args<In> f = a;
+    f.sT = ds0;
+    err = launch<wkv_fwd_state_kernel<K, In>>(dim3(K / kSlice, BH), kStateThreads<K>,
+                                              sizeof(StateSmem<K, In, In>), f, st);
+    if (err) return err;
+  }
+  // backward in time: k in r's slot, r in k's, do in v's, ds_final as the state
+  Args<In, float> rv{};
+  rv.r = a.k;
+  rv.k = a.r;
+  rv.v = a.dout;
+  rv.w = a.w;
+  rv.u = a.u;
+  rv.s0 = ds_final;
+  rv.sc = a.dsc;
+  rv.sT = ds0;
+  rv.out = dv;
+  rv.B = a.B;
+  rv.T = a.T;
+  rv.H = a.H;
+  err = launch<wkv_bwd_state_kernel<K, In>>(dim3(K / kSlice, BH), kStateThreads<K>,
+                                            sizeof(StateSmem<K, In, float>), rv, st);
+  if (err) return err;
+  err = launch<wkv_bwd_dv_kernel<K, In>>(dim3(NC, BH), kOutThreads,
+                                         sizeof(OutSmem<K, In, float>), rv, st);
+  if (err) return err;
+  err = launch<wkv_bwd_grad_kernel<K, In>>(dim3(NC * (K / kCols), BH), kOutThreads,
+                                           sizeof(GradSmem<K, In>), a, st);
+  if (err) return err;
+  wkv_bwd_du_kernel<<<a.H, K, 0, st>>>(a.part, a.du, a.B, NC, a.H);
   return int(cudaGetLastError());
 }
 
 template <typename In>
-int dispatch(const Args<In>& a, int K, bool bwd, cudaStream_t st) {
-  if (K == 32) return bwd ? launch_bwd<32>(a, st) : launch_fwd<32>(a, st);
-  return bwd ? launch_bwd<64>(a, st) : launch_fwd<64>(a, st);
-}
-
-template <typename In>
 Args<In> make_args(const void* r, const void* k, const void* v, const float* w, const float* u,
-                  const float* s0, int B, int T, int H) {
+                   const float* s0, int B, int T, int H) {
   Args<In> a{};
   a.r = static_cast<const In*>(r);
   a.k = static_cast<const In*>(k);
@@ -891,8 +1071,8 @@ bool valid(int B, int T, int H, int K) {
 
 }  // namespace
 
-// The forward's chunk and sub-chunk lengths in steps: the wrapper sizes the scratch
-// from the first and holds its CPU mirror to both.
+// The chunk and sub-chunk lengths in steps: the wrapper sizes the scratches from the
+// first and holds the CPU mirrors to both.
 extern "C" int wkv_fwd_chunk() { return kL; }
 extern "C" int wkv_fwd_sub() { return kSub; }
 
@@ -905,50 +1085,42 @@ extern "C" int wkv_fwd(const void* r, const void* k, const void* v, const float*
                        float* chunk_states, int B, int T, int H, int K, int bf16, void* stream) {
   if (!valid(B, T, H, K)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(r, k, v, w, u, s0, B, T, H);
+  auto run = [&](auto a) {
     a.out = out;
     a.sT = s_final;
     a.sc = chunk_states;
-    return dispatch(a, K, false, st);
-  }
-  Args<float> a = make_args<float>(r, k, v, w, u, s0, B, T, H);
-  a.out = out;
-  a.sT = s_final;
-  a.sc = chunk_states;
-  return dispatch(a, K, false, st);
+    return K == 32 ? launch_fwd<32>(a, st) : launch_fwd<64>(a, st);
+  };
+  return bf16 ? run(make_args<__nv_bfloat16>(r, k, v, w, u, s0, B, T, H))
+              : run(make_args<float>(r, k, v, w, u, s0, B, T, H));
 }
 
 // The gradient of wkv_fwd.  Inputs as there, plus dout (B, T, H, K) f32 and ds_final
-// (B, H, K, K) f32 (may be null: zero).  Outputs dr, dk, dv, dw (B, T, H, K), du
-// (H, K) and ds0 (B, H, K, K), all f32; ds0 may be null (not wanted).  Scratch: x
-// (B, T, H, K) and part (2, B, H, K) f32.  Two launches on `stream`.  Returns the
-// cudaError_t of the launches (0 on success).
+// (B, H, K, K) f32 (may be null: zero).  Outputs dr, dk, dv, dw (B, T, H, K), du (H, K)
+// and ds0 (B, H, K, K), all f32, ds0 always written.  chunk_states: wkv_fwd's scratch for
+// these inputs if states_ready, else filled here first (one more launch).  Scratch:
+// ds_chunks, shaped as chunk_states, and part (B, H, ceil(T / wkv_fwd_chunk()), K) f32.
+// Four or five launches on `stream`.  Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int wkv_bwd(const void* r, const void* k, const void* v, const float* w,
                        const float* u, const float* s0, const float* dout,
-                       const float* ds_final, float* dr, float* dk, float* dv, float* dw,
-                       float* du, float* ds0, float* x, float* part, int B, int T, int H, int K,
-                       int bf16, void* stream) {
+                       const float* ds_final, float* chunk_states, int states_ready, float* dr,
+                       float* dk, float* dv, float* dw, float* du, float* ds0, float* ds_chunks,
+                       float* part, int B, int T, int H, int K, int bf16, void* stream) {
   if (!valid(B, T, H, K)) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto fill = [&](auto& a) {
+  auto run = [&](auto a) {
     a.dout = dout;
-    a.dsT = ds_final;
+    a.sc = chunk_states;
+    a.dsc = ds_chunks;
     a.dr = dr;
     a.dk = dk;
-    a.dv = dv;
     a.dw = dw;
     a.du = du;
-    a.ds0 = ds0;
-    a.x = x;
     a.part = part;
+    return K == 32 ? launch_bwd<32>(a, states_ready != 0, ds_final, dv, ds0, st)
+                   : launch_bwd<64>(a, states_ready != 0, ds_final, dv, ds0, st);
   };
-  if (bf16) {
-    Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(r, k, v, w, u, s0, B, T, H);
-    fill(a);
-    return dispatch(a, K, true, st);
-  }
-  Args<float> a = make_args<float>(r, k, v, w, u, s0, B, T, H);
-  fill(a);
-  return dispatch(a, K, true, st);
+  return bf16 ? run(make_args<__nv_bfloat16>(r, k, v, w, u, s0, B, T, H))
+              : run(make_args<float>(r, k, v, w, u, s0, B, T, H));
 }

@@ -6,12 +6,13 @@
 Which path runs follows from where the tensors lie, and from nothing
 else: a CUDA tensor launches the kernel or raises.  Each kernel's wrapper
 (``wkv_fwd``, ``wkv_bwd``) counts its calls that launched in ``.launches``
-(each launches two kernels in one call, counted once) and its calls that
+(each call launches several kernels, counted once) and its calls that
 took the plain version in ``.ref_calls``; ``reset_counts()`` zeroes them.
 
 ``wkv`` is the differentiable op (``WKV6Function``): its forward launches
-``wkv_fwd`` and saves ``(r, k, v, w, u, s0)``, its backward launches
-``wkv_bwd``, which recomputes the states it needs.  The kernels take r, k,
+``wkv_fwd`` and saves ``(r, k, v, w, u, s0)`` and, on the card, the state at
+the start of every 64-step chunk that the forward computed on the way; its
+backward launches ``wkv_bwd`` from them.  The kernels take r, k,
 v in float32 or bfloat16 (one dtype for the three), everything else in
 float32, and head sizes K of 32 or 64; they raise on anything else.
 Gradients come back in f32 from ``wkv_bwd`` and in each input's dtype from
@@ -40,10 +41,10 @@ def _library() -> ctypes.CDLL:
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wkv_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
-        lib.wkv_bwd.argtypes = [p] * 16 + [i] * 5 + [p]
+        lib.wkv_bwd.argtypes = [p] * 9 + [i] + [p] * 8 + [i] * 5 + [p]
         lib.wkv_fwd.restype = lib.wkv_bwd.restype = ctypes.c_int
         lib.wkv_fwd_chunk.restype = lib.wkv_fwd_sub.restype = ctypes.c_int
-        # the scratch is sized by CHUNK, and wkv_chunked_ref mirrors CHUNK and SUB
+        # the scratches are sized by CHUNK, and the CPU mirrors follow CHUNK and SUB
         built = (lib.wkv_fwd_chunk(), lib.wkv_fwd_sub())
         if built != (CHUNK, SUB):
             raise RuntimeError(f"{SOURCE.name} chunks the forward as (chunk, sub) {built}, "
@@ -116,10 +117,15 @@ def wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     initial state ``s0`` (zero when None).  On the card: the chunked
     kernels, with the state at the start of every 64-step chunk in a
     scratch tensor (``wkv_chunked_ref`` is their arithmetic on the CPU)."""
+    return _wkv_fwd(r, k, v, w, u, s0)[:2]
+
+
+def _wkv_fwd(r, k, v, w, u, s0):
+    """``wkv_fwd``, and its scratch of chunk states (None on the CPU)."""
     B, T, H, K = _check_shapes({"r": r, "k": k, "v": v, "w": w}, u, {"s0": s0})
     if _on_cpu(r, k, v, w, u, s0):
         wkv_fwd.ref_calls += 1
-        return wkv_ref(r, k, v, w, u, s0)
+        return (*wkv_ref(r, k, v, w, u, s0), None)
     (r, k, v, w, u, s0), bf16 = _kernel_inputs(r, k, v, w, u, K, s0=s0)
     out = torch.empty(B, T, H, K, dtype=torch.float32, device=r.device)
     s_final = torch.empty(B, H, K, K, dtype=torch.float32, device=r.device)
@@ -130,55 +136,64 @@ def wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         out.data_ptr(), s_final.data_ptr(), chunk_states.data_ptr(), B, T, H, K, bf16, stream),
         "forward")
     wkv_fwd.launches += 1
-    return out, s_final
+    return out, s_final, chunk_states
 
 
 def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             u: torch.Tensor, s0: torch.Tensor | None, dout: torch.Tensor,
-            ds_final: torch.Tensor | None = None):
+            ds_final: torch.Tensor | None = None, chunk_states: torch.Tensor | None = None):
     """Gradient of ``wkv_fwd`` from the cotangents ``dout`` (B, T, H, K) and
     ``ds_final`` (B, H, K, K; None means zero): (dr, dk, dv, dw, du, ds0),
-    f32; ds0 is None when ``s0`` is None."""
+    f32; ds0 is None when ``s0`` is None.  On the card: the chunked
+    backward kernels (``wkv_bwd_chunked_ref`` is their arithmetic on the
+    CPU).  ``chunk_states`` is the forward's scratch for the same inputs,
+    (B, H, ceil(T / 64), K, K) f32; without it the kernels first compute
+    it (one more launch within the call)."""
     B, T, H, K = _check_shapes({"r": r, "k": k, "v": v, "w": w, "dout": dout}, u,
                                {"s0": s0, "ds_final": ds_final})
-    if _on_cpu(r, k, v, w, u, s0, dout, ds_final):
+    if _on_cpu(r, k, v, w, u, s0, dout, ds_final, chunk_states):
         wkv_bwd.ref_calls += 1
         return wkv_bwd_ref(r, k, v, w, u, s0, dout, ds_final)
-    (r, k, v, w, u, s0, dout, ds_final), bf16 = _kernel_inputs(
-        r, k, v, w, u, K, s0=s0, dout=dout, ds_final=ds_final)
-    dev = r.device
-    dr, dk, dv, dw, x = (torch.empty(B, T, H, K, dtype=torch.float32, device=dev)
-                         for _ in range(5))
-    du = torch.empty(H, K, dtype=torch.float32, device=dev)
-    ds0 = None if s0 is None else torch.empty(B, H, K, K, dtype=torch.float32, device=dev)
-    part = torch.empty(2, B, H, K, dtype=torch.float32, device=dev)
+    (r, k, v, w, u, s0, dout, ds_final, chunk_states), bf16 = _kernel_inputs(
+        r, k, v, w, u, K, s0=s0, dout=dout, ds_final=ds_final, chunk_states=chunk_states)
+    dev, NC = r.device, -(-T // CHUNK)
+    if chunk_states is not None and chunk_states.shape != (B, H, NC, K, K):
+        raise ValueError(f"chunk_states is {tuple(chunk_states.shape)}, expected {(B, H, NC, K, K)}")
+    f32 = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)
+    states_ready = chunk_states is not None
+    if not states_ready:
+        chunk_states = f32(B, H, NC, K, K)
+    dr, dk, dv, dw = (f32(B, T, H, K) for _ in range(4))
+    du, ds0, ds_chunks, part = f32(H, K), f32(B, H, K, K), f32(B, H, NC, K, K), f32(B, H, NC, K)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _check_launch(_library().wkv_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), _ptr(s0),
-        dout.data_ptr(), _ptr(ds_final), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dw.data_ptr(), du.data_ptr(), _ptr(ds0), x.data_ptr(), part.data_ptr(),
-        B, T, H, K, bf16, stream), "backward")
+        dout.data_ptr(), _ptr(ds_final), chunk_states.data_ptr(), int(states_ready),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        ds0.data_ptr(), ds_chunks.data_ptr(), part.data_ptr(), B, T, H, K, bf16, stream),
+        "backward")
     wkv_bwd.launches += 1
-    return dr, dk, dv, dw, du, ds0
+    return dr, dk, dv, dw, du, (None if s0 is None else ds0)
 
 
 class WKV6Function(torch.autograd.Function):
-    """The differentiable WKV6; saves ``(r, k, v, w, u, s0)``."""
+    """The differentiable WKV6; saves ``(r, k, v, w, u, s0)`` and the
+    forward's chunk states (None on the CPU)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
-        out, s_final = wkv_fwd(r, k, v, w, u, s0)
-        ctx.save_for_backward(r, k, v, w, u, s0)
+        out, s_final, chunk_states = _wkv_fwd(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0, chunk_states)
         ctx.set_materialize_grads(False)  # an unused s_final passes no zeros
         return out, s_final
 
     @staticmethod
     def backward(ctx, dout, ds_final):
-        r, k, v, w, u, s0 = ctx.saved_tensors
+        r, k, v, w, u, s0, chunk_states = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
         # autograd may hand the cotangent over strided
-        grads = wkv_bwd(r, k, v, w, u, s0, dout.contiguous(), ds_final)
+        grads = wkv_bwd(r, k, v, w, u, s0, dout.contiguous(), ds_final, chunk_states)
         # each gradient in its input's dtype, as JAX's astype VJP rounds it
         return tuple(None if g is None else g.to(x.dtype)
                      for g, x in zip(grads, (r, k, v, w, u, s0)))

@@ -37,7 +37,7 @@ CLASSES = (
                          "flash_dkv_sum_kernel")),
     ("rglru", ("rglru_fwd_kernel", "rglru_bwd_kernel")),
     ("rwkv6_wkv", ("wkv_fwd_state_kernel", "wkv_fwd_out_kernel", "wkv_bwd_state_kernel",
-                   "wkv_bwd_decay_kernel")),
+                   "wkv_bwd_dv_kernel", "wkv_bwd_grad_kernel", "wkv_bwd_du_kernel")),
     ("comm_pack", ("pack_kernel", "unpack_kernel")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),

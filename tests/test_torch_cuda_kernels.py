@@ -41,9 +41,13 @@ forward also at T below, at and past its 8- and 64-step boundaries (1 to
 4096 + 17, K 32 and 64), with exact-zero decays and chunks that start with
 30 decays of 1e-30, with decays in (0.9999, 0.99999) against the plain
 version in f64 (out at T 529, s_final at T 529 and 4096 + 17), and split at
-T/2 + 17 off the chunk grid; the autograd op
-launches both kernels; and reduced RWKV6 trains bitwise equal under
-``post`` and ``dag``.
+T/2 + 17 off the chunk grid; the chunked backward alone in every decay
+regime of ``tests/test_torch_rwkv6_wkv.py`` (default, strong, 1e-12..1e-6,
+near 1 against the plain version in f64, exact zeros, 1e-30 then ~0.99) at T
+below, at and past its boundaries, with the forward's chunk states handed
+over or computed in the call (the same bits); the autograd op launches
+both kernels once and hands the forward's chunk states to the backward;
+and reduced RWKV6 trains bitwise equal under ``post`` and ``dag``.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU interpret mode):
 they carry the ``cuda`` marker and skip elsewhere.  The file imports no
@@ -602,15 +606,77 @@ def test_cuda_wkv_fwd_split_off_the_chunk_grid():
     _wkv_close(s_b, s_final, "s_final")
 
 
+def _wkv_decay(mode, shape, device, seed):
+    """w on the card in the regimes of tests/test_torch_rwkv6_wkv.py's
+    ``_decay``: default ~(0.63, 0.999), strong (0.05, 0.3), extreme
+    10^U(-12, -6), near-1 (0.9999, 0.99999), the default with ~30% exact
+    zeros, and 1e-30 in steps 0-29 of every 64 with ~0.99 after."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand(shape, generator=gen, device=device, dtype=torch.float64)
+    if mode == "strong":
+        w = 0.05 + 0.25 * x
+    elif mode == "extreme":
+        w = 10.0 ** (-12.0 + 6.0 * x)
+    elif mode == "near1":
+        w = 0.9999 + 0.00009 * x
+    elif mode == "mixed":
+        w = 0.985 + 0.01 * x
+        w[:, torch.arange(shape[1], device=device) % 64 < 30] = 1e-30
+    else:
+        w = torch.exp(-torch.exp(-6.0 + 5.2 * x))
+        if mode == "zeros":
+            w = torch.where(torch.rand(shape, generator=gen, device=device) < 0.3, 0.0, w)
+    return w.float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 8, 9, 63, 64, 65, 512 + 17])
+@pytest.mark.parametrize("mode", ["default", "strong", "extreme", "near1", "zeros", "mixed"])
+def test_cuda_wkv_bwd_decays_and_chunk_boundaries(mode, T):
+    """The chunked backward in every decay regime, at T below, at and past
+    its 8- and 64-step boundaries, bf16 r/k/v with s0 and ds_final: every
+    gradient within 2e-4 x max(1, max|g|) of wkv_bwd_ref (in f64 on f64
+    copies near 1, where the f32 loop's own rounding adds up), finite; one
+    launch and no plain call a call; the forward's chunk states handed over
+    give the same bits as those the call computes; a second call too."""
+    dev = require_cuda()
+    B, H, K = 1, 4, 64
+    r, k, v, _, u, s0, dout, ds = _wkv_inputs(B, T, H, K, dev, seed=T, dtype=torch.bfloat16)
+    w = _wkv_decay(mode, (B, T, H, K), dev, seed=T + 1)
+    args = (r, k, v, w, u, s0, dout, ds)
+    wk.reset_counts()
+    grads = wk.wkv_bwd(*args)
+    torch.cuda.synchronize()
+    assert (wk.wkv_bwd.launches, wk.wkv_bwd.ref_calls) == (1, 0)
+    want = wk.wkv_bwd_ref(*(x.double() for x in args) if mode == "near1" else args)
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "ds0"), grads, want):
+        assert torch.isfinite(g).all(), name
+        _wkv_grad_close(g.double(), x.double(), name)
+    _, _, states = wk.ops._wkv_fwd(r, k, v, w, u, s0)
+    for again in (wk.wkv_bwd(*args, chunk_states=states), wk.wkv_bwd(*args)):
+        assert all(torch.equal(g, g2) for g, g2 in zip(grads, again))
+
+
 @pytest.mark.cuda
 def test_cuda_wkv_autograd_op():
+    from torch.profiler import ProfilerActivity, profile
+
     dev = require_cuda()
     r, k, v, w, u, _, dout, _ = _wkv_inputs(2, 200, 2, 64, dev, seed=7, dtype=torch.bfloat16)
     leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u)]
+    states = wk.ops._wkv_fwd(r, k, v, w, u, None)[2]
     wk.reset_counts()
     out, _ = wk.wkv(*leaves)
-    out.backward(dout)
+    # the forward keeps its own chunk states for the backward ...
+    assert torch.equal(out.grad_fn.saved_tensors[-1], states)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out.backward(dout)
+        torch.cuda.synchronize()
     assert (wk.wkv_fwd.launches, wk.wkv_bwd.launches) == (1, 1)
+    # ... so the backward runs no forward walk of its own
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("wkv_bwd_state_kernel" in x for x in names), names
+    assert not any("wkv_fwd_state_kernel" in x for x in names), names
     want = wk.wkv_bwd_ref(r, k, v, w, u, None, dout)
     for name, x, g in zip(("dr", "dk", "dv", "dw", "du"), leaves, want):
         assert x.grad.dtype == x.dtype, name

@@ -20,7 +20,8 @@ NAMES = [
     ("(anonymous namespace)::flash_dkv_sum_kernel(float4 const*, float4 const*, ...)",
      "flash_attention"),
     ("void (anonymous namespace)::rglru_bwd_kernel(...)", "rglru"),
-    ("void (anonymous namespace)::wkv_bwd_decay_kernel(...)", "rwkv6_wkv"),
+    ("void (anonymous namespace)::wkv_bwd_grad_kernel<64, __nv_bfloat16>((anonymous "
+     "namespace)::Args<__nv_bfloat16, __nv_bfloat16>)", "rwkv6_wkv"),
     ("void (anonymous namespace)::wkv_fwd_state_kernel<64, __nv_bfloat16>((anonymous "
      "namespace)::Args<__nv_bfloat16>)", "rwkv6_wkv"),
     ("void (anonymous namespace)::wkv_fwd_out_kernel<32, float>((anonymous "
@@ -28,6 +29,12 @@ NAMES = [
     ("void (anonymous namespace)::unpack_kernel<float>(...)", "comm_pack"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT", "matmul"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),
+    ("void (anonymous namespace)::wkv_bwd_state_kernel<64, __nv_bfloat16>((anonymous "
+     "namespace)::Args<__nv_bfloat16, float>)", "rwkv6_wkv"),
+    ("void (anonymous namespace)::wkv_bwd_dv_kernel<32, float>((anonymous "
+     "namespace)::Args<float, float>)", "rwkv6_wkv"),
+    ("(anonymous namespace)::wkv_bwd_du_kernel(float const*, float*, int, int, int)",
+     "rwkv6_wkv"),
 ]
 
 

@@ -22,7 +22,14 @@ versions and its autograd op against the JAX package's, on the CPU.
 - two facts about the reference: where a chunk's decay product underflows
   1e-30, the JAX chunked form and the Pallas kernel leave the sequential
   recurrence, and where it falls to ~1e-20 the chunked form's gradient
-  overflows; the port follows the sequential recurrence and its gradient.
+  overflows; the port follows the sequential recurrence and its gradient;
+- ``wkv_bwd_chunked_ref``, the CPU mirror of the backward kernels'
+  arithmetic, against ``wkv_bwd_ref`` in f64 at 1e-10 and in f32 at the
+  gradient gate, in every decay regime, with and without s0 / ds_final, at T
+  below, at and past the chunk boundaries; and against ``jax.vjp`` of the
+  JAX oracle.  One more fact, pinned: dw formed as d(log w) / w (as the
+  port's sequential backward kernels did) misses the gate wherever the
+  decay is small, which is why the chunked backward never divides by w.
 """
 
 import numpy as np
@@ -44,7 +51,7 @@ from repro_torch.kernels.rwkv6_wkv import (
     wkv_fwd,
     wkv_ref,
 )
-from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_ref
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_bwd_chunked_ref, wkv_chunked_ref
 
 TOL = 2e-4
 GRAD_REL = 2e-4
@@ -337,3 +344,109 @@ def test_chunked_mirror_matches_sequential_in_f64(mode, K):
     assert out.dtype == torch.float64
     np.testing.assert_allclose(out.numpy(), want_out.numpy(), rtol=0, atol=1e-10)
     np.testing.assert_allclose(s_final.numpy(), want_s.numpy(), rtol=0, atol=1e-10)
+
+
+#: T below, at and past the backward's 8-step sub-chunks and 64-step chunks.
+BWD_T = (1, 8, 9, 63, 64, 65, 200)
+GRAD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def _bwd_case(mode, T, with_state, dtype, seed):
+    """B 2, H 2, K 32 inputs in ``dtype`` (torch), w from ``_decay``; s0 and
+    ds_final only ``with_state``."""
+    B, H, K = 2, 2, 32
+    r, k, v, _, u, s0, dout, ds = (torch.from_numpy(x).to(dtype)
+                                   for x in _inputs(B, T, H, K, seed=seed))
+    w = torch.from_numpy(_decay(mode, B, T, H, K, seed=seed + 1)).to(dtype)
+    return (r, k, v, w, u) + ((s0, dout, ds) if with_state else (None, dout, None))
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "s0-ds_final"])
+@pytest.mark.parametrize("T", BWD_T)
+@pytest.mark.parametrize("mode", DECAYS)
+def test_bwd_chunked_mirror_matches_sequential_in_f64(mode, T, with_state):
+    """The backward's scheme is exact: in f64 it gives ``wkv_bwd_ref`` to
+    1e-10 in every decay regime, exact zeros and 1e-30 decays included."""
+    args = _bwd_case(mode, T, with_state, torch.float64, seed=T)
+    got = wkv_bwd_chunked_ref(*args)
+    want = wkv_bwd_ref(*args)
+    assert (got[-1] is None) == (not with_state)
+    for name, g, x in zip(GRAD_NAMES, got, want):
+        if x is not None:
+            assert g.dtype == torch.float64, name
+            np.testing.assert_allclose(g.numpy(), x.numpy(), rtol=0, atol=1e-10, err_msg=name)
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero", "s0-ds_final"])
+@pytest.mark.parametrize("T", BWD_T)
+@pytest.mark.parametrize("mode", DECAYS)
+def test_bwd_chunked_mirror_holds_the_gate_in_f32(mode, T, with_state):
+    """In f32 the mirror holds every gradient at 2e-4 x max(1, max|g|) of
+    ``wkv_bwd_ref`` (in f64, so that the f32 loop's own rounding near 1 does
+    not count against it), with no non-finite value."""
+    args = _bwd_case(mode, T, with_state, torch.float32, seed=T)
+    got = wkv_bwd_chunked_ref(*args)
+    want = wkv_bwd_ref(*(None if x is None else x.double() for x in args))
+    for name, g, x in zip(GRAD_NAMES, got, want):
+        if x is not None:
+            assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+            _grad_close(g.double(), x, name)
+
+
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("with_ds", [False, True], ids=["no_ds_final", "ds_final"])
+def test_bwd_chunked_mirror_matches_jax_vjp(with_s0, with_ds):
+    """The mirror against ``jax.vjp`` of the JAX oracle, as
+    ``test_bwd_ref_matches_jax_vjp`` holds ``wkv_bwd_ref``, with T past a
+    chunk boundary."""
+    B, T, H, K = 2, 96, 2, 32
+    r, k, v, w, u, s0, dout, ds = _inputs(B, T, H, K, seed=2)
+    ds = ds if with_ds else np.zeros_like(ds)
+    if with_s0:
+        _, vjp = jax.vjp(jax_wkv_ref, *map(_j, (r, k, v, w, u, s0)))
+    else:
+        _, vjp = jax.vjp(lambda *a: jax_wkv_ref(*a), *map(_j, (r, k, v, w, u)))
+    want = vjp((_j(dout), _j(ds)))
+    got = wkv_bwd_chunked_ref(*map(_t, (r, k, v, w, u, s0 if with_s0 else None, dout,
+                                        ds if with_ds else None)))
+    assert (got[-1] is None) == (not with_s0)
+    for name, g, jg in zip(GRAD_NAMES, got, want):
+        _grad_close(g, jg, name)
+
+
+def _dw_through_dlogw(r, k, v, w, dout):
+    """dw as the port's sequential backward kernels formed it (f32, no s0,
+    no ds_final): d(log w)_t = Σ_{m>=t} (x_{m+1} - k_m ⊙ (dS_m v_m)), with
+    x_t = r_t ⊙ (S_{t-1} do_t) and x_T = 0, then dw_t = d(log w)_t / w_t.
+    The running sum holds O(1) terms that cancel down to w_t dw_t."""
+    B, T, H, K = r.shape
+    S = torch.zeros(B, H, K, K)
+    x = []
+    for t in range(T):
+        x.append(r[:, t] * (S @ dout[:, t, :, :, None])[..., 0])
+        S = S * w[:, t][..., None] + k[:, t][..., :, None] * v[:, t][..., None, :]
+    dS = torch.zeros(B, H, K, K)
+    acc, x_next, dw = torch.zeros(B, H, K), torch.zeros(B, H, K), torch.empty(B, T, H, K)
+    for t in range(T - 1, -1, -1):
+        acc = acc + x_next - k[:, t] * (dS @ v[:, t, :, :, None])[..., 0]
+        x_next = x[t]
+        dw[:, t] = acc / w[:, t]
+        dS = dS * w[:, t][..., None] + r[:, t][..., :, None] * dout[:, t][..., None, :]
+    return dw
+
+
+@pytest.mark.parametrize("mode", ["extreme", "mixed", "zeros"])
+def test_dw_through_dlogw_misses_the_gate_where_decays_are_small(mode):
+    """Why the chunked backward forms dw as the product of the two states:
+    d(log w) / w divides O(1)-sized rounding by w, so at decays of 1e-12 to
+    1e-6, of 1e-30 or of exactly 0 it misses the gradient gate by orders of
+    magnitude (or is not finite), while ``wkv_bwd_chunked_ref`` holds it."""
+    B, T, H, K = 1, 128, 2, 32
+    r, k, v, _, u, _, dout, _ = map(_t, _inputs(B, T, H, K, seed=13))
+    w = _t(_decay(mode, B, T, H, K, seed=14))
+    want = wkv_bwd_ref(*(x.double() for x in (r, k, v, w, u)), None, dout.double())[3]
+    gate = GRAD_REL * max(1.0, float(want.abs().max()))
+    old = _dw_through_dlogw(r, k, v, w, dout).double()
+    assert not (torch.isfinite(old).all() and float((old - want).abs().max()) <= gate)
+    new = wkv_bwd_chunked_ref(r, k, v, w, u, None, dout)[3].double()
+    assert float((new - want).abs().max()) <= gate
