@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` (one
-nvcc per source, sm_90a, all started together) and runs ten phases; any
+nvcc per source, sm_90a, all started together) and runs eleven phases; any
 failure exits non-zero.
 
 1. Kernels.  The comm_pack pack (B1) and unpack (B2) kernels against their
@@ -113,17 +113,39 @@ failure exits non-zero.
    same weights: finite losses, ``dag`` bitwise equal to ``post``, pack /
    unpack / ``issue()`` = groups x steps, and per step 12 ``rglru_fwd`` (6
    layers, each forward run twice under checkpointing), 6 ``rglru_bwd``, 4
-   flash forwards, 2 dQ and 2 dK/dV, with no plain call.
+   flash forwards, 2 dQ and 2 dK/dV, with no plain call.  Then one
+   ``probe_unit_times`` pass over the trained model (the stage probe runs
+   B6, B3-B5): every unit covered, finite and > 0, its launches printed
+   apart from the steps'.
 3c. Full-width RWKV6-7B cut to 8 layers (every width the published one),
    bf16 params, batch 1 x seq 4096, the same launcher flags, ``post`` and
    ``dag`` with f32 wire, 3 steps each from the same weights: finite losses,
    ``dag`` bitwise equal to ``post``, pack / unpack / ``issue()`` = groups x
    steps, and per step 16 ``wkv_fwd`` (8 layers, each forward run twice
-   under checkpointing) and 8 ``wkv_bwd``, with no plain call.
+   under checkpointing) and 8 ``wkv_bwd``, with no plain call.  Then one
+   probe pass as in 3b (the stage probe runs B7).
+4. The measured-cost loop.  TinyLlama-1.1B as in phase 3, through
+   ``run`` with ``--measure-comm --autotune --replan-every 4
+   --replan-threshold 0.25 --comm-refit-every 4 --issue-order dag --steps
+   8``: the startup sweep scored every policy of ``default_policies(24)``;
+   the probes' unit seconds cover all 24 units, finite and > 0; the (α, β)
+   fit at world 1 is finite and >= 0; every step's pack, unpack and
+   ``issue()`` equal the groups of the plan it ran under, and flash fwd /
+   dQ / dK-dV 44 / 22 / 22, with no plain call (the probes' and sweeps'
+   launches printed apart); losses finite, the first three bitwise equal
+   to phase 3's ``dag`` (at world 1 with f32 wire the grouping changes no
+   arithmetic).  Printed: the fit, the startup sweep's candidates, each
+   probe's seconds beside the TPU-v5e analytic ``t_b`` it replaces (ratio,
+   nonuniformity) and its fwd+bwd wall and device time, the sweeps, the
+   adopted plan, predicted against observed ``t_iter``, and the step time
+   beside phase 3's ``dag``.  Then ``--dryrun 3 --trace-out
+   build/phase4_trace.json.gz``: groups x 2 comm spans, backward spans, and
+   the trace read back by ``parse_trace_spans``; the overlap report printed.
 
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
-the last line is ``{"ok": true, "device": {...}}``.
+the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
+launches add up phases 3, 3b, 3c and phase 4's training steps.
 """
 
 from __future__ import annotations
@@ -149,6 +171,11 @@ PACK_SRC = "src/repro_torch/kernels/comm_pack/csrc/comm_pack.cu"
 FLASH_SM90_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_sm90.cu"
 RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
 WKV_SRC = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu"
+P4_ARGS = TRAIN_ARGS + [
+    "--issue-order", "dag", "--measure-comm", "--autotune", "--replan-every", "4",
+    "--replan-threshold", "0.25", "--comm-refit-every", "4", "--steps", "8",
+]
+TRACE_OUT = ROOT / "build" / "phase4_trace.json.gz"
 MAIN_ATTN = (4, 512, 32, 4, 64)  # B, S, Hq, Hkv, hd of one full-width layer
 N_LAYERS = 22
 RG_ARGS = [
@@ -1213,6 +1240,7 @@ def phase_full_width(device):
         if name == "post_f32":
             post_params, post_losses = params, res.losses
         elif name == "dag_f32":
+            dag = {"losses": res.losses, "step_ms": step_ms[name]}
             if res.losses != post_losses:
                 fail(f"dag losses {res.losses} != post losses {post_losses}")
             for n, p in params.items():
@@ -1254,7 +1282,7 @@ def phase_full_width(device):
     say(f"phase 3: flash fwd {want['fwd']} (2 x {N_LAYERS} layers x {flash_steps} steps: "
         f"checkpointing reruns each forward), dQ {want['dq']}, dK/dV {want['dkv']} launches, "
         f"0 plain calls")
-    return counts
+    return counts, dag
 
 
 def phase_rg_full_width(device):
@@ -1291,6 +1319,7 @@ def phase_rg_full_width(device):
         if name == "post":
             post_params, post_losses = params, res.losses
         else:
+            kept = res  # probed after the counts are read
             if res.losses != post_losses:
                 fail(f"phase 3b: dag losses {res.losses} != post losses {post_losses}")
             for n, p in params.items():
@@ -1321,6 +1350,9 @@ def phase_rg_full_width(device):
         f"{counts['rglru_fwd_launches']} (2 x {RG_REC_LAYERS} layers x {steps} steps), bwd "
         f"{counts['rglru_bwd_launches']}; flash fwd {counts['flash_fwd_launches']}, dQ "
         f"{counts['flash_dq_launches']}, dK/dV {counts['flash_dkv_launches']}; 0 plain calls")
+    probe_pass("phase 3b", kept, RG_ARGS)
+    del kept
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1361,6 +1393,7 @@ def phase_rwkv_full_width(device):
         if name == "post":
             post_params, post_losses = params, res.losses
         else:
+            kept = res  # probed after the counts are read
             if res.losses != post_losses:
                 fail(f"phase 3c: dag losses {res.losses} != post losses {post_losses}")
             for n, p in params.items():
@@ -1388,7 +1421,188 @@ def phase_rwkv_full_width(device):
         f"{counts['issue_calls']} = {groups} groups x {steps} steps; wkv fwd "
         f"{counts['wkv_fwd_launches']} (2 x {RWKV_LAYERS} layers x {steps} steps), bwd "
         f"{counts['wkv_bwd_launches']}; 0 plain calls")
+    probe_pass("phase 3c", kept, RWKV_ARGS)
+    del kept
+    torch.cuda.empty_cache()
     return counts
+
+
+def _arg(args, flag):
+    return args[args.index(flag) + 1]
+
+
+def probe_batch(args, vocab, device):
+    """Step 0's batch of a run with launcher flags ``args``."""
+    from repro_torch.core.trainer import batch_to_device
+    from repro_torch.data import DataConfig, make_stream
+
+    data = make_stream(DataConfig(vocab=vocab, seq_len=int(_arg(args, "--seq")),
+                                  global_batch=int(_arg(args, "--batch"))))
+    return batch_to_device(data.batch_at(0), device)
+
+
+def probe_pass(tag, res, args):
+    """One ``probe_unit_times`` pass over a trained model: every unit of the
+    plan's layout covered, each finite and > 0; the kernels the probes
+    launch are counted apart from the training steps'."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.runtime import probe_unit_times
+
+    model, layout = res.model, res.engine.plan.layout
+    batch = probe_batch(args, model.cfg.vocab, model.embed.device)
+    before = launch_counts()
+    prof = probe_unit_times(model.cfg, model, batch, layout)  # synchronizes the card
+    launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    units = [u.name for u in layout.units]
+    bad = [u for u in units if not (math.isfinite(prof.unit_seconds.get(u, math.nan))
+                                    and prof.unit_seconds[u] > 0)]
+    if bad or sorted(prof.unit_seconds) != sorted(units):
+        fail(f"{tag}: probe pass covers {sorted(prof.unit_seconds)} of {units}; bad {bad}")
+    kinds = {}
+    for u in units:
+        kinds.setdefault("stage" if u.startswith("stage_") else u, prof.unit_seconds[u])
+    say(f"{tag}: probe pass, backward seconds (2/3 of fwd+bwd, min of 2) by unit kind: "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in kinds.items())
+        + f"; all {len(units)} units covered and finite; probe launches (apart from the "
+        f"steps'): {launched}")
+    return prof
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the measured-cost loop through the launcher
+# ---------------------------------------------------------------------------
+
+
+def phase_autotune(device, dag):
+    """TinyLlama-1.1B at full width through ``run`` with ``--measure-comm
+    --autotune``, re-planning and (α, β) re-fits every 4 steps, 8 ``dag``
+    steps, beside an 8-step ``dag`` run on phase 3's plan; then ``--dryrun
+    3`` under the span recorder.  ``dag`` holds phase 3's ``dag`` run
+    (losses, step ms)."""
+    import torch
+    from repro_torch.core.cost_model import TPU_V5E
+    from repro_torch.core.profiler import overlap_report, parse_trace_spans, time_segment
+    from repro_torch.core.trainer import lm_unit_costs
+    from repro_torch.fabric.ops import issue
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6_wkv as wk
+    from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
+    from repro_torch.launch.train import run
+    from repro_torch.models import param_shapes
+    from repro_torch.planning import default_policies
+    from repro_torch.runtime import BWD_FRACTION, make_unit_probes
+
+    t0 = time.perf_counter()
+    # the same 8 steps on phase 3's plan, never re-planned
+    plain = run(TRAIN_ARGS + ["--issue-order", "dag", "--steps", "8"], quiet=True)
+    plain_losses, plain_ms = plain.losses, [t * 1e3 for t in plain.step_seconds]
+    del plain
+    torch.cuda.empty_cache()
+    # every launch counter to 0 just before the main path, read just after
+    reset_counts()
+    fa.reset_counts()
+    rg.reset_counts()
+    wk.reset_counts()
+    issue.calls = 0
+    res = run(P4_ARGS, quiet=True)
+    totals = launch_counts()
+    totals["issue"] = issue.calls
+    ref_calls = {fn.__name__: fn.ref_calls for fn in (
+        pack_arena, unpack_arena, fa.flash_attention_fwd, fa.flash_attention_dq,
+        fa.flash_attention_dkv)}
+    layout = res.plan.layout
+    units = [u.name for u in layout.units]
+    hist = res.tuner_history
+    first = hist[0] if hist else None
+    swept = sorted(c.policy for c in first.candidates) if first else []
+    if not first or first.trigger != "startup" or swept != sorted(default_policies(len(units))):
+        fail(f"phase 4: startup sweep scored {swept}, expected every policy of "
+             f"default_policies({len(units)}) = {default_policies(len(units))}")
+    prof = res.unit_profiles[0]
+    if sorted(prof.unit_seconds) != sorted(units) or not all(
+            math.isfinite(v) and v > 0 for v in prof.unit_seconds.values()):
+        fail(f"phase 4: unit seconds {prof.unit_seconds} do not cover the {len(units)} units "
+             f"finite and > 0")
+    fit = res.comm_model
+    if not (math.isfinite(fit.a) and math.isfinite(fit.b) and fit.a >= 0 and fit.b >= 0):
+        fail(f"phase 4: (α, β) fit {fit} not finite and >= 0")
+    if len(res.losses) != 8 or not all(math.isfinite(x) for x in res.losses):
+        fail(f"phase 4: losses {res.losses}")
+    if res.losses[:3] != dag["losses"]:
+        fail(f"phase 4: first losses {res.losses[:3]} != phase 3's dag {dag['losses']} (bitwise)")
+    if res.losses != plain_losses:
+        fail(f"phase 4: losses {res.losses} != the unbroken dag run's {plain_losses} (bitwise)")
+    want = {"flash_attention_fwd": 2 * N_LAYERS, "flash_attention_dq": N_LAYERS,
+            "flash_attention_dkv": N_LAYERS}
+    for i, (g, got) in enumerate(zip(res.step_groups, res.step_launches)):
+        per = {"pack_arena": g, "unpack_arena": g, "issue": g, **want}
+        if any(got.get(k, 0) != n for k, n in per.items()):
+            fail(f"phase 4 step {i}: launches {got}, expected {per} under a {g}-group plan")
+    if any(ref_calls.values()):
+        fail(f"phase 4: plain calls {ref_calls}")
+    steps = {k: sum(d.get(k, 0) for d in res.step_launches) for k in totals}
+    probes = {k: totals[k] - steps[k] for k in totals if totals[k] != steps[k]}
+    if probes.get("issue") or probes.get("pack_arena") or probes.get("unpack_arena"):
+        fail(f"phase 4: the probes or sweeps went through issue() or packed: {probes}")
+    say(f"phase 4: {len(res.losses)} steps, losses {[round(x, 4) for x in res.losses]}; first "
+        f"three bitwise equal to phase 3's dag, all eight to an unbroken 8-step dag run on "
+        f"phase 3's plan; groups per step {res.step_groups}; every step "
+        f"pack = unpack = issue() = its plan's groups, flash fwd / dQ / dK-dV 44 / 22 / 22, 0 "
+        f"plain calls; the probes' and sweeps' own launches, apart: {probes}")
+    say(f"phase 4: measured (α, β) at world 1: α = {fit.a:.4e} s, β = {fit.b:.4e} s/B "
+        f"({fit.name}); the startup sweep's candidates (policy, groups, predicted t_iter): "
+        + ", ".join(f"{c.policy} {c.n_groups} {c.predicted_t_iter * 1e3:.3f} ms"
+                    for c in first.candidates))
+    base = lm_unit_costs(res.model.cfg, param_shapes(res.model.cfg),
+                         int(_arg(P4_ARGS, "--batch")) * int(_arg(P4_ARGS, "--seq")))
+    ratios = prof.ratios(base, TPU_V5E)
+    batch = probe_batch(P4_ARGS, res.model.cfg.vocab, device)
+    probe_fns = make_unit_probes(res.model.cfg, res.model, batch)
+    timed = []
+    for kind, unit in (("embed", "embed"), ("stage", "stage_0"), ("head", "head")):
+        fn, args = probe_fns[kind]
+        wall = time_segment(fn, *args, warmup=1, repeats=3, device=device) * 1e3
+        dev = device_ms(lambda fn=fn, args=args: fn(*args), calls=5)
+        timed.append(f"{kind} {prof.unit_seconds[unit] * 1e3:.4f} ms ({ratios[unit]:.3g}x the "
+                     f"TPU-v5e analytic t_b {base[units.index(unit)].t_b(TPU_V5E) * 1e3:.4f} ms;"
+                     f" fwd+bwd {wall:.4f} ms wall, {dev:.4f} ms device)")
+    say(f"phase 4: probe seconds (backward, {BWD_FRACTION:.3f} of fwd+bwd): " + "; ".join(timed)
+        + f"; nonuniformity {prof.nonuniformity(base, TPU_V5E):.4g}")
+    last = hist[-1]
+    tuned_ms = statistics.median(res.step_seconds[1:]) * 1e3
+    say(f"phase 4: step ms, tuned run: {[round(t * 1e3, 1) for t in res.step_seconds]}; the "
+        f"unbroken dag run on phase 3's plan: {[round(t, 1) for t in plain_ms]} (median of "
+        f"steps 2-8 {statistics.median(plain_ms[1:]):.1f} ms)")
+    say(f"phase 4: sweeps {[(r.trigger, r.chosen) for r in hist]}; adopted "
+        f"{res.plan.policy}, {len(res.plan.schedule.groups)} groups "
+        f"{list(res.plan.schedule.groups)}; predicted t_iter "
+        f"{last.predicted_t_iter * 1e3:.3f} ms, observed "
+        + (f"{last.observed_t_iter * 1e3:.3f} ms" if last.observed_t_iter else "none")
+        + f"; step {tuned_ms:.1f} ms (median of steps 2-8) against phase 3's dag "
+        f"{dag['step_ms']:.1f} ms")
+    del res, probe_fns
+    torch.cuda.empty_cache()
+
+    TRACE_OUT.parent.mkdir(parents=True, exist_ok=True)
+    res = run(P4_ARGS + ["--dryrun", "3", "--trace-out", str(TRACE_OUT)], quiet=True)
+    rep, groups = res.report, res.engine.sync.n_groups
+    spans = parse_trace_spans(TRACE_OUT)
+    if rep["n_comm_spans"] != groups * 2 or rep["n_bwd_spans"] <= 0 \
+            or overlap_report(spans)["n_comm_spans"] != rep["n_comm_spans"]:
+        fail(f"phase 4 dryrun: {rep['n_comm_spans']} comm spans for {groups} groups x 2 steps, "
+             f"{rep['n_bwd_spans']} bwd spans, {len(spans)} spans read back")
+    say(f"phase 4 dryrun: {groups} groups, overlap report "
+        + json.dumps({k: rep[k] for k in ("n_comm_spans", "n_bwd_spans", "total_comm_us",
+                                          "windowed_comm_us", "hidden_comm_us",
+                                          "overlap_fraction", "hidden_fraction",
+                                          "n_overlapped_starts")})
+        + f"; {len(spans)} spans read back from {TRACE_OUT.relative_to(ROOT)}")
+    del res
+    torch.cuda.empty_cache()
+    say(f"phase 4: {time.perf_counter() - t0:.1f} s")
+    return steps
 
 
 def demangle(names: list[str]) -> list[str]:
@@ -1426,6 +1640,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    t_start = time.perf_counter()
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
     from repro_torch.kernels.comm_pack.ops import SOURCE as PACK_SOURCE
@@ -1461,9 +1676,11 @@ def main() -> None:
     phase_reduced_model(device)
     phase_reduced_model(device, "recurrentgemma-9b", seq=128, tag="phase 2b")
     phase_reduced_model(device, "rwkv6-7b", seq=64, tag="phase 2c")
-    counts = phase_full_width(device)
+    counts, dag = phase_full_width(device)
     rg_counts = phase_rg_full_width(device)
     rwkv_counts = phase_rwkv_full_width(device)
+    p4_counts = phase_autotune(device, dag)
+    say(f"all phases, the build included: {time.perf_counter() - t_start:.1f} s")
 
     main_cfg = timings["float32"]  # the main path's wire
     kernels = []
@@ -1474,9 +1691,10 @@ def main() -> None:
             "route": "cuda",
             "source": PACK_SRC,
             "replaces": f"src/repro/kernels/comm_pack/kernel.py:{src_line}",
-            # phases 3, 3b and 3c, each counted from 0 around its own runs
+            # phases 3, 3b, 3c and 4 (its training steps), each counted from 0
+            # around its own runs
             "launches": (counts[f"{name}_launches"] + rg_counts[f"{name}_launches"]
-                         + rwkv_counts[f"{name}_launches"]),
+                         + rwkv_counts[f"{name}_launches"] + p4_counts[f"{name}_arena"]),
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1486,9 +1704,9 @@ def main() -> None:
         })
     # the flash kernels once per configuration: TinyLlama's (phase 1b, run
     # 3) and RecurrentGemma's MQA / hd 256 / window 2048 (phase 1c, run 3b)
-    for suffix, f_errs, f_timings, f_counts in (
-            ("", flash_errs, flash_timings, counts),
-            ("[recurrentgemma]", rg_flash_errs, rg_flash_timings, rg_counts)):
+    for suffix, f_errs, f_timings, f_counts, f_more in (
+            ("", flash_errs, flash_timings, counts, p4_counts),
+            ("[recurrentgemma]", rg_flash_errs, rg_flash_timings, rg_counts, {})):
         for name, replaces in (
                 ("fwd", "src/repro/kernels/flash_attention/kernel.py:40"),
                 ("dq", "src/repro/kernels/flash_attention/kernel_bwd.py:53"),
@@ -1500,7 +1718,9 @@ def main() -> None:
                 "route": "cuda",
                 "source": FLASH_SM90_SRC,
                 "replaces": replaces,
-                "launches": f_counts[f"flash_{name}_launches"],
+                # phase 3 (3b) and, for TinyLlama's, phase 4's training steps
+                "launches": (f_counts[f"flash_{name}_launches"]
+                             + f_more.get(f"flash_attention_{name}", 0)),
                 "max_abs_err": f_errs[name],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],

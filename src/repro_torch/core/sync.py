@@ -25,6 +25,11 @@ A group's reduction is split in two, so that a caller that knows when
 the group's last gradient lands can start it then and finish it later:
 ``start_group`` packs and issues the all-reduce (asynchronously when
 asked), ``finish_group`` waits and unpacks.
+
+Given a ``core.profiler.TraceRecorder``, ``start_group`` brackets the
+group's all-reduce in a ``wfbp_group{gi}_l{lo}_{hi}`` span carrying the
+group's wire bytes: it begins once the arena is packed and ends when the
+collective completes.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch.distributed as dist
 from ..fabric.model import Collective
 from ..fabric.ops import issue
 from ..kernels.comm_pack import pack_arena, unpack_arena
-from .bucketing import ParamLayout, entry_param_names, wire_entries
+from .bucketing import ParamLayout, bucket_assignment, entry_param_names, wire_entries
 from .schedule import Schedule
 
 __all__ = [
@@ -112,15 +117,28 @@ class GradientSync:
         ]
         self.stateful = config.compression == "bf16_ef"
         self.n_groups = len(self.group_entries)
+        #: (lo, hi) layer spans in backward issue order
+        self.group_spans = tuple(reversed(schedule.groups))
+        #: per-group wire payload: the layout's per-unit bytes (wire dtype
+        #: included), the "p" vector the schedule was optimized over
+        self.group_wire_bytes = tuple(
+            sum(u.grad_bytes for u in units)
+            for units in reversed(bucket_assignment(layout, schedule))
+        )
+        #: the trace span name of each group
+        self.span_names = tuple(f"wfbp_group{gi}_l{lo}_{hi}"
+                                for gi, (lo, hi) in enumerate(self.group_spans))
 
     def world(self) -> int:
         return dist.get_world_size(self.group)
 
     def start_group(
-        self, gi: int, grads: Tensors, residual: Tensors | None = None, *, async_op: bool = False
+        self, gi: int, grads: Tensors, residual: Tensors | None = None, *,
+        async_op: bool = False, recorder=None,
     ) -> PendingGroup:
         """Pack group ``gi`` (backward issue order) and issue its one
-        all-reduce.  Under ``bf16_ef`` the residual is updated here."""
+        all-reduce.  Under ``bf16_ef`` the residual is updated here.  With
+        a ``recorder`` the all-reduce is recorded as the group's span."""
         if self.stateful and residual is None:
             raise ValueError("compression='bf16_ef' needs the residual")
         names = self.group_names[gi]
@@ -134,7 +152,12 @@ class GradientSync:
             )
         else:
             buf = torch.cat([p.reshape(-1).to(wire) for p in parts])
+        if recorder is not None:
+            recorder.span_begin(self.span_names[gi], device=dist.get_rank(self.group),
+                                nbytes=self.group_wire_bytes[gi])
         work = issue(Collective.ALL_REDUCE, buf, self.group, async_op=async_op)
+        if recorder is not None:
+            recorder.span_end(self.span_names[gi], device=dist.get_rank(self.group), work=work)
         return PendingGroup(gi=gi, buffer=buf, work=work, grads=parts)
 
     def finish_group(self, pending: PendingGroup) -> None:
@@ -156,9 +179,10 @@ class GradientSync:
             p.copy_(r)
             off += p.numel()
 
-    def sync_group(self, gi: int, grads: Tensors, residual: Tensors | None = None) -> None:
+    def sync_group(self, gi: int, grads: Tensors, residual: Tensors | None = None, *,
+                   recorder=None) -> None:
         """Reduce group ``gi`` alone, blocking."""
-        self.finish_group(self.start_group(gi, grads, residual))
+        self.finish_group(self.start_group(gi, grads, residual, recorder=recorder))
 
     def __call__(self, grads: Tensors, residual: Tensors | None = None) -> None:
         """Reduce every group, in backward issue order."""

@@ -24,7 +24,14 @@ Two issue orders:
 The error-feedback residual (``compression='bf16_ef'``) is per-rank state
 with no leading DP axis; the step keeps it and updates it in place, as it
 updates ``param.grad`` (the reduced gradient is unpacked into it) and the
-parameters.
+parameters.  A new step for a new plan (``MGWFBPEngine.replan``) takes
+over the optimizer state and the residual of the one it replaces.
+
+Given a ``core.profiler.TraceRecorder`` the step records its spans: each
+group's all-reduce (``wfbp_group*``, see ``core.sync``) and backward —
+one ``bwd_backward`` span under ``'post'``, and under ``'dag'`` one
+``bwd_<unit>`` span per unit (``head``, ``tail``, ``stage{i}``,
+``embed``), each from the previous unit's last gradient to its own.
 """
 
 from __future__ import annotations
@@ -38,8 +45,8 @@ import torch.distributed as dist
 
 from ..models.common import ArchConfig
 from ..models.transformer import Transformer
-from ..optim.optimizers import Optimizer
-from ..planning import AnalyticCosts, build_plan, resolve_policy_name
+from ..optim.optimizers import Optimizer, OptState
+from ..planning import AnalyticCosts, CostSource, build_plan, replan_if_drifted, resolve_policy_name
 from ..planning.plan import Plan
 from .bucketing import stacked_lm_layout, tree_size
 from .comm_model import AllReduceModel
@@ -166,6 +173,25 @@ class MGWFBPEngine:
             self.cfg, None, sync_config=self.sync_config, plan=plan, group=self.group
         )
 
+    def replan(
+        self,
+        measured: CostSource,
+        threshold: float = 0.15,
+        policy: str | None = None,
+    ) -> tuple["MGWFBPEngine", bool]:
+        """Online re-planning hook: returns (engine, replanned).
+
+        When measured costs drift beyond ``threshold`` the policy reruns
+        and a new engine (new sync) is returned; the caller builds a new
+        train step from it (handing over the optimizer state and residual).
+        """
+        new_plan, changed = replan_if_drifted(
+            self.plan, measured, threshold=threshold, policy=policy
+        )
+        if not changed:
+            return self, False
+        return self.with_plan(new_plan), True
+
     def make_train_step(
         self,
         model: Transformer,
@@ -174,15 +200,21 @@ class MGWFBPEngine:
         lr: float = 3e-4,
         issue: str = "post",
         residual: dict[str, torch.Tensor] | None = None,
+        opt_state: OptState | None = None,
+        recorder=None,
     ) -> "TrainStep":
         """``step(batch) -> {'loss': tensor}``, training ``model`` in place.
 
-        ``residual`` seeds the error-feedback state (zeros when None)."""
+        ``residual`` seeds the error-feedback state (zeros when None) and
+        ``opt_state`` the optimizer's (``optimizer.init`` when None): a step
+        built for a new plan takes both over from the one it replaces.
+        ``recorder`` (a ``core.profiler.TraceRecorder``) records the step's
+        spans."""
         if issue not in ("post", "dag"):
             raise ValueError(f"unknown issue order {issue!r}; known: ('post', 'dag')")
         if self.stateful and residual is None:
             residual = self.init_residual(model)
-        return TrainStep(self, model, optimizer, lr, issue, residual)
+        return TrainStep(self, model, optimizer, lr, issue, residual, opt_state, recorder)
 
 
 class TrainStep:
@@ -192,19 +224,23 @@ class TrainStep:
     order."""
 
     def __init__(self, engine: MGWFBPEngine, model: Transformer, optimizer: Optimizer,
-                 lr: float, issue: str, residual: dict[str, torch.Tensor] | None):
+                 lr: float, issue: str, residual: dict[str, torch.Tensor] | None,
+                 opt_state: OptState | None = None, recorder=None):
         self.engine, self.model, self.optimizer = engine, model, optimizer
         self.lr, self.issue, self.residual = lr, issue, residual
+        self.recorder = recorder
         self.params = dict(model.named_parameters())
         sync = engine.sync
         names = [n for g in sync.group_names for n in g]
         if sorted(names) != sorted(self.params):
             raise ValueError("the plan's wire entries do not cover the model's parameters")
-        self.opt_state = optimizer.init(self.params)
+        self.opt_state = optimizer.init(self.params) if opt_state is None else opt_state
         self._hooks = []
         self._pending: list[PendingGroup] = []
         self._remaining: list[int] = []
         if issue == "dag":
+            if recorder is not None:  # first, so a unit's span ends before its group packs
+                self._add_unit_span_hooks()
             for gi, group_names in enumerate(sync.group_names):
                 for n in group_names:
                     self._hooks.append(
@@ -213,6 +249,37 @@ class TrainStep:
                         )
                     )
 
+    def _add_unit_span_hooks(self) -> None:
+        """``dag`` under a recorder: one ``bwd_<unit>`` span per unit, in
+        backward order, each ending when the unit's last gradient lands
+        and the next one beginning there."""
+        cfg = self.model.cfg
+
+        def unit_of(name: str) -> str:
+            head, *rest = name.split(".")
+            if head == "stages":
+                return f"stage{rest[0]}"
+            return {"final_norm": "head"}.get(head, head)
+
+        order = ["head"] + (["tail"] if cfg.tail_pattern else []) \
+            + [f"stage{i}" for i in range(cfg.n_stages - 1, -1, -1)] + ["embed"]
+        self._unit_order = order
+        self._unit_size = {u: 0 for u in order}
+        for n in self.params:
+            self._unit_size[unit_of(n)] += 1
+        for n, p in self.params.items():
+            self._hooks.append(p.register_post_accumulate_grad_hook(
+                lambda _p, u=unit_of(n): self._unit_grad_landed(u)))
+
+    def _unit_grad_landed(self, unit: str) -> None:
+        self._unit_left[unit] -= 1
+        if self._unit_left[unit] == 0:
+            dev = dist.get_rank(self.engine.group)
+            self.recorder.span_end(f"bwd_{unit}", device=dev)
+            k = self._unit_order.index(unit) + 1
+            if k < len(self._unit_order):
+                self.recorder.span_begin(f"bwd_{self._unit_order[k]}", device=dev)
+
     def _grad_landed(self, gi: int) -> None:
         """DAG hook: count group ``gi`` down; at zero, pack it and issue
         its all-reduce asynchronously."""
@@ -220,7 +287,23 @@ class TrainStep:
         if self._remaining[gi] == 0:
             sync = self.engine.sync
             grads = {n: self.params[n].grad for n in sync.group_names[gi]}
-            self._pending.append(sync.start_group(gi, grads, self.residual, async_op=True))
+            self._pending.append(sync.start_group(gi, grads, self.residual, async_op=True,
+                                                  recorder=self.recorder))
+
+    def _backward(self, loss: torch.Tensor) -> None:
+        rec = self.recorder
+        if rec is None:
+            loss.backward()
+            return
+        dev = dist.get_rank(self.engine.group)
+        if self.issue == "post":
+            rec.span_begin("bwd_backward", device=dev)
+            loss.backward()
+            rec.span_end("bwd_backward", device=dev)
+            return
+        self._unit_left = dict(self._unit_size)
+        rec.span_begin(f"bwd_{self._unit_order[0]}", device=dev)
+        loss.backward()
 
     def __call__(self, batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         sync = self.engine.sync
@@ -229,11 +312,11 @@ class TrainStep:
         self._pending = []
         self._remaining = [len(g) for g in sync.group_names]
         loss = self.model.loss(batch)
-        loss.backward()
+        self._backward(loss)
         grads = {n: p.grad for n, p in self.params.items()}
         if self.issue == "post":
             for gi in range(sync.n_groups):
-                sync.sync_group(gi, grads, self.residual)
+                sync.sync_group(gi, grads, self.residual, recorder=self.recorder)
         else:
             if len(self._pending) != sync.n_groups:
                 raise RuntimeError(

@@ -7,7 +7,8 @@
 
 ``cost`` returns the affine ``AllReduceModel`` every scheduler policy and
 ``Plan`` consumes; ``fabric.ops.issue`` is the executable counterpart over
-``torch.distributed``.  The measured fabric is still to port.
+``torch.distributed``; ``MeasuredFabric`` serves timed all-reduce fits
+(``planning.MeasuredComm``) through the same ``cost`` surface.
 """
 
 from .hierarchical import (
@@ -16,6 +17,7 @@ from .hierarchical import (
     TREE_10GBE,
     HierarchicalFabric,
 )
+from .measured import MeasuredFabric
 from .model import Collective, Fabric, RingInterconnect
 from .ops import issue
 from .presets import DCN_ONLY, GPU_NCCL, PAPER_10GBE, TPU_V5E, TpuInterconnect
@@ -27,6 +29,7 @@ __all__ = [
     "Fabric",
     "GPU_NCCL",
     "HierarchicalFabric",
+    "MeasuredFabric",
     "PAPER_10GBE",
     "PIPELINE_10GBE",
     "RingInterconnect",

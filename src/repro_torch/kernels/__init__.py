@@ -2,7 +2,10 @@
 version: ``comm_pack`` (the gradient-arena wire path), ``flash_attention``
 (forward, dQ and dK/dV), ``rglru`` (the RG-LRU recurrence and its
 gradient) and ``rwkv6_wkv`` (the RWKV6 WKV recurrence and its gradient).
-Every Pallas kernel of the JAX package has its counterpart here."""
+Every Pallas kernel of the JAX package has its counterpart here.
+
+Each wrapper counts the calls that launched its kernel in ``.launches``;
+``launch_counts()`` reads them all at once."""
 
 from .comm_pack import pack_arena, unpack_arena
 from .flash_attention import (  # the subpackages keep their names: their ops
@@ -15,6 +18,15 @@ from .flash_attention import (  # the subpackages keep their names: their ops
 from .rglru import RGLRUScan, rglru_bwd, rglru_fwd
 from .rwkv6_wkv import WKV6Function, wkv_bwd, wkv_fwd
 
+
+def launch_counts() -> dict[str, int]:
+    """The launch count of every kernel wrapper, by wrapper name (reading
+    them changes nothing)."""
+    return {fn.__name__: fn.launches for fn in (
+        pack_arena, unpack_arena, flash_attention_fwd, flash_attention_dq,
+        flash_attention_dkv, rglru_fwd, rglru_bwd, wkv_fwd, wkv_bwd)}
+
+
 __all__ = [
     "RGLRUScan",
     "WKV6Function",
@@ -23,6 +35,7 @@ __all__ = [
     "flash_attention_dq",
     "flash_attention_fwd",
     "flash_attention_train",
+    "launch_counts",
     "pack_arena",
     "rglru_bwd",
     "rglru_fwd",

@@ -7,32 +7,83 @@
 Runs on ``cuda`` unless ``--device cpu`` is given.  Under ``torchrun``
 the process group comes from its environment (one rank per process,
 ``nccl`` on CUDA, ``gloo`` on the CPU); otherwise the launcher makes a
-world of one on a local ``FileStore``.  The tuner, re-planning,
-checkpoints and the fault-tolerant loop are not ported yet.
+world of one on a local ``FileStore``.
+
+Planning lifecycle (journal MG-WFBP's online re-planning):
+
+  * the engine builds (or loads, ``--plan-in``) a frozen ``Plan``;
+  * ``--measure-comm`` fits (α, β) from timed all-reduces on the process
+    group (a ``MeasuredFabric``) instead of the ``--fabric`` preset;
+  * ``--autotune`` closes the loop: per-unit probes
+    (``runtime/timeline.py``) feed ``MeasuredCosts.from_segment_times``
+    and a registry-wide ``planning.Tuner`` sweep picks the argmin
+    predicted-t_iter plan, at startup and on drift;
+  * every ``--replan-every`` steps the measured profile (per-unit probe
+    times under --autotune, else the median step time's uniform rescale)
+    drives ``replan_if_drifted`` / a tuner sweep (threshold
+    ``--replan-threshold``);
+  * every ``--comm-refit-every`` steps a slim timed all-reduce sweep is
+    exponentially weighted into the (α, β) fit (``CommRefitter``); past
+    ``--comm-drift-threshold`` the plan search reruns under the fresh fit;
+  * a re-plan builds a new train step and hands it the optimizer state and
+    the error-feedback residual of the old one, whose hooks it removes;
+  * ``--dryrun N`` runs N steps under a ``TraceRecorder`` and prints the
+    measured overlap of comm and backward (``--trace-out`` keeps the
+    Chrome trace).
+
+Every rank must adopt the same plan, or the ranks' all-reduces no longer
+match.  So every measured input of a plan decision (unit seconds, comm
+observations, the median step time) is rank 0's on every rank
+(``planning.rank0_values``: a plain ``dist.broadcast``, outside the
+counted ``issue()`` seam) before it is used.
+
+Checkpoints and the fault-tolerant loop are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import shutil
 import statistics
 import tempfile
 import time
+from typing import Callable
 
 import torch
 import torch.distributed as dist
 
 from ..configs import ARCH_NAMES, get_config, get_reduced
+from ..core.bucketing import dtype_name
+from ..core.comm_model import AllReduceModel
+from ..core.profiler import TraceRecorder, overlap_report
 from ..core.sync import SyncConfig
 from ..core.trainer import MGWFBPEngine, TrainStep, batch_to_device
 from ..data import DataConfig, SyntheticLMStream, make_stream
 from ..devices import resolve_device
-from ..fabric import available_fabrics, get_fabric
+from ..fabric import MeasuredFabric, available_fabrics, get_fabric
+from ..fabric.ops import issue
+from ..kernels import launch_counts
+from ..models.common import ArchConfig
 from ..models.transformer import Transformer, param_shapes
 from ..optim import make_optimizer
-from ..planning import Plan, available_policies
+from ..optim.optimizers import Optimizer
+from ..planning import (
+    DEFAULT_COMM_SWEEP,
+    CommRefitter,
+    MeasuredComm,
+    MeasuredCosts,
+    Plan,
+    SweepRecord,
+    Tuner,
+    available_policies,
+    cost_drift,
+    psum_time_fn,
+    rank0_values,
+)
+from ..runtime import StepTimer, UnitProfile, make_unit_probes, probe_unit_times
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,7 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy", "--method", dest="policy", default=None,
                     choices=list(available_policies()),
                     help="scheduler policy (default mg_wfbp); with --plan-in it must "
-                         "match the plan's policy")
+                         "match the plan's policy; ignored under --autotune (the sweep "
+                         "picks)")
     ap.add_argument("--comm-dtype", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--compression", default=None, choices=["bf16", "bf16_ef"],
                     help="wire compression (default: follows --comm-dtype); bf16_ef "
@@ -59,9 +111,32 @@ def build_parser() -> argparse.ArgumentParser:
                     help="DP size assumed by the α–β schedule model")
     ap.add_argument("--fabric", default="tpu_v5e", choices=available_fabrics(),
                     help="interconnect preset pricing the DP all-reduce")
+    ap.add_argument("--measure-comm", action="store_true",
+                    help="fit (α, β) from timed all-reduces on the live process group "
+                         "(a MeasuredFabric, journal §V-A) instead of the --fabric preset "
+                         "at --virtual-dp")
+    ap.add_argument("--autotune", action="store_true",
+                    help="closed-loop auto-tuner: per-unit probes feed MeasuredCosts, and "
+                         "a registry-wide Tuner sweep picks the argmin predicted-t_iter "
+                         "plan at startup and on drift")
+    ap.add_argument("--comm-refit-every", type=int, default=0,
+                    help="steps between slim timed all-reduce (α, β) re-fits (EWMA into "
+                         "the stored sweep; 0 = off)")
+    ap.add_argument("--comm-drift-threshold", type=float, default=0.25,
+                    help="relative (α, β) drift that triggers a comm re-plan")
+    ap.add_argument("--replan-every", type=int, default=25,
+                    help="steps between measured-profile drift checks (0 = off)")
+    ap.add_argument("--replan-threshold", type=float, default=0.25,
+                    help="relative per-unit backward-time drift that triggers a re-plan")
     ap.add_argument("--issue-order", default="post", choices=["post", "dag"],
                     help="reduce after backward (post) or issue each group's all-reduce "
                          "when its last gradient lands (dag)")
+    ap.add_argument("--dryrun", type=int, default=0, metavar="N",
+                    help="trace-first smoke: run N steps with the span recorder, print "
+                         "the measured overlap report (comm hidden under backward, from "
+                         "the wfbp_group*/bwd_* spans), and stop")
+    ap.add_argument("--trace-out", default=None,
+                    help="with --dryrun: write the Chrome-trace JSON here (.gz for gzip)")
     ap.add_argument("--plan-in", default=None, help="load a serialized Plan instead of planning")
     ap.add_argument("--plan-out", default=None, help="write the Plan JSON here")
     ap.add_argument("--attn-impl", default="flash", choices=["flash", "plain"],
@@ -76,12 +151,24 @@ def build_parser() -> argparse.ArgumentParser:
 class TrainResult:
     """What one run did, for callers that drive ``run`` directly."""
 
-    engine: MGWFBPEngine
+    engine: MGWFBPEngine  # the engine in effect at the end; ``.plan`` is the adopted plan
     model: Transformer
     losses: list[float]
     step_seconds: list[float]
     tokens_per_step: int  # global
     peak_memory_bytes: int | None  # CUDA only
+    comm_model: AllReduceModel | None = None  # (α, β) the run started with
+    tuner_history: list[SweepRecord] = dataclasses.field(default_factory=list)
+    unit_profiles: list[UnitProfile] = dataclasses.field(default_factory=list)  # probe passes
+    step_groups: list[int] = dataclasses.field(default_factory=list)  # plan groups per step
+    #: per step: the kernel launches (``kernels.launch_counts``) and
+    #: ``issue()`` calls (key ``issue``) that the step made, nonzero ones only
+    step_launches: list[dict[str, int]] = dataclasses.field(default_factory=list)
+    report: dict | None = None  # --dryrun: the overlap report of the recorded steps
+
+    @property
+    def plan(self) -> Plan:
+        return self.engine.plan
 
 
 class _ProcessGroup:
@@ -116,17 +203,32 @@ class TrainSetup:
     ``close()`` removes the step's hooks and the process group it made."""
 
     args: argparse.Namespace
+    cfg: ArchConfig
     engine: MGWFBPEngine
     model: Transformer
+    optimizer: Optimizer
     step_fn: TrainStep
     data: SyntheticLMStream
     device: torch.device
     rank: int
     world: int
     pg: _ProcessGroup
+    comm_obs: MeasuredComm  # timed (--measure-comm) or the preset sampled on the sweep
 
     def batch(self, step: int) -> dict[str, torch.Tensor]:
         return batch_to_device(self.data.batch_at(step), self.device)
+
+    def adopt(self, engine: MGWFBPEngine, recorder=None) -> None:
+        """Train on with ``engine``'s plan: a new step that takes over the
+        optimizer state and residual of the current one, whose hooks are
+        removed."""
+        old = self.step_fn
+        old.close()
+        self.step_fn = engine.make_train_step(
+            self.model, self.optimizer, lr=self.args.lr, issue=self.args.issue_order,
+            residual=old.residual, opt_state=old.opt_state, recorder=recorder,
+        )
+        self.engine = engine
 
     def close(self) -> None:
         self.step_fn.close()
@@ -136,11 +238,14 @@ class TrainSetup:
 def prepare(argv: list[str] | None = None, *, quiet: bool = False,
             overrides: dict | None = None) -> TrainSetup:
     """Parse ``argv`` like the command line and set up the run: device,
-    process group, plan, model (weights from seed 0), optimizer, data.
-    ``overrides`` replaces fields of the arch config (``{'n_layers': 8}``),
-    as the config registry's keyword overrides do."""
+    process group, (α, β) model, plan, model (weights from seed 0),
+    optimizer, data.  ``overrides`` replaces fields of the arch config
+    (``{'n_layers': 8}``), as the config registry's keyword overrides do."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.plan_in and args.autotune:
+        ap.error("--plan-in and --autotune are mutually exclusive: the tuner's sweep "
+                 "picks the plan (drop --autotune to pin a serialized plan)")
     say = (lambda *a: None) if quiet else print
 
     device = resolve_device(args.device)
@@ -168,7 +273,19 @@ def prepare(argv: list[str] | None = None, *, quiet: bool = False,
     pg = _ProcessGroup(device)
     try:
         rank, world = dist.get_rank(), dist.get_world_size()
-        ar_model = get_fabric(args.fabric).cost("all_reduce", {"data": args.virtual_dp})
+        if args.measure_comm:
+            comm_obs = MeasuredComm.time_psums(None, ("data",), device=device)
+            ar_model = MeasuredFabric.from_comm(comm_obs).cost("all_reduce", {"data": world})
+            say(f"[train] measured comm fit: α={ar_model.a:.3e}s β={ar_model.b:.3e}s/B")
+        else:
+            ar_model = get_fabric(args.fabric).cost("all_reduce", {"data": args.virtual_dp})
+            # the analytic prior sampled on the standard sweep, so the online
+            # EWMA re-fit has observations to blend fresh probes into
+            comm_obs = MeasuredComm(
+                sizes_bytes=DEFAULT_COMM_SWEEP,
+                times_s=tuple(ar_model(s) for s in DEFAULT_COMM_SWEEP),
+                name="analytic_prior",
+            )
         plan_in = Plan.load(args.plan_in) if args.plan_in else None
         eng = MGWFBPEngine.build(
             cfg, param_shapes(cfg),
@@ -187,51 +304,233 @@ def prepare(argv: list[str] | None = None, *, quiet: bool = False,
             DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch),
             host_rank=rank, host_count=world,
         )
-        step_fn = eng.make_train_step(
-            model, make_optimizer(args.optimizer), lr=args.lr, issue=args.issue_order
-        )
+        optimizer = make_optimizer(args.optimizer)
+        step_fn = eng.make_train_step(model, optimizer, lr=args.lr, issue=args.issue_order)
     except BaseException:
         pg.close()
         raise
-    return TrainSetup(args=args, engine=eng, model=model, step_fn=step_fn, data=data,
-                   device=device, rank=rank, world=world, pg=pg)
+    return TrainSetup(args=args, cfg=cfg, engine=eng, model=model, optimizer=optimizer,
+                      step_fn=step_fn, data=data, device=device, rank=rank, world=world,
+                      pg=pg, comm_obs=comm_obs)
+
+
+def _counts() -> dict[str, int]:
+    out = launch_counts()
+    out["issue"] = issue.calls
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _dryrun(setup: TrainSetup, say) -> tuple[dict, list[float]]:
+    """Trace-first smoke: run ``--dryrun`` steps under a span recorder and
+    report how much of the wire the issue order actually hides under
+    backward — measured from the recorded spans, not the model.  The
+    first step's spans are dropped (warm-up)."""
+    args, device = setup.args, setup.device
+    rec = TraceRecorder(cuda=device.type == "cuda")
+    setup.adopt(setup.engine, recorder=rec)
+    batch = setup.batch(0)
+    losses = [float(setup.step_fn(batch)["loss"])]
+    _sync(device)
+    if args.dryrun > 1:
+        rec.clear()
+        for _ in range(args.dryrun - 1):
+            losses.append(float(setup.step_fn(batch)["loss"]))
+        _sync(device)
+    report = overlap_report(rec.spans())
+    sched = setup.engine.plan.schedule
+    say(f"[dryrun] issue={args.issue_order} loss={losses[-1]:.4f} groups={list(sched.groups)}")
+    say(f"[dryrun] overlap fraction {report['overlap_fraction']:.3f} "
+        f"({report['windowed_comm_us']:.0f}us of {report['total_comm_us']:.0f}us "
+        f"comm inside the backward window; strict concurrent overlap "
+        f"{report['hidden_fraction']:.3f}; {report['n_overlapped_starts']}/"
+        f"{report['n_comm_spans']} comm spans start inside backward)")
+    say("[dryrun] " + json.dumps(
+        {k: report[k] for k in ("n_devices", "n_comm_spans", "n_bwd_spans",
+                                "total_comm_us", "windowed_comm_us",
+                                "hidden_comm_us", "overlap_fraction",
+                                "hidden_fraction", "n_overlapped_starts")}
+    ))
+    if args.trace_out and setup.rank == 0:
+        rec.save(args.trace_out)
+        say(f"[dryrun] trace written to {args.trace_out}")
+    return report, losses
 
 
 def run(argv: list[str] | None = None, *, quiet: bool = False,
-        overrides: dict | None = None) -> TrainResult:
-    """Parse ``argv`` like the command line and train; returns the run.
-    ``overrides`` as for ``prepare``."""
+        overrides: dict | None = None,
+        measure_units: Callable[[], dict[str, float]] | None = None) -> TrainResult:
+    """Parse ``argv`` like the command line and train; returns the run:
+    the plan in effect at the end, the tuner's history, the probe passes,
+    the per-step launches and, under ``--dryrun``, the overlap report.
+    ``overrides`` as for ``prepare``.  ``measure_units`` stands in for the
+    probe pass under ``--autotune`` (unit name -> backward seconds; its
+    values are still taken from rank 0)."""
     say = (lambda *a: None) if quiet else print
     setup = prepare(argv, quiet=quiet, overrides=overrides)
-    args, device = setup.args, setup.device
+    args, device, cfg = setup.args, setup.device, setup.cfg
     try:
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        losses, times = [], []
-        for step in range(args.steps):
+        timer = StepTimer(window=max(8, args.replan_every or 8))
+        profiles: list[UnitProfile] = []
+        tuner: Tuner | None = None
+        probes = probe_batch = None
+        if args.autotune:
+            tuner = Tuner(
+                layout=setup.engine.plan.layout,
+                n_scan_stages=cfg.n_stages,
+                shapes=param_shapes(cfg),
+                wire_dtype=dtype_name(setup.engine.sync_config.wire_dtype),
+                provenance={"arch": cfg.name},
+            )
+            if measure_units is None:
+                # copies of the unit parameters, made once, only when probing
+                probe_batch = setup.batch(0)
+                probes = make_unit_probes(cfg, setup.model, probe_batch)
+        refitter = psum_time = None
+        if args.comm_refit_every:
+            refitter = CommRefitter(base=setup.comm_obs, threshold=args.comm_drift_threshold)
+            psum_time = psum_time_fn(None, device=device)
+
+        def measured_unit_costs() -> MeasuredCosts:
+            """Per-unit probe times -> measured cost vector (non-uniform
+            drift, unlike the whole-step rescale), rank 0's on every rank."""
+            eng = setup.engine
+            if measure_units is not None:
+                seconds = measure_units()
+            else:
+                seconds = probe_unit_times(cfg, setup.model, probe_batch, eng.plan.layout,
+                                           probes=probes).unit_seconds
+            names = sorted(seconds)
+            profile = UnitProfile(dict(zip(names, rank0_values([seconds[n] for n in names],
+                                                               device=device))))
+            profiles.append(profile)
+            return MeasuredCosts.from_segment_times(
+                list(eng.plan.costs), eng.plan.hw, profile.unit_seconds,
+                name="probe_segments",
+            )
+
+        def adopt_plan(plan: Plan, why: str) -> None:
+            setup.adopt(setup.engine.with_plan(plan))
+            timer.reset()
+            say(f"[train] {why} -> {setup.engine.plan.describe()}")
+
+        def tuner_sweep(costs: MeasuredCosts, model, comm_source: str, trigger: str) -> Plan:
+            return tuner.sweep(
+                costs.layer_costs(), model, costs.hw,
+                cost_source=costs.name, comm_source=comm_source, trigger=trigger,
+            )
+
+        if tuner is not None:
+            plan = tuner_sweep(measured_unit_costs(), setup.engine.plan.ar_model,
+                               "measured" if args.measure_comm else "analytic", "startup")
+            adopt_plan(plan, "autotune startup sweep "
+                             f"({tuner.last_record.chosen}, "
+                             f"{len(tuner.last_record.candidates)} candidates)")
+
+        def maybe_replan(step: int) -> None:
+            """Measured-profile drift check (journal MG-WFBP online re-plan)."""
+            eng = setup.engine
+            modeled = eng.plan.schedule.result
+            if modeled is None or timer.median() is None or len(timer) < 5:
+                return
+            measured_t = rank0_values([timer.median()], device=device)[0]
+            if tuner is not None:
+                tuner.observe(measured_t)
+                measured = measured_unit_costs()
+                drift = cost_drift(eng.plan, measured)
+                if drift > args.replan_threshold:
+                    plan = tuner_sweep(
+                        measured, eng.plan.ar_model,
+                        eng.plan.provenance.get("comm_source", "analytic"), "cost_drift",
+                    )
+                    adopt_plan(plan, f"step {step}: cost drift {drift:.3f} re-sweep")
+                return
+            measured = MeasuredCosts.from_step_timing(
+                list(eng.plan.costs), eng.plan.hw, measured_t, modeled.t_iter
+            )
+            new_eng, replanned = eng.replan(measured, threshold=args.replan_threshold)
+            if replanned:
+                setup.adopt(new_eng)
+                timer.reset()
+                say(f"[train] step {step}: re-planned "
+                    f"(drift {new_eng.plan.provenance['drift']}) -> "
+                    f"{new_eng.plan.schedule.describe()}")
+
+        def maybe_refit_comm(step: int) -> None:
+            """Amortized comm-side drift check: slim all-reduce sweep ->
+            EWMA -> (α, β) re-fit -> re-plan past the threshold."""
+            fit, drift, drifted = refitter.check(psum_time)
+            if not drifted:
+                return
+            eng = setup.engine
+            if tuner is not None:
+                plan = tuner_sweep(
+                    MeasuredCosts(costs=tuple(eng.plan.costs), hw=eng.plan.hw,
+                                  name=eng.plan.provenance.get("cost_source", "analytic")),
+                    fit, "measured_comm_refit", "comm_drift",
+                )
+                adopt_plan(plan, f"step {step}: comm drift {drift:.3f} "
+                                 f"(α={fit.a:.3e} β={fit.b:.3e}) re-sweep")
+            else:
+                new_plan, replanned = refitter.replan(eng.plan, fit)
+                if replanned:
+                    adopt_plan(new_plan, f"step {step}: comm drift {drift:.3f} re-plan")
+
+        result = TrainResult(
+            engine=setup.engine, model=setup.model, losses=[], step_seconds=[],
+            tokens_per_step=args.batch * args.seq, peak_memory_bytes=None,
+            comm_model=setup.engine.plan.ar_model, tuner_history=[], unit_profiles=profiles,
+        )
+        if args.dryrun:
+            result.report, result.losses = _dryrun(setup, say)
+        for step in range(0 if args.dryrun else args.steps):
             batch = setup.batch(step)
+            result.step_groups.append(setup.engine.sync.n_groups)
+            before = _counts()
             t0 = time.perf_counter()
             metrics = setup.step_fn(batch)
             loss = float(metrics["loss"])  # waits for the step
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            times.append(time.perf_counter() - t0)
-            losses.append(loss)
+            _sync(device)
+            result.step_seconds.append(time.perf_counter() - t0)
+            after = _counts()
+            result.step_launches.append(
+                {k: after[k] - before[k] for k in after if after[k] != before[k]})
+            result.losses.append(loss)
+            timer.observe(result.step_seconds[-1])
             if step % 10 == 0 or step == args.steps - 1:
-                say(f"[train] step {step} loss {loss:.4f} ({times[-1] * 1e3:.1f} ms)")
-        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+                say(f"[train] step {step} loss {loss:.4f} "
+                    f"({result.step_seconds[-1] * 1e3:.1f} ms)")
+            if args.replan_every and step and step % args.replan_every == 0:
+                maybe_replan(step)
+            if refitter is not None and step and step % args.comm_refit_every == 0:
+                maybe_refit_comm(step)
+        if tuner is not None and timer.median() is not None and tuner.history:
+            rec = tuner.observe(rank0_values([timer.median()], device=device)[0])
+            say(f"[train] tuner: chosen={rec.chosen} "
+                f"predicted_t_iter={rec.predicted_t_iter:.3e}s "
+                f"observed_t_iter={rec.observed_t_iter:.3e}s "
+                f"over {len(rec.candidates)} candidates")
+        result.engine = setup.engine
+        result.tuner_history = list(tuner.history) if tuner is not None else []
+        if device.type == "cuda":
+            result.peak_memory_bytes = torch.cuda.max_memory_allocated(device)
         if args.plan_out and setup.rank == 0:
             say(f"[train] plan written to {setup.engine.plan.save(args.plan_out)}")
-        return TrainResult(
-            engine=setup.engine, model=setup.model, losses=losses, step_seconds=times,
-            tokens_per_step=args.batch * args.seq, peak_memory_bytes=peak,
-        )
+        return result
     finally:
         setup.close()
 
 
 def main() -> None:
     res = run()
+    if not res.step_seconds:  # --dryrun
+        return
     steady = res.step_seconds[1:] or res.step_seconds
     step_ms = statistics.median(steady) * 1e3
     print(f"[train] done: {len(res.losses)} steps, final loss {res.losses[-1]:.4f}, "

@@ -49,6 +49,11 @@ over or computed in the call (the same bits); the autograd op launches
 both kernels once and hands the forward's chunk states to the backward;
 and reduced RWKV6 trains bitwise equal under ``post`` and ``dag``.
 
+The measured-cost loop: a probe pass between two ``dag`` steps on the card
+leaves ``.grad``, the pack launches and ``issue()`` untouched; and the
+event-timed comm spans of a ``dag`` step (one per group) end inside the
+step, before its own end event.
+
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU interpret mode):
 they carry the ``cuda`` marker and skip elsewhere.  The file imports no
 JAX, so it runs on a machine that has only the port's dependencies:
@@ -715,3 +720,110 @@ def test_cuda_reduced_rwkv6_post_and_dag_bitwise_equal():
     assert params[0][0] == params[1][0]
     for n, p in params[0][1].items():
         assert torch.equal(p, params[1][1][n]), n
+
+
+def _nccl_world1():
+    """A one-rank NCCL group on a FileStore unless a group exists; returns
+    a callable that tears down only what it made."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return lambda: None
+    tmp = tempfile.mkdtemp(prefix="repro_torch_cuda_pg_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+
+    def down():
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    return down
+
+
+def _reduced_dag_step(recorder=None):
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.comm_model import AllReduceModel
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.core.trainer import MGWFBPEngine, batch_to_device
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.models import Transformer, param_shapes
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_reduced("tinyllama-1.1b", param_dtype=torch.float32)
+    eng = MGWFBPEngine.build(cfg, param_shapes(cfg), ar_model=AllReduceModel(a=5e-5, b=1e-9),
+                             tokens_per_device=128, policy="wfbp",
+                             sync_config=SyncConfig(fuse="arena"))
+    model = Transformer(cfg, device="cuda", seed=0)
+    step = eng.make_train_step(model, make_optimizer("adamw"), issue="dag", recorder=recorder)
+    batch = batch_to_device(
+        make_stream(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2)).batch_at(0),
+        torch.device("cuda"))
+    return cfg, eng, model, step, batch
+
+
+@pytest.mark.cuda
+def test_cuda_probes_leave_the_dag_step_alone():
+    """A probe pass on the card between two ``dag`` steps writes no
+    ``.grad``, launches no pack and calls ``issue()`` for nothing."""
+    require_cuda()
+    from repro_torch.fabric.ops import issue
+    from repro_torch.runtime import probe_unit_times
+
+    down = _nccl_world1()
+    try:
+        cfg, eng, model, step, batch = _reduced_dag_step()
+        try:
+            step(batch)
+            torch.cuda.synchronize()
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            calls, packs = issue.calls, pack_arena.launches
+            prof = probe_unit_times(cfg, model, batch, eng.plan.layout)
+            torch.cuda.synchronize()
+            assert issue.calls == calls and pack_arena.launches == packs
+            for n, p in model.named_parameters():
+                assert torch.equal(p.grad, grads[n]), n
+            assert all(np.isfinite(s) and s > 0 for s in prof.unit_seconds.values())
+            step(batch)
+            assert issue.calls == calls + eng.sync.n_groups
+        finally:
+            step.close()
+    finally:
+        down()
+
+
+@pytest.mark.cuda
+def test_cuda_comm_spans_end_before_the_step_ends():
+    """Event-timed spans of a ``dag`` step: one comm span per group, each
+    ending (on the recorder's stream that waits for the collective) before
+    the step's own end event, with backward spans per unit."""
+    require_cuda()
+    from repro_torch.core.profiler import GROUP_SPAN_RE, TraceRecorder, overlap_report
+
+    down = _nccl_world1()
+    try:
+        rec = TraceRecorder(cuda=True)
+        cfg, eng, model, step, batch = _reduced_dag_step(rec)
+        try:
+            step(batch)  # warm-up
+            torch.cuda.synchronize()
+            rec.clear()
+            rec.span_begin("step")
+            step(batch)
+            rec.span_end("step")
+            torch.cuda.synchronize()
+        finally:
+            step.close()
+        spans = rec.spans()
+        (whole,) = [s for s in spans if s.name == "step"]
+        comm = [s for s in spans if GROUP_SPAN_RE.match(s.name)]
+        assert len(comm) == eng.sync.n_groups
+        for s in comm:
+            assert s.dur_us >= 0 and whole.start_us <= s.start_us and s.end_us <= whole.end_us
+        rep = overlap_report(spans)
+        assert rep["n_bwd_spans"] == 2 + cfg.n_stages and rep["n_comm_spans"] == len(comm)
+    finally:
+        down()

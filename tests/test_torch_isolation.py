@@ -50,7 +50,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b",
                 "repro_torch.kernels.rwkv6_wkv.ops", "repro_torch.kernels.rwkv6_wkv.ref",
                 "repro_torch.models.rwkv6", "repro_torch.configs.rwkv6_7b",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.core.profiler",
+                "repro_torch.planning.tuner", "repro_torch.fabric.measured",
+                "repro_torch.runtime", "repro_torch.runtime.timeline"):
         assert mod in rec["modules"]
 
 
@@ -73,12 +75,15 @@ SMALL = ["--batch", "2", "--seq", "64"]
     ["--issue-order", "dag", "--compression", "bf16_ef", *SMALL],
     ["--fuse", "concat", "--comm-dtype", "bf16", "--optimizer", "sgd", *SMALL],
     ["--attn-impl", "plain", *SMALL],
-], ids=["defaults", "dag-bf16_ef", "concat-bf16-sgd", "plain-attn"])
+    ["--autotune", "--measure-comm", "--issue-order", "dag", "--comm-refit-every", "1", *SMALL],
+], ids=["defaults", "dag-bf16_ef", "concat-bf16-sgd", "plain-attn", "autotune"])
 def test_cli_smoke_on_cpu(extra):
     stdout = _cli("--steps", "2", "--fuse", "arena", *extra)
     assert "plan[mg_wfbp" in stdout
     assert f"attn={'plain' if '--attn-impl' in extra else 'flash'}" in stdout
     assert "[train] done: 2 steps" in stdout, stdout[-2000:]
+    if "--autotune" in extra:
+        assert "[train] measured comm fit" in stdout and "autotune startup sweep" in stdout
 
 
 def test_cli_smoke_recurrentgemma_on_cpu():
@@ -131,7 +136,7 @@ def test_model_defaults_to_cuda(monkeypatch):
     "repro_torch.planning", "repro_torch.fabric", "repro_torch.core.sync",
     "repro_torch.kernels.comm_pack", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6_wkv", "repro_torch.kernels",
-    "repro_torch.models", "repro_torch.optim",
+    "repro_torch.models", "repro_torch.optim", "repro_torch.runtime",
 ])
 def test_public_exports_have_docstrings(modname):
     """As the JAX package's docs-check: every exported class and function
