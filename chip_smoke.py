@@ -5,8 +5,11 @@
 
 Run from the root of a checkout, on a machine with one card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` (one
-nvcc per source, sm_90a, all started together) and runs eleven phases; any
-failure exits non-zero.
+nvcc per source, sm_90a, all started together) and runs twelve phases; any
+failure exits non-zero.  Every training run of phases 3-5 gets a fresh
+``--ckpt-dir`` under ``build/chip_smoke_ckpt`` (removed at the end), and
+phases 3, 3b, 3c and 4 fail if any run restarted (``restarts`` > 0): a
+retried step could hide a kernel fault.
 
 1. Kernels.  The comm_pack pack (B1) and unpack (B2) kernels against their
    plain PyTorch versions on the card — bit-identical — at the group
@@ -64,7 +67,10 @@ failure exits non-zero.
    s_final at the same gate and a second run bitwise equal: at T below, at
    and past its boundaries (1, 8, 9, 15, 16, 63, 64, 65, 4096 + 17; K 64 bf16
    and K 32 f32 with s0), with w holding exact zeros and with chunks whose
-   first 30 decays are 1e-30 (main path's shape), and a run split at T/2 +
+   first 30 decays are 1e-30 (main path's shape; against the plain version in
+   f64, with the f32 loop's and the chunked form's (``wkv_chunked_ref``)
+   readings and the kernel's against the loop printed beside it), and a run
+   split at T/2 +
    17, off the chunk grid, threaded through s_final -> s0; with w in
    (0.9999, 0.99999) at the same gate against the plain version in f64 (out
    and s_final at T 512 + 17, s_final at 4096 + 17: the f32 loop's own
@@ -141,11 +147,29 @@ failure exits non-zero.
    beside phase 3's ``dag``.  Then ``--dryrun 3 --trace-out
    build/phase4_trace.json.gz``: groups x 2 comm spans, backward spans, and
    the trace read back by ``parse_trace_spans``; the overlap report printed.
+5. Checkpoint and restart.  TinyLlama-1.1B as in phase 3 with
+   ``--compression bf16_ef --issue-order dag``, 5 AdamW steps, each run in
+   a fresh directory: an unbroken run (``--ckpt-every 100``), then a broken
+   one (``--ckpt-every 3 --max-restarts 1``) whose fault injector raises
+   before step 4, so that the loop restores the checkpoint of step 3 and
+   replays step 3.  Held: restarts 0 and 1; exactly one checkpoint,
+   ``step_00000003``, holding ``plan.json``; the broken run's losses of
+   steps 0-4 bitwise the unbroken run's, and its replayed step 3 its first;
+   the final parameters, both AdamW moments, AdamW's step count and the EF
+   residual bitwise equal (``torch.equal``); every step, the replayed one
+   included, pack / unpack / ``issue()`` = groups and flash fwd / dQ /
+   dK-dV 44 / 22 / 22, with no plain call.  Printed: the free disk before
+   the phase, the checkpoint's bytes, the seconds of the synchronous
+   snapshot, of the background write and of the restore, and step 3's
+   first run (beside the background write) against the median of the
+   others.  Then ``compressed_psum_rs_ag`` on a one-rank NCCL group,
+   (32000, 2048) bf16 with an f32 residual: 3 ``issue()`` calls, sum and
+   residual bitwise its plain version on the CPU.
 
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
-launches add up phases 3, 3b, 3c and phase 4's training steps.
+launches add up phases 3, 3b, 3c and phases 4's and 5's training steps.
 """
 
 from __future__ import annotations
@@ -153,6 +177,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -176,6 +201,7 @@ P4_ARGS = TRAIN_ARGS + [
     "--replan-threshold", "0.25", "--comm-refit-every", "4", "--steps", "8",
 ]
 TRACE_OUT = ROOT / "build" / "phase4_trace.json.gz"
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"  # every run's own --ckpt-dir, removed at the end
 MAIN_ATTN = (4, 512, 32, 4, 64)  # B, S, Hq, Hkv, hd of one full-width layer
 N_LAYERS = 22
 RG_ARGS = [
@@ -224,6 +250,21 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def train(tag: str, args: list[str], **kwargs):
+    """``launch.train.run`` of ``args`` in a fresh ``--ckpt-dir`` of its own
+    (a restart restores the newest checkpoint there, so none may be stale);
+    fails if a step failed and was retried, so that no restart can hide a
+    kernel fault."""
+    from repro_torch.launch.train import run
+
+    ckpt = CKPT_ROOT / tag
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res = run(args + ["--ckpt-dir", str(ckpt)], quiet=True, **kwargs)
+    if res.restarts:
+        fail(f"{tag}: {res.restarts} restart(s): a step failed and was retried")
+    return res
 
 
 def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -1024,10 +1065,28 @@ def phase_wkv(device):
     w_zero = torch.where(x < 0.3, torch.zeros_like(w), w)
     w_mixed = 0.985 + 0.01 * x
     w_mixed[:, torch.arange(T, device=device) % 64 < 30] = 1e-30
-    for name, wd in (("w with 30% exact zeros", w_zero),
-                     ("w 1e-30 in steps 0-29 of every 64, ~0.99 after", w_mixed)):
-        check_fwd(r, k, v, wd, u, None, f"{MAIN_WKV} bf16 {name}")
-        n_fwd += 1
+    check_fwd(r, k, v, w_zero, u, None, f"{MAIN_WKV} bf16 w with 30% exact zeros")
+    # 1e-30 then ~0.99: held against wkv_ref in f64, as the near-1 cases are; the
+    # f32 loop's reading of the same case, and the kernel's against that loop, beside it
+    mixed = check_fwd(r, k, v, w_mixed, u, None, f"{MAIN_WKV} bf16 w 1e-30 in steps 0-29 of "
+                      f"every 64, ~0.99 after, against f64", exact=True)
+    n_fwd += 2
+    exact_out, exact_s = wk.wkv_ref(*(t.double() for t in (r, k, v, w_mixed, u)))
+    f32_out, f32_s = wk.wkv_ref(r, k, v, w_mixed, u)
+    got_out, got_s = wk.wkv_fwd(r, k, v, w_mixed, u)
+    # the kernels' chunked arithmetic in f32 torch ops on the same inputs: how much
+    # of the kernel's reading its algorithm gives, apart from the card's 3xTF32
+    # products and PTX approximations
+    form_out, form_s = wk.ref.wkv_chunked_ref(r, k, v, w_mixed, u)
+
+    def share(got, ref):
+        return max(float(((a.double() - b.double()).abs() / (2e-4 + 2e-4 * b.double().abs())).max())
+                   for a, b in zip(got, ref))
+
+    mixed_f32 = share((f32_out, f32_s), (exact_out, exact_s))
+    mixed_vs_loop = share((got_out, got_s), (f32_out, f32_s))
+    mixed_form = share((form_out, form_s), (exact_out, exact_s))
+    del exact_out, exact_s, f32_out, f32_s, got_out, got_s, form_out, form_s
     # near-1 decays: each step's log decay is ~1e-5, and an error in it adds up over
     # the whole walk.  The f32 sequential loop's own rounding adds up too, past the
     # gate from a few hundred steps on (printed below), so these cases are held at
@@ -1059,8 +1118,11 @@ def phase_wkv(device):
         f"run); largest forward reading {gate['share']:.4f} of the gate |d| <= 2e-4 + "
         f"2e-4 |ref| ({gate['at']}); near-1 decays against f64: out and s_final at T 529 "
         f"{near1[512 + 17]:.4f}, s_final at T 4113 {near1[T + 17]:.4f} of the gate (the f32 "
-        f"sequential loop's out and s_final at T 4113: {f32_loop:.4f}, not gated); repeats "
-        f"bitwise equal")
+        f"sequential loop's out and s_final at T 4113: {f32_loop:.4f}, not gated); "
+        f"1e-30-then-0.99 against f64: the kernel {mixed:.4f}, the f32 loop {mixed_f32:.4f} "
+        f"and the chunked form in f32 (wkv_chunked_ref) {mixed_form:.4f} (neither gated), the "
+        f"kernel against the f32 loop {mixed_vs_loop:.4f} of the gate; "
+        f"repeats bitwise equal")
     del w_zero, w_mixed, out_a, out_b, want_out, want_s
 
     # --- the chunked backward alone: the decays where dw through d(log w) / w went
@@ -1206,7 +1268,6 @@ def phase_full_width(device):
     from repro_torch.fabric.ops import issue
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
-    from repro_torch.launch.train import run
 
     runs = [("post_f32", ["--issue-order", "post"]),
             ("dag_f32", ["--issue-order", "dag"]),
@@ -1219,7 +1280,7 @@ def phase_full_width(device):
     post_params, post_losses, groups, steps, flash_steps = None, None, None, 0, 0
     step_ms = {}
     for name, extra in runs:
-        res = run(TRAIN_ARGS + extra, quiet=True)
+        res = train(f"phase3_{name}", TRAIN_ARGS + extra)
         n_groups = res.engine.sync.n_groups
         groups = n_groups if groups is None else groups
         if n_groups != groups:
@@ -1293,7 +1354,6 @@ def phase_rg_full_width(device):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
-    from repro_torch.launch.train import run
 
     # every launch counter to 0 just before the main path, read just after
     reset_counts()
@@ -1302,7 +1362,7 @@ def phase_rg_full_width(device):
     issue.calls = 0
     post_params, post_losses, groups, steps = None, None, None, 0
     for name in ("post", "dag"):
-        res = run(RG_ARGS + ["--issue-order", name], quiet=True, overrides=RG_DEPTH)
+        res = train(f"phase3b_{name}", RG_ARGS + ["--issue-order", name], overrides=RG_DEPTH)
         n_groups = res.engine.sync.n_groups
         groups = n_groups if groups is None else groups
         if n_groups != groups:
@@ -1365,7 +1425,6 @@ def phase_rwkv_full_width(device):
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rwkv6_wkv as wk
     from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
-    from repro_torch.launch.train import run
 
     # every launch counter to 0 just before the main path, read just after
     reset_counts()
@@ -1375,8 +1434,8 @@ def phase_rwkv_full_width(device):
     issue.calls = 0
     post_params, post_losses, groups, steps = None, None, None, 0
     for name in ("post", "dag"):
-        res = run(RWKV_ARGS + ["--issue-order", name], quiet=True,
-                  overrides={"n_layers": RWKV_LAYERS})
+        res = train(f"phase3c_{name}", RWKV_ARGS + ["--issue-order", name],
+                    overrides={"n_layers": RWKV_LAYERS})
         n_groups = res.engine.sync.n_groups
         groups = n_groups if groups is None else groups
         if n_groups != groups:
@@ -1489,14 +1548,13 @@ def phase_autotune(device, dag):
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rwkv6_wkv as wk
     from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
-    from repro_torch.launch.train import run
     from repro_torch.models import param_shapes
     from repro_torch.planning import default_policies
     from repro_torch.runtime import BWD_FRACTION, make_unit_probes
 
     t0 = time.perf_counter()
     # the same 8 steps on phase 3's plan, never re-planned
-    plain = run(TRAIN_ARGS + ["--issue-order", "dag", "--steps", "8"], quiet=True)
+    plain = train("phase4_plain", TRAIN_ARGS + ["--issue-order", "dag", "--steps", "8"])
     plain_losses, plain_ms = plain.losses, [t * 1e3 for t in plain.step_seconds]
     del plain
     torch.cuda.empty_cache()
@@ -1506,7 +1564,7 @@ def phase_autotune(device, dag):
     rg.reset_counts()
     wk.reset_counts()
     issue.calls = 0
-    res = run(P4_ARGS, quiet=True)
+    res = train("phase4", P4_ARGS)
     totals = launch_counts()
     totals["issue"] = issue.calls
     ref_calls = {fn.__name__: fn.ref_calls for fn in (
@@ -1586,7 +1644,7 @@ def phase_autotune(device, dag):
     torch.cuda.empty_cache()
 
     TRACE_OUT.parent.mkdir(parents=True, exist_ok=True)
-    res = run(P4_ARGS + ["--dryrun", "3", "--trace-out", str(TRACE_OUT)], quiet=True)
+    res = train("phase4_dryrun", P4_ARGS + ["--dryrun", "3", "--trace-out", str(TRACE_OUT)])
     rep, groups = res.report, res.engine.sync.n_groups
     spans = parse_trace_spans(TRACE_OUT)
     if rep["n_comm_spans"] != groups * 2 or rep["n_bwd_spans"] <= 0 \
@@ -1603,6 +1661,151 @@ def phase_autotune(device, dag):
     torch.cuda.empty_cache()
     say(f"phase 4: {time.perf_counter() - t0:.1f} s")
     return steps
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: checkpoint and restart at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_restart(device):
+    """TinyLlama-1.1B at full width through ``run`` with ``--compression
+    bf16_ef --issue-order dag``, 5 AdamW steps: an unbroken run, then one
+    whose fault injector raises before step 4, after the checkpoint at step
+    3, so that the loop restores it and replays step 3.  Then the int8
+    wire (``compressed_psum_rs_ag``) on a one-rank NCCL group against its
+    plain version on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import available_steps
+    from repro_torch.fabric.ops import issue
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
+    from repro_torch.launch.train import run
+    from repro_torch.runtime import compressed_psum_rs_ag, compressed_psum_rs_ag_ref
+
+    t0 = time.perf_counter()
+    args = TRAIN_ARGS + ["--compression", "bf16_ef", "--issue-order", "dag", "--steps", "5"]
+    dirs = {tag: CKPT_ROOT / f"phase5_{tag}" for tag in ("plain", "broken")}
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_ROOT).free
+    fired = []
+
+    def inject(step):
+        if step == 4 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected fault before step 4")
+
+    try:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+        # every launch counter to 0 just before the main path, read just after
+        reset_counts()
+        fa.reset_counts()
+        issue.calls = 0
+        plain = run(args + ["--ckpt-dir", str(dirs["plain"]), "--ckpt-every", "100"], quiet=True)
+        for p in plain.model.parameters():
+            p.grad = None  # kept on the card for the comparison, without its gradients
+        broken = run(args + ["--ckpt-dir", str(dirs["broken"]), "--ckpt-every", "3",
+                             "--max-restarts", "1"], quiet=True, fault_injector=inject)
+        totals = launch_counts()
+        totals["issue"] = issue.calls
+        ref_calls = {fn.__name__: fn.ref_calls for fn in (
+            pack_arena, unpack_arena, fa.flash_attention_fwd, fa.flash_attention_dq,
+            fa.flash_attention_dkv)}
+
+        if (plain.restarts, broken.restarts) != (0, 1) or fired != [4]:
+            fail(f"phase 5: restarts {plain.restarts} / {broken.restarts}, expected 0 / 1")
+        steps = available_steps(dirs["broken"])
+        step_dir = dirs["broken"] / "step_00000003"
+        if steps != [3] or broken.checkpoint_steps != [3] or not (step_dir / "plan.json").exists() \
+                or available_steps(dirs["plain"]):
+            fail(f"phase 5: checkpoints {steps} ({broken.checkpoint_steps} saved), expected "
+                 f"step_00000003 with plan.json alone")
+        if len(plain.losses) != 5 or broken.losses != plain.losses \
+                or not all(math.isfinite(x) for x in plain.losses):
+            fail(f"phase 5: losses {broken.losses} != the unbroken run's {plain.losses} (bitwise)")
+        if broken.replayed_losses != [(3, broken.losses[3])] \
+                or broken.step_indices != [0, 1, 2, 3, 3, 4]:
+            fail(f"phase 5: replayed {broken.replayed_losses} over steps {broken.step_indices}")
+        a, b = plain.state, broken.state
+        if a.opt_state.step != b.opt_state.step or a.opt_state.step != 5:
+            fail(f"phase 5: AdamW step count {b.opt_state.step} vs {a.opt_state.step}")
+        for kind, x, y in (("parameter", a.params, b.params), ("first moment", a.opt_state.m,
+                           b.opt_state.m), ("second moment", a.opt_state.v, b.opt_state.v),
+                           ("residual", a.residual, b.residual)):
+            for n in x:
+                if not torch.equal(x[n], y[n]):
+                    fail(f"phase 5: {kind} {n} differs from the unbroken run's")
+        want = {"flash_attention_fwd": 2 * N_LAYERS, "flash_attention_dq": N_LAYERS,
+                "flash_attention_dkv": N_LAYERS}
+        for tag, res in (("unbroken", plain), ("broken", broken)):
+            for i, g, got in zip(res.step_indices, res.step_groups, res.step_launches):
+                per = {"pack_arena": g, "unpack_arena": g, "issue": g, **want}
+                if any(got.get(k, 0) != n for k, n in per.items()):
+                    fail(f"phase 5 {tag} step {i}: launches {got}, expected {per}")
+        if any(ref_calls.values()):
+            fail(f"phase 5: plain calls {ref_calls}")
+        counts = {k: sum(d.get(k, 0) for r in (plain, broken) for d in r.step_launches)
+                  for k in totals}
+        if counts != totals:
+            fail(f"phase 5: launches outside the steps: {totals} against the steps' {counts}")
+
+        ck_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        save, restore = broken.checkpoint_records
+        others = [t for i, t in zip(broken.step_indices, broken.step_seconds)
+                  if i not in (0, 3)]
+        during = broken.step_seconds[broken.step_indices.index(3)]
+        groups = broken.step_groups[0]
+        say(f"phase 5: free disk before the phase {free / 1e9:.2f} GB; unbroken and broken "
+            f"runs ({groups} groups, bf16_ef, dag, AdamW): losses "
+            f"{[round(x, 4) for x in plain.losses]}, bitwise equal step by step, the replayed "
+            f"step 3 too; restarts 0 / 1; one checkpoint, step_00000003 with plan.json; final "
+            f"parameters, both AdamW moments, AdamW's step count ({b.opt_state.step}) and the "
+            f"residual bitwise equal; every step, the replayed one included, pack = unpack = "
+            f"issue() = {groups}, flash fwd / dQ / dK-dV 44 / 22 / 22, 0 plain calls")
+        say(f"phase 5: checkpoint {ck_bytes} bytes on disk ({save['bytes']} of tensors); "
+            f"synchronous snapshot to host {save['snapshot_s']:.3f} s, background write "
+            f"{save['write_s']:.3f} s, restore {restore['seconds']:.3f} s; step 3's first run "
+            f"(beside the background write) {during * 1e3:.1f} ms against the median of steps "
+            f"1, 2, 4 {statistics.median(others) * 1e3:.1f} ms; step ms "
+            f"{[(i, round(t * 1e3, 1)) for i, t in zip(broken.step_indices, broken.step_seconds)]}")
+        del plain, broken, a, b
+        torch.cuda.empty_cache()
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+
+    # the int8 wire on a one-rank NCCL group, against its plain version on the CPU
+    store_dir = CKPT_ROOT / "phase5_pg"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_dir / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        gen = torch.Generator(device=device).manual_seed(5)
+        g = torch.randn(32000, 2048, generator=gen, device=device).to(torch.bfloat16)
+        r = 1e-3 * torch.randn(32000, 2048, generator=gen, device=device)
+        before = issue.calls
+        full, res = compressed_psum_rs_ag(g, None, r)
+        torch.cuda.synchronize()
+        calls = issue.calls - before
+        (want_full,), (want_res,) = compressed_psum_rs_ag_ref([g.cpu()], [r.cpu()])
+        if calls != 3 or not torch.equal(full.cpu(), want_full) \
+                or not torch.equal(res.cpu(), want_res):
+            fail(f"phase 5: compressed_psum_rs_ag at NCCL world 1: {calls} issue() calls, "
+                 f"max |diff| {float((full.cpu() - want_full).abs().max()):.3e} from the plain "
+                 f"version")
+        say(f"phase 5: compressed_psum_rs_ag (32000, 2048) bf16 + f32 residual on a one-rank "
+            f"NCCL group: 3 issue() calls (reduce-scatter, two all-gathers), sum and residual "
+            f"bitwise equal to the plain version on the CPU")
+        del g, r, full, res
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    say(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def demangle(names: list[str]) -> list[str]:
@@ -1676,10 +1879,14 @@ def main() -> None:
     phase_reduced_model(device)
     phase_reduced_model(device, "recurrentgemma-9b", seq=128, tag="phase 2b")
     phase_reduced_model(device, "rwkv6-7b", seq=64, tag="phase 2c")
-    counts, dag = phase_full_width(device)
-    rg_counts = phase_rg_full_width(device)
-    rwkv_counts = phase_rwkv_full_width(device)
-    p4_counts = phase_autotune(device, dag)
+    try:
+        counts, dag = phase_full_width(device)
+        rg_counts = phase_rg_full_width(device)
+        rwkv_counts = phase_rwkv_full_width(device)
+        p4_counts = phase_autotune(device, dag)
+        p5_counts = phase_restart(device)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     say(f"all phases, the build included: {time.perf_counter() - t_start:.1f} s")
 
     main_cfg = timings["float32"]  # the main path's wire
@@ -1691,10 +1898,11 @@ def main() -> None:
             "route": "cuda",
             "source": PACK_SRC,
             "replaces": f"src/repro/kernels/comm_pack/kernel.py:{src_line}",
-            # phases 3, 3b, 3c and 4 (its training steps), each counted from 0
-            # around its own runs
+            # phases 3, 3b, 3c, 4 and 5 (their training steps), each counted from
+            # 0 around its own runs
             "launches": (counts[f"{name}_launches"] + rg_counts[f"{name}_launches"]
-                         + rwkv_counts[f"{name}_launches"] + p4_counts[f"{name}_arena"]),
+                         + rwkv_counts[f"{name}_launches"] + p4_counts[f"{name}_arena"]
+                         + p5_counts[f"{name}_arena"]),
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1704,9 +1912,9 @@ def main() -> None:
         })
     # the flash kernels once per configuration: TinyLlama's (phase 1b, run
     # 3) and RecurrentGemma's MQA / hd 256 / window 2048 (phase 1c, run 3b)
-    for suffix, f_errs, f_timings, f_counts, f_more in (
-            ("", flash_errs, flash_timings, counts, p4_counts),
-            ("[recurrentgemma]", rg_flash_errs, rg_flash_timings, rg_counts, {})):
+    for suffix, f_errs, f_timings, f_counts, f_more, f_restart in (
+            ("", flash_errs, flash_timings, counts, p4_counts, p5_counts),
+            ("[recurrentgemma]", rg_flash_errs, rg_flash_timings, rg_counts, {}, {})):
         for name, replaces in (
                 ("fwd", "src/repro/kernels/flash_attention/kernel.py:40"),
                 ("dq", "src/repro/kernels/flash_attention/kernel_bwd.py:53"),
@@ -1718,9 +1926,10 @@ def main() -> None:
                 "route": "cuda",
                 "source": FLASH_SM90_SRC,
                 "replaces": replaces,
-                # phase 3 (3b) and, for TinyLlama's, phase 4's training steps
+                # phase 3 (3b) and, for TinyLlama's, phases 4's and 5's training steps
                 "launches": (f_counts[f"flash_{name}_launches"]
-                             + f_more.get(f"flash_attention_{name}", 0)),
+                             + f_more.get(f"flash_attention_{name}", 0)
+                             + f_restart.get(f"flash_attention_{name}", 0)),
                 "max_abs_err": f_errs[name],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],

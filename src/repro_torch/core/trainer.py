@@ -311,20 +311,29 @@ class TrainStep:
             p.grad = None
         self._pending = []
         self._remaining = [len(g) for g in sync.group_names]
-        loss = self.model.loss(batch)
-        self._backward(loss)
-        grads = {n: p.grad for n, p in self.params.items()}
-        if self.issue == "post":
-            for gi in range(sync.n_groups):
-                sync.sync_group(gi, grads, self.residual, recorder=self.recorder)
-        else:
-            if len(self._pending) != sync.n_groups:
-                raise RuntimeError(
-                    f"{len(self._pending)} of {sync.n_groups} groups were issued in backward"
-                )
-            for pending in self._pending:  # issue order
-                sync.finish_group(pending)
+        try:
+            loss = self.model.loss(batch)
+            self._backward(loss)
+            grads = {n: p.grad for n, p in self.params.items()}
+            if self.issue == "post":
+                for gi in range(sync.n_groups):
+                    sync.sync_group(gi, grads, self.residual, recorder=self.recorder)
+            else:
+                if len(self._pending) != sync.n_groups:
+                    raise RuntimeError(
+                        f"{len(self._pending)} of {sync.n_groups} groups were issued in backward"
+                    )
+                for pending in self._pending:  # issue order
+                    sync.finish_group(pending)
+                self._pending = []
+        except BaseException:
+            # a step that fails mid-backward leaves no collective in flight
+            # (a restore may follow): wait for the groups it issued
+            for pending in self._pending:
+                if pending.work is not None:
+                    pending.work.wait()
             self._pending = []
+            raise
         self.optimizer.update(grads, self.opt_state, self.params, self.lr)
         loss = loss.detach()
         world = sync.world()

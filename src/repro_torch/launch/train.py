@@ -27,17 +27,24 @@ Planning lifecycle (journal MG-WFBP's online re-planning):
     ``--comm-drift-threshold`` the plan search reruns under the fresh fit;
   * a re-plan builds a new train step and hands it the optimizer state and
     the error-feedback residual of the old one, whose hooks it removes;
+  * the steps run inside ``runtime.resilient_loop``: every ``--ckpt-every``
+    steps an atomic checkpoint (weights, optimizer state, the
+    error-feedback residual of every rank) lands in ``--ckpt-dir`` with
+    the live plan and the tuner state beside it; on a failure the loop
+    restores the latest complete checkpoint, resumes under the stored plan
+    (or re-plans / re-sweeps when there is none) with the tuner's history
+    and the ``CommRefitter``'s observations, and rebuilds the step, up to
+    ``--max-restarts`` times;
   * ``--dryrun N`` runs N steps under a ``TraceRecorder`` and prints the
     measured overlap of comm and backward (``--trace-out`` keeps the
-    Chrome trace).
+    Chrome trace), outside the loop: no checkpoint, no restart.
 
 Every rank must adopt the same plan, or the ranks' all-reduces no longer
 match.  So every measured input of a plan decision (unit seconds, comm
 observations, the median step time) is rank 0's on every rank
 (``planning.rank0_values``: a plain ``dist.broadcast``, outside the
-counted ``issue()`` seam) before it is used.
-
-Checkpoints and the fault-tolerant loop are not ported yet.
+counted ``issue()`` seam) before it is used; so is the checkpoint a
+restart restores (rank 0's latest).
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from ..checkpoint import AsyncCheckpointer, load_plan, load_tuner_state
 from ..configs import ARCH_NAMES, get_config, get_reduced
 from ..core.bucketing import dtype_name
 from ..core.comm_model import AllReduceModel
@@ -83,7 +91,16 @@ from ..planning import (
     psum_time_fn,
     rank0_values,
 )
-from ..runtime import StepTimer, UnitProfile, make_unit_probes, probe_unit_times
+from ..runtime import (
+    RunState,
+    StepTimer,
+    StragglerMonitor,
+    UnitProfile,
+    agreed_latest_step,
+    make_unit_probes,
+    probe_unit_times,
+    resilient_loop,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -137,6 +154,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "the wfbp_group*/bwd_* spans), and stop")
     ap.add_argument("--trace-out", default=None,
                     help="with --dryrun: write the Chrome-trace JSON here (.gz for gzip)")
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_train_ckpt"),
+                    help="checkpoint directory; a restart restores its latest step, so give "
+                         "each run its own")
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between checkpoints (full-width TinyLlama-1.1B under AdamW "
+                         "with bf16_ef writes ~15 GB per checkpoint)")
+    ap.add_argument("--max-restarts", type=int, default=5,
+                    help="failures the run survives before it raises")
     ap.add_argument("--plan-in", default=None, help="load a serialized Plan instead of planning")
     ap.add_argument("--plan-out", default=None, help="write the Plan JSON here")
     ap.add_argument("--attn-impl", default="flash", choices=["flash", "plain"],
@@ -153,17 +178,27 @@ class TrainResult:
 
     engine: MGWFBPEngine  # the engine in effect at the end; ``.plan`` is the adopted plan
     model: Transformer
-    losses: list[float]
+    losses: list[float]  # one per step index: its first run
     step_seconds: list[float]
     tokens_per_step: int  # global
     peak_memory_bytes: int | None  # CUDA only
     comm_model: AllReduceModel | None = None  # (α, β) the run started with
     tuner_history: list[SweepRecord] = dataclasses.field(default_factory=list)
     unit_profiles: list[UnitProfile] = dataclasses.field(default_factory=list)  # probe passes
-    step_groups: list[int] = dataclasses.field(default_factory=list)  # plan groups per step
-    #: per step: the kernel launches (``kernels.launch_counts``) and
-    #: ``issue()`` calls (key ``issue``) that the step made, nonzero ones only
+    #: the rest is one entry per step run, replays after a restart included:
+    #: its step index, plan groups, and the kernel launches
+    #: (``kernels.launch_counts``) and ``issue()`` calls (key ``issue``) it
+    #: made, nonzero ones only; ``step_seconds`` too
+    step_indices: list[int] = dataclasses.field(default_factory=list)
+    step_groups: list[int] = dataclasses.field(default_factory=list)
     step_launches: list[dict[str, int]] = dataclasses.field(default_factory=list)
+    replayed_losses: list[tuple[int, float]] = dataclasses.field(default_factory=list)
+    restarts: int = 0
+    checkpoint_steps: list[int] = dataclasses.field(default_factory=list)  # saved, in order
+    #: ``AsyncCheckpointer.records``: bytes and seconds of each save and restore
+    checkpoint_records: list[dict] = dataclasses.field(default_factory=list)
+    straggler_remediations: int = 0
+    state: RunState | None = None  # the final state (live tensors)
     report: dict | None = None  # --dryrun: the overlap report of the recorded steps
 
     @property
@@ -363,13 +398,16 @@ def _dryrun(setup: TrainSetup, say) -> tuple[dict, list[float]]:
 
 def run(argv: list[str] | None = None, *, quiet: bool = False,
         overrides: dict | None = None,
-        measure_units: Callable[[], dict[str, float]] | None = None) -> TrainResult:
+        measure_units: Callable[[], dict[str, float]] | None = None,
+        fault_injector: Callable[[int], None] | None = None) -> TrainResult:
     """Parse ``argv`` like the command line and train; returns the run:
     the plan in effect at the end, the tuner's history, the probe passes,
-    the per-step launches and, under ``--dryrun``, the overlap report.
-    ``overrides`` as for ``prepare``.  ``measure_units`` stands in for the
-    probe pass under ``--autotune`` (unit name -> backward seconds; its
-    values are still taken from rank 0)."""
+    the per-step launches, the restarts and checkpoints, the final state
+    and, under ``--dryrun``, the overlap report.  ``overrides`` as for
+    ``prepare``.  ``measure_units`` stands in for the probe pass under
+    ``--autotune`` (unit name -> backward seconds; its values are still
+    taken from rank 0).  ``fault_injector(step)`` is called before each
+    step and may raise to simulate a failure (``resilient_loop``)."""
     say = (lambda *a: None) if quiet else print
     setup = prepare(argv, quiet=quiet, overrides=overrides)
     args, device, cfg = setup.args, setup.device, setup.cfg
@@ -380,6 +418,7 @@ def run(argv: list[str] | None = None, *, quiet: bool = False,
         profiles: list[UnitProfile] = []
         tuner: Tuner | None = None
         probes = probe_batch = None
+        start_engine = setup.engine  # the analytic (or --plan-in) plan
         if args.autotune:
             tuner = Tuner(
                 layout=setup.engine.plan.layout,
@@ -489,27 +528,123 @@ def run(argv: list[str] | None = None, *, quiet: bool = False,
         )
         if args.dryrun:
             result.report, result.losses = _dryrun(setup, say)
-        for step in range(0 if args.dryrun else args.steps):
-            batch = setup.batch(step)
-            result.step_groups.append(setup.engine.sync.n_groups)
-            before = _counts()
-            t0 = time.perf_counter()
-            metrics = setup.step_fn(batch)
-            loss = float(metrics["loss"])  # waits for the step
-            _sync(device)
-            result.step_seconds.append(time.perf_counter() - t0)
-            after = _counts()
-            result.step_launches.append(
-                {k: after[k] - before[k] for k in after if after[k] != before[k]})
-            result.losses.append(loss)
-            timer.observe(result.step_seconds[-1])
-            if step % 10 == 0 or step == args.steps - 1:
-                say(f"[train] step {step} loss {loss:.4f} "
-                    f"({result.step_seconds[-1] * 1e3:.1f} ms)")
-            if args.replan_every and step and step % args.replan_every == 0:
-                maybe_replan(step)
-            if refitter is not None and step and step % args.comm_refit_every == 0:
-                maybe_refit_comm(step)
+        else:
+            def live_state(step: int, restarts: int) -> RunState:
+                fn = setup.step_fn
+                return RunState(step=step, params=fn.params, opt_state=fn.opt_state,
+                                restarts=restarts, residual=fn.residual)
+
+            def init_state() -> RunState:
+                """Step 0's state, written into the live tensors: the weights
+                drawn from seed 0 again, the optimizer state (zeros at init,
+                for both optimizers) and the residual zeroed."""
+                fn = setup.step_fn
+                with torch.no_grad():
+                    setup.model.reset_parameters(0)
+                    for t in (*fn.opt_state.m.values(), *fn.opt_state.v.values(),
+                              *(fn.residual or {}).values()):
+                        t.zero_()
+                fn.opt_state.step = 0
+                return live_state(0, 0)
+
+            def do_step(state: RunState, step: int) -> RunState:
+                groups = setup.engine.sync.n_groups
+                batch = setup.batch(step)
+                before = _counts()
+                t0 = time.perf_counter()
+                metrics = setup.step_fn(batch)
+                loss = float(metrics["loss"])  # waits for the step
+                _sync(device)
+                secs = time.perf_counter() - t0
+                after = _counts()
+                result.step_indices.append(step)
+                result.step_groups.append(groups)
+                result.step_seconds.append(secs)
+                result.step_launches.append(
+                    {k: after[k] - before[k] for k in after if after[k] != before[k]})
+                if step < len(result.losses):  # a replay after a restart
+                    result.replayed_losses.append((step, loss))
+                else:
+                    result.losses.append(loss)
+                timer.observe(secs)
+                if step % 10 == 0 or step == args.steps - 1:
+                    say(f"[train] step {step} loss {loss:.4f} ({secs * 1e3:.1f} ms)")
+                if args.replan_every and step and step % args.replan_every == 0:
+                    maybe_replan(step)
+                if refitter is not None and step and step % args.comm_refit_every == 0:
+                    maybe_refit_comm(step)
+                return live_state(state.step, state.restarts)
+
+            def on_restart(state: RunState) -> RunState:
+                """Same-shape restart: resume under the plan the checkpoint
+                was trained with and, under --autotune, the tuner's sweep
+                history and the refitter's observations; with no stored plan
+                re-enter the plan search.  The step is rebuilt either way."""
+                nonlocal refitter
+                plan, how, engine = None, "re-planned", start_engine
+                ck = agreed_latest_step(args.ckpt_dir)
+                if ck is not None:
+                    try:
+                        plan = load_plan(args.ckpt_dir, ck)
+                        if plan is not None:
+                            engine = setup.engine.with_plan(plan)
+                            how = "restored plan"
+                    except Exception as e:  # corrupt / foreign / mismatched plan -> re-plan
+                        say(f"[train] stored plan unusable ({e}); re-planning")
+                        plan = None
+                    if tuner is not None:
+                        try:
+                            st = load_tuner_state(args.ckpt_dir, ck)
+                            if st is not None:
+                                tuner.load_state(st)
+                                if st.get("comm_refitter") and refitter is not None:
+                                    refitter = CommRefitter.from_state_dict(st["comm_refitter"])
+                        except Exception as e:
+                            say(f"[train] stored tuner state unusable ({e}); starting fresh")
+                if plan is None and tuner is not None:
+                    plan = tuner_sweep(measured_unit_costs(), start_engine.plan.ar_model,
+                                       "measured" if args.measure_comm else "analytic",
+                                       "restart")
+                    engine = setup.engine.with_plan(plan)
+                    how = "restart sweep"
+                setup.adopt(engine)
+                timer.reset()
+                say(f"[train] restart at step {state.step}: {how} -> "
+                    f"{setup.engine.plan.schedule.describe()}")
+                return live_state(state.step, state.restarts)
+
+            def tuner_state() -> dict:
+                """Checkpointed tuner state: sweep history + the comm
+                refitter's EWMA'd observations, so both online loops resume
+                after a restart."""
+                st = tuner.state_dict()
+                if refitter is not None:
+                    st["comm_refitter"] = refitter.state_dict()
+                return st
+
+            ckpt = AsyncCheckpointer(args.ckpt_dir)
+            monitor = StragglerMonitor()
+            final = resilient_loop(
+                num_steps=args.steps,
+                init_state=init_state,
+                train_step=do_step,
+                checkpoint_dir=args.ckpt_dir,
+                checkpoint_every=args.ckpt_every,
+                max_restarts=args.max_restarts,
+                fault_injector=fault_injector,
+                straggler=monitor,
+                on_restart=on_restart,
+                # every checkpoint carries the live plan and, when auto-tuning,
+                # the tuner's sweep history + comm observations
+                plan_provider=lambda: setup.engine.plan,
+                tuner_provider=tuner_state if tuner is not None else None,
+                checkpointer=ckpt,
+            )
+            result.state = final
+            result.restarts = final.restarts
+            result.checkpoint_records = ckpt.records
+            result.checkpoint_steps = [r["step"] for r in ckpt.records if r["op"] == "save"]
+            result.straggler_remediations = monitor.remediations
         if tuner is not None and timer.median() is not None and tuner.history:
             rec = tuner.observe(rank0_values([timer.median()], device=device)[0])
             say(f"[train] tuner: chosen={rec.chosen} "
@@ -533,9 +668,10 @@ def main() -> None:
         return
     steady = res.step_seconds[1:] or res.step_seconds
     step_ms = statistics.median(steady) * 1e3
-    print(f"[train] done: {len(res.losses)} steps, final loss {res.losses[-1]:.4f}, "
-          f"median step {step_ms:.1f} ms (steps after the first) "
-          f"({res.tokens_per_step / step_ms * 1e3:,.0f} tokens/s)")
+    print(f"[train] done: {len(res.losses)} steps, {res.restarts} restarts, final loss "
+          f"{res.losses[-1]:.4f}, median step {step_ms:.1f} ms (steps after the first) "
+          f"({res.tokens_per_step / step_ms * 1e3:,.0f} tokens/s), "
+          f"{res.straggler_remediations} straggler remediations")
 
 
 if __name__ == "__main__":

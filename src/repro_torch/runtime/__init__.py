@@ -1,7 +1,17 @@
-"""Runtime instrumentation of the live training loop (counterpart of
-``repro/runtime``): per-unit probes and step timing.  The fault-tolerant
-loop and the compression module are not ported yet."""
+"""The runtime of the live training loop (counterpart of
+``repro/runtime``): the fault-tolerant loop and straggler detection,
+gradient compression with error feedback, per-unit probes and step
+timing."""
 
+from .compression import (
+    ErrorFeedbackState,
+    bf16_ef_decode,
+    bf16_ef_encode,
+    compressed_psum_rs_ag,
+    compressed_psum_rs_ag_ref,
+    ef_init,
+)
+from .fault_tolerance import RunState, StragglerMonitor, agreed_latest_step, resilient_loop
 from .timeline import (
     BWD_FRACTION,
     StepTimer,
@@ -12,6 +22,16 @@ from .timeline import (
 )
 
 __all__ = [
+    "RunState",
+    "StragglerMonitor",
+    "agreed_latest_step",
+    "resilient_loop",
+    "ErrorFeedbackState",
+    "bf16_ef_decode",
+    "bf16_ef_encode",
+    "compressed_psum_rs_ag",
+    "compressed_psum_rs_ag_ref",
+    "ef_init",
     "BWD_FRACTION",
     "StepTimer",
     "UnitProfile",

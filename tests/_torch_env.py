@@ -40,7 +40,7 @@ def bits(x) -> np.ndarray:
             return x.view(torch.int16).numpy().view(np.uint16)
         x = x.numpy()
     x = np.asarray(x)
-    return x.view({2: np.uint16, 4: np.uint32, 8: np.uint64}[x.dtype.itemsize])
+    return x.view({1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[x.dtype.itemsize])
 
 
 def world1() -> None:

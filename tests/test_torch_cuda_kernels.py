@@ -38,9 +38,9 @@ r/k/v in f32 and bf16: out / s_final within 2e-4 (the tolerance of
 decays (w in (0.05, 0.3)); a run split at T/2 and threaded through
 s_final -> s0 matches one run; two runs give the same bits; the chunked
 forward also at T below, at and past its 8- and 64-step boundaries (1 to
-4096 + 17, K 32 and 64), with exact-zero decays and chunks that start with
-30 decays of 1e-30, with decays in (0.9999, 0.99999) against the plain
-version in f64 (out at T 529, s_final at T 529 and 4096 + 17), and split at
+4096 + 17, K 32 and 64), with exact-zero decays, with chunks that start
+with 30 decays of 1e-30 (against the plain version in f64), with decays in
+(0.9999, 0.99999) against the plain version in f64 (out at T 529, s_final at T 529 and 4096 + 17), and split at
 T/2 + 17 off the chunk grid; the chunked backward alone in every decay
 regime of ``tests/test_torch_rwkv6_wkv.py`` (default, strong, 1e-12..1e-6,
 near 1 against the plain version in f64, exact zeros, 1e-30 then ~0.99) at T
@@ -527,16 +527,18 @@ def test_cuda_wkv_strong_decay_and_state_threading():
     _wkv_close(s_b, s_final, "s_final")
 
 
-def _wkv_fwd_check(r, k, v, w, u, s0=None):
+def _wkv_fwd_check(r, k, v, w, u, s0=None, exact=False):
     """wkv_fwd launches (once) and holds out / s_final at the gate against
-    wkv_ref; a second call gives the same bits."""
+    wkv_ref (in f64 on f64 copies of the inputs if ``exact``); a second
+    call gives the same bits."""
     wk.reset_counts()
     out, s_final = wk.wkv_fwd(r, k, v, w, u, s0)
     torch.cuda.synchronize()
     assert (wk.wkv_fwd.launches, wk.wkv_fwd.ref_calls) == (1, 0)
-    want_out, want_s = wk.wkv_ref(r, k, v, w, u, s0)
-    _wkv_close(out, want_out, "out")
-    _wkv_close(s_final, want_s, "s_final")
+    want_out, want_s = wk.wkv_ref(*(t.double() if exact and t is not None else t
+                                    for t in (r, k, v, w, u, s0)))
+    _wkv_close(out.double() if exact else out, want_out, "out")
+    _wkv_close(s_final.double() if exact else s_final, want_s, "s_final")
     out2, s2 = wk.wkv_fwd(r, k, v, w, u, s0)
     assert torch.equal(out2, out) and torch.equal(s2, s_final)
     return out, s_final
@@ -559,7 +561,10 @@ def test_cuda_wkv_fwd_chunk_boundaries(T, K):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_cuda_wkv_fwd_zero_and_mixed_decays(mode, dtype):
     """w with exact zeros (the log floor), and chunks whose first 30 steps
-    decay by 1e-30 and the rest by ~0.99 (exponents never cancel)."""
+    decay by 1e-30 and the rest by ~0.99 (exponents never cancel).  The
+    second is held against wkv_ref in f64, as the near-1 decays are: the
+    f32 loop's own rounding over the ~0.99 runs is of the kernel's size
+    (``chip_smoke.py`` phase 1d prints both readings)."""
     dev = require_cuda()
     B, T, H, K = 1, 1024, 4, 64
     r, k, v, w, u, s0, _, _ = _wkv_inputs(B, T, H, K, dev, seed=8, dtype=TORCH_DT[dtype])
@@ -569,7 +574,7 @@ def test_cuda_wkv_fwd_zero_and_mixed_decays(mode, dtype):
     else:
         w = 0.985 + 0.01 * x
         w[:, torch.arange(T, device=dev) % 64 < 30] = 1e-30
-    _wkv_fwd_check(r, k, v, w, u, s0)
+    _wkv_fwd_check(r, k, v, w, u, s0, exact=mode == "mixed")
 
 
 @pytest.mark.cuda

@@ -52,7 +52,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.models.rwkv6", "repro_torch.configs.rwkv6_7b",
                 "repro_torch.launch.train", "repro_torch.core.profiler",
                 "repro_torch.planning.tuner", "repro_torch.fabric.measured",
-                "repro_torch.runtime", "repro_torch.runtime.timeline"):
+                "repro_torch.runtime", "repro_torch.runtime.timeline",
+                "repro_torch.checkpoint.checkpoint", "repro_torch.runtime.fault_tolerance",
+                "repro_torch.runtime.compression"):
         assert mod in rec["modules"]
 
 
@@ -136,7 +138,7 @@ def test_model_defaults_to_cuda(monkeypatch):
     "repro_torch.planning", "repro_torch.fabric", "repro_torch.core.sync",
     "repro_torch.kernels.comm_pack", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6_wkv", "repro_torch.kernels",
-    "repro_torch.models", "repro_torch.optim", "repro_torch.runtime",
+    "repro_torch.models", "repro_torch.optim", "repro_torch.runtime", "repro_torch.checkpoint",
 ])
 def test_public_exports_have_docstrings(modname):
     """As the JAX package's docs-check: every exported class and function
