@@ -5,11 +5,11 @@
 
 Run from the root of a checkout, on a machine with one card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` (one
-nvcc per source, sm_90a, all started together) and runs twelve phases; any
-failure exits non-zero.  Every training run of phases 3-5 gets a fresh
+nvcc per source, sm_90a, all started together) and runs the phases below;
+any failure exits non-zero.  Every training run of phases 3-5 gets a fresh
 ``--ckpt-dir`` under ``build/chip_smoke_ckpt`` (removed at the end), and
-phases 3, 3b, 3c and 4 fail if any run restarted (``restarts`` > 0): a
-retried step could hide a kernel fault.
+phases 3-3h and 4 fail if any run restarted (``restarts`` > 0): a retried
+step could hide a kernel fault.
 
 1. Kernels.  The comm_pack pack (B1) and unpack (B2) kernels against their
    plain PyTorch versions on the card — bit-identical — at the group
@@ -92,6 +92,17 @@ retried step could hide a kernel fault.
    yardstick).  Both count their operations at the rate of 3xTF32 on the
    tensor cores, the path their products take (the f32 CUDA cores' figure
    is printed beside it).
+1e. Flash at the new cells' attention.  The flash kernels (bf16) at each
+   attention shape of phases 3d-3h (``NEW_ATTN``): StarCoder2-3B (B 1,
+   S 4096, 24 query / 2 KV heads: G 12, hd 128), StarCoder2-7B (36 / 4:
+   G 9), Gemma2-2B's local and global layers (S 8192, 8 / 4 heads, hd 256,
+   softcap 50, window 4096 and none), Mixtral (S 8192, 32 / 8, hd 128,
+   window 4096) and DBRX (S 4096, 48 / 8, hd 128), causal: against their
+   plain versions with phase 1b's tolerances, a second run bitwise equal,
+   forward -> backward through the kernels' own (o, lse) as in 1b, then
+   timed as in 1b beside their bounds and SDPA (with the window as a
+   mask), or, at the softcap shapes, where SDPA computes no softcap,
+   ``torch.compile(flex_attention)`` with a tanh ``score_mod``.
 2. Reduced model.  Reduced tinyllama in fp32 with the flash kernels, loss
    and every gradient on the card against the same model on the CPU (the
    kernels' plain versions; loss rtol 1e-5, gradient max-abs <= 1e-4 x
@@ -101,6 +112,10 @@ retried step could hide a kernel fault.
    RG-LRU and flash launch counts checked on both sides.
 2c. Reduced RWKV6 in fp32, the same comparison and tolerances, with the WKV
    launch counts checked on the card and the plain calls on the CPU.
+2d. Reduced Gemma2, Mixtral and DBRX in fp32 at seq 128 (past their
+   64-key windows), the same comparison and tolerances; the MoE archs'
+   loss holds the load-balance aux.  (Reduced StarCoder2 has head dim 24,
+   which the flash kernels do not take.)
 3. Full-width training.  TinyLlama-1.1B, 22 layers, bf16 params,
    batch 4 x seq 512, ``--fuse arena --policy mg_wfbp --fabric gpu_nccl``
    on an NCCL world of 1, through ``repro_torch.launch.train.run``:
@@ -130,6 +145,18 @@ retried step could hide a kernel fault.
    steps, and per step 16 ``wkv_fwd`` (8 layers, each forward run twice
    under checkpointing) and 8 ``wkv_bwd``, with no plain call.  Then one
    probe pass as in 3b (the stage probe runs B7).
+3d-3h. The full-width cells of ``NEW_CELLS``, each through the launcher
+   with phase 3b's flags, ``post`` and ``dag`` with f32 wire, 3 steps each
+   from the same weights, each freed before the next: StarCoder2-3B (30
+   layers, every one; B 1 x S 4096), StarCoder2-7B cut to 12 of 32 layers
+   (S 4096), Gemma2-2B (26 layers; S 8192, so the 4096 window masks),
+   Mixtral-8x7B cut to 2 of 32 layers (S 8192) and DBRX-132B cut to 1 of
+   40 layers (S 4096, ``--optimizer sgd``: AdamW's state does not fit one
+   card beside a 3.26 B-parameter layer).  Held as in 3b: finite losses,
+   ``dag`` bitwise equal to ``post``, pack / unpack / ``issue()`` = groups
+   x steps, per step flash fwd / dQ / dK-dV = 2 / 1 / 1 per attention layer
+   and no RG-LRU or WKV launch, no plain call.  Printed: step time, peak
+   memory beside the static bytes reckoned from the parameters, groups.
 4. The measured-cost loop.  TinyLlama-1.1B as in phase 3, through
    ``run`` with ``--measure-comm --autotune --replan-every 4
    --replan-threshold 0.25 --comm-refit-every 4 --issue-order dag --steps
@@ -169,7 +196,10 @@ retried step could hide a kernel fault.
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
-launches add up phases 3, 3b, 3c and phases 4's and 5's training steps.
+launches add up phases 3-3h and phases 4's and 5's training steps; it holds
+the flash kernels once per configuration (TinyLlama, RecurrentGemma and
+each ``NEW_ATTN`` shape, whose launches are its cell's: Gemma2's local and
+global shapes share phase 3f's).
 """
 
 from __future__ import annotations
@@ -223,6 +253,27 @@ MAIN_WKV = (1, 4096, 64, 64)  # B, T, heads, head size of one full-width RWKV6 l
 JAX_WKV_SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (1, 256, 1, 64), (2, 96, 2, 32)]
 #: B, S, Hq, Hkv, hd, causal, window, softcap of RecurrentGemma-9B's local attention.
 RG_ATTN = (1, 4096, 16, 1, 256, True, 2048, None)
+#: The attention of each new training cell (phase 1e): tag, (B, S, Hq, Hkv,
+#: hd, causal, window, softcap).  The tag's first word is the cell's arch.
+NEW_ATTN = [
+    ("starcoder2-3b", (1, 4096, 24, 2, 128, True, None, None)),
+    ("starcoder2-7b", (1, 4096, 36, 4, 128, True, None, None)),
+    ("gemma2-2b local", (1, 8192, 8, 4, 256, True, 4096, 50.0)),
+    ("gemma2-2b global", (1, 8192, 8, 4, 256, True, None, 50.0)),
+    ("mixtral-8x7b", (1, 8192, 32, 8, 128, True, 4096, None)),
+    ("dbrx-132b", (1, 4096, 48, 8, 128, True, None, None)),
+]
+#: Phases 3d-3h: tag, arch, depth override, launcher flags past the common
+#: ones.  Every width is the published one; the depth cuts keep the static
+#: bytes under the card's 80 GB (PERF.md section 4 reckons them).
+NEW_CELLS = [
+    ("phase 3d", "starcoder2-3b", {}, ["--batch", "1", "--seq", "4096"]),
+    ("phase 3e", "starcoder2-7b", {"n_layers": 12}, ["--batch", "1", "--seq", "4096"]),
+    ("phase 3f", "gemma2-2b", {}, ["--batch", "1", "--seq", "8192"]),
+    ("phase 3g", "mixtral-8x7b", {"n_layers": 2}, ["--batch", "1", "--seq", "8192"]),
+    ("phase 3h", "dbrx-132b", {"n_layers": 1},
+     ["--batch", "1", "--seq", "4096", "--optimizer", "sgd"]),
+]
 #: The JAX package's flash-attention test shapes (tests/test_kernels.py):
 #: B, S, Hq, Hkv, hd, causal, window, softcap.
 JAX_FWD_SHAPES = [
@@ -663,18 +714,24 @@ def flash_work(B, S, Hq, Hkv, hd, itemsize, window=None):
     }
 
 
-def time_flash(shape, device, seed, tag):
+def time_flash(shape, device, seed, tag, plain_reps=7):
     """Each flash kernel's time per launch at ``shape`` in bf16 (CUDA-event
-    median), its plain version's, and ``F.scaled_dot_product_attention``'s
-    forward and backward as the library yardsticks (the window, if any, as
-    a boolean mask), beside the bound from ``flash_work``."""
+    median), its plain version's (median of ``plain_reps``), and one
+    PyTorch call's forward and backward as the library yardsticks, beside
+    the bound from ``flash_work``.  The call is
+    ``F.scaled_dot_product_attention`` (the window, if any, as a boolean
+    mask); SDPA computes no softcap, so at a softcap shape it is
+    ``torch.compile(flex_attention)`` with the tanh softcap as its
+    ``score_mod`` and the causal (and window) mask as its ``block_mask``.
+    The yardstick is timed only (the port never calls it), after its o is
+    held within phase 1b's bf16 tolerance of the kernel's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
-    B, S, Hq, Hkv, hd, _, window, _ = shape
+    B, S, Hq, Hkv, hd, _, window, softcap = shape
     q, k, v, do = flash_inputs(B, S, S, Hq, Hkv, hd, torch.bfloat16, device, seed)
-    opts = dict(window=window)
+    opts = dict(window=window, softcap=softcap)
     o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **opts)
     delta = fa.attention_delta(o, do)
     calls = {
@@ -685,64 +742,93 @@ def time_flash(shape, device, seed, tag):
         "dkv": (lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, **opts),
                 lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta, **opts)),
     }
-    # the library yardstick, on (B, H, S, hd) views: SDPA forward, and its
+    # the library yardstick, on (B, H, S, hd) views: its forward, and its
     # backward as one figure for dQ + dK/dV
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
-    if window is None:
-        sdpa_opts = dict(is_causal=True)
+    if softcap:
+        import os
+
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        # the compiled yardstick's caches stay inside the checkout's build/
+        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "torchinductor"))
+        os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+
+        def mask_mod(b, h, i, j):
+            return (i >= j) if window is None else (i >= j) & (i - j < window)
+
+        def score_mod(score, b, h, i, j):
+            return softcap * torch.tanh(score / softcap)
+
+        block_mask = create_block_mask(mask_mod, None, None, S, S, device=device)
+        flex = torch.compile(flex_attention)
+        lib_name = "flex_attention"
+
+        def library():
+            return flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
     else:
-        pos = torch.arange(S, device=device)
-        sdpa_opts = dict(attn_mask=(pos[:, None] >= pos[None, :])
-                         & (pos[:, None] - pos[None, :] < window))
+        if window is None:
+            sdpa_opts = dict(is_causal=True)
+        else:
+            pos = torch.arange(S, device=device)
+            sdpa_opts = dict(attn_mask=(pos[:, None] >= pos[None, :])
+                             & (pos[:, None] - pos[None, :] < window))
+        lib_name = "SDPA"
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_opts)
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_opts)
 
-    out = sdpa()
+    out = library()
+    if not torch.allclose(out.transpose(1, 2).float(), o.float(), rtol=2e-2, atol=2e-2):
+        fail(f"{tag}: the yardstick {lib_name} does not compute the kernel's function: max "
+             f"|o diff| {float((out.transpose(1, 2).float() - o.float()).abs().max()):.3e}")
 
-    def sdpa_bwd():
+    def library_bwd():
         return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
-    lib = {"fwd": median_ms(sdpa), "bwd": median_ms(sdpa_bwd)}
+    lib = {"fwd": median_ms(library), "bwd": median_ms(library_bwd)}
     timings = {}
     work = flash_work(B, S, Hq, Hkv, hd, 2, window=window)
-    where = f"{shape[:5]}" + (f" window {window}" if window else "")
+    where = f"{shape[:5]}" + (f" window {window}" if window else "") + \
+        (f" softcap {softcap}" if softcap else "")
+    masked = " (window as a mask)" if window else ""
     for name, (kern, plain) in calls.items():
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         timings[name] = t = {
-            "ms": median_ms(kern), "plain_ms": median_ms(plain),
+            "ms": median_ms(kern), "plain_ms": median_ms(plain, reps=plain_reps),
             "library_ms": lib["fwd"] if name == "fwd" else lib["bwd"],
             "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
+        yardstick = f"{lib_name} fwd" if name == "fwd" else f"{lib_name} bwd (dQ+dK+dV)"
         say(f"{tag}: flash {name:3s} {where} bf16, one launch: {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, {'SDPA fwd' if name == 'fwd' else 'SDPA bwd (dQ+dK+dV)'} "
-            f"{t['library_ms']:.4f} ms{' (window as a mask)' if window else ''}, "
+            f"{t['plain_ms']:.4f} ms, {yardstick} {t['library_ms']:.4f} ms{masked}, "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, bound "
             f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
             f"({t['bound_ms'] / t['ms'] * 100:.2f}% of bound)")
     bwd_ms = timings["dq"]["ms"] + timings["dkv"]["ms"]
     bwd_bound = timings["dq"]["bound_ms"] + timings["dkv"]["bound_ms"]
-    say(f"{tag}: flash dQ + dK/dV {where} bf16: {bwd_ms:.4f} ms against SDPA bwd "
-        f"{lib['bwd']:.4f} ms: {bwd_ms / lib['bwd']:.2f}x SDPA; bound {bwd_bound * 1e3:.2f} us "
-        f"({bwd_bound / bwd_ms * 100:.2f}% of bound)")
+    say(f"{tag}: flash dQ + dK/dV {where} bf16: {bwd_ms:.4f} ms against {lib_name} bwd "
+        f"{lib['bwd']:.4f} ms: {bwd_ms / lib['bwd']:.2f}x {lib_name}; bound "
+        f"{bwd_bound * 1e3:.2f} us ({bwd_bound / bwd_ms * 100:.2f}% of bound)")
     # one launch timed alone also holds the host's time to enqueue it (the
     # wrapper's Python, which matters at small shapes): the device time and
     # the host time of the same calls, for both sides
-    dev_ms, dev_lib = device_ms(calls["fwd"][0]), device_ms(sdpa)
+    dev_ms, dev_lib = device_ms(calls["fwd"][0]), device_ms(library)
     say(f"{tag}: flash fwd {where} bf16, device time (torch.profiler, 10 calls): {dev_ms:.4f} ms "
-        f"a call, SDPA fwd {dev_lib:.4f} ms: {dev_ms / dev_lib:.2f}x SDPA; host time of a call "
-        f"while the card is busy: ours {host_ms(calls['fwd'][0]):.4f} ms, SDPA fwd "
-        f"{host_ms(sdpa):.4f} ms")
+        f"a call, {lib_name} fwd {dev_lib:.4f} ms: {dev_ms / dev_lib:.2f}x {lib_name}; host "
+        f"time of a call while the card is busy: ours {host_ms(calls['fwd'][0]):.4f} ms, "
+        f"{lib_name} fwd {host_ms(library):.4f} ms")
     ours = lambda: (calls["dq"][0](), calls["dkv"][0]())
-    dev_ms, dev_lib = device_ms(ours), device_ms(sdpa_bwd)
+    dev_ms, dev_lib = device_ms(ours), device_ms(library_bwd)
     say(f"{tag}: flash dQ + dK/dV {where} bf16, device time (torch.profiler, 10 calls): "
-        f"{dev_ms:.4f} ms a call, SDPA bwd {dev_lib:.4f} ms: {dev_ms / dev_lib:.2f}x SDPA; host "
-        f"time of a call while the card is busy: dQ {host_ms(calls['dq'][0]):.4f} ms, dK/dV "
-        f"{host_ms(calls['dkv'][0]):.4f} ms, SDPA bwd {host_ms(sdpa_bwd):.4f} ms")
+        f"{dev_ms:.4f} ms a call, {lib_name} bwd {dev_lib:.4f} ms: {dev_ms / dev_lib:.2f}x "
+        f"{lib_name}; host time of a call while the card is busy: dQ "
+        f"{host_ms(calls['dq'][0]):.4f} ms, dK/dV {host_ms(calls['dkv'][0]):.4f} ms, "
+        f"{lib_name} bwd {host_ms(library_bwd):.4f} ms")
     del q, k, v, do, o, lse, delta, qt, kt, vt, out
     torch.cuda.empty_cache()
     return timings
@@ -1195,6 +1281,49 @@ def phase_wkv(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 1e: flash at the attention shapes of StarCoder2, Gemma2, Mixtral, DBRX
+# ---------------------------------------------------------------------------
+
+
+def phase_new_flash(device):
+    """The flash kernels at each new training cell's attention (``NEW_ATTN``),
+    bf16: against their plain versions with phase 1b's tolerances, a second
+    run bitwise equal, forward -> backward through the kernels' own (o, lse),
+    then timed beside their bounds and SDPA (flex_attention at the softcap
+    shapes).
+    Returns {tag: (errs, timings)}."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for i, (tag, shape) in enumerate(NEW_ATTN):
+        errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+        rel = {}
+        opts = dict(causal=True, window=shape[6], softcap=shape[7])
+        res = check_flash_case(shape, torch.bfloat16, device, 60 + i, errs, rel=rel)
+        q, k, v, do = res["inputs"]
+        o2 = fa.flash_attention_fwd(q, k, v, **opts)
+        dq2 = fa.flash_attention_dq(q, k, v, do, res["want_lse"], res["delta"], **opts)
+        dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, res["want_lse"], res["delta"], **opts)
+        for name, a, b in (("o", o2, res["o"]), ("dq", dq2, res["dq"]), ("dk", dk2, res["dk"]),
+                           ("dv", dv2, res["dv"])):
+            if not torch.equal(a, b):
+                fail(f"flash {name} at {tag}'s attention: a second run gave other bits")
+        del res, q, k, v, do, o2, dq2, dk2, dv2
+        torch.cuda.empty_cache()
+        fb = check_fwd_bwd(shape, device, 70 + i)
+        torch.cuda.empty_cache()
+        say(f"phase 1e: {tag}: flash fwd/dQ/dK-dV at {shape[:5]} window {shape[6]} softcap "
+            f"{shape[7]} bf16 within tolerance of the plain versions (max |diff| fwd "
+            f"{errs['fwd']:.3e}, dq {errs['dq']:.3e}, dkv {errs['dkv']:.3e}; max |diff| / "
+            f"max|want| {fmt_rel(rel)}); repeated runs bitwise equal; fwd -> bwd through the "
+            f"kernels' own (o, lse): max |diff| / max|g| {fmt_rel(fb)} (<= 1e-2)")
+        out[tag] = (errs, time_flash(shape, device, 80 + i, f"phase 1e: {tag}", plain_reps=3))
+    fa.reset_counts()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: the reduced model on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -1208,6 +1337,7 @@ def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") ->
     from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import rwkv6_wkv as wk
     from repro_torch.models import Transformer
+    from repro_torch.models.transformer import ATTN_KINDS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1230,7 +1360,8 @@ def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") ->
     # each side once per layer (the forward twice: checkpointing reruns it):
     # the card through the kernels, the CPU through the plain versions
     kinds = cfg.block_kinds()
-    n_attn, n_rec = sum(k.startswith("attn") for k in kinds), kinds.count("rec")
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    n_rec = kinds.count("rec")
     n_rwkv = kinds.count("rwkv")
     for fn, n in ((fa.flash_attention_fwd, 2 * n_attn), (fa.flash_attention_dq, n_attn),
                   (fa.flash_attention_dkv, n_attn), (rg.rglru_fwd, 2 * n_rec),
@@ -1346,79 +1477,27 @@ def phase_full_width(device):
     return counts, dag
 
 
-def phase_rg_full_width(device):
-    """Full-width RecurrentGemma-9B at 8 layers: ``post`` then ``dag``, 3
-    steps each from the same weights, every launch counted."""
-    import torch
-    from repro_torch.fabric.ops import issue
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru as rg
-    from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
-
-    # every launch counter to 0 just before the main path, read just after
-    reset_counts()
-    fa.reset_counts()
-    rg.reset_counts()
-    issue.calls = 0
-    post_params, post_losses, groups, steps = None, None, None, 0
-    for name in ("post", "dag"):
-        res = train(f"phase3b_{name}", RG_ARGS + ["--issue-order", name], overrides=RG_DEPTH)
-        n_groups = res.engine.sync.n_groups
-        groups = n_groups if groups is None else groups
-        if n_groups != groups:
-            fail(f"phase 3b {name}: {n_groups} groups, expected {groups}")
-        steps += len(res.losses)
-        if not all(math.isfinite(x) for x in res.losses):
-            fail(f"phase 3b {name}: non-finite loss {res.losses}")
-        step_s = statistics.median(res.step_seconds[1:])
-        say(f"phase 3b: recurrentgemma-9b x 8 layers {name}_f32: losses "
-            f"{[round(x, 4) for x in res.losses]}, step {step_s * 1e3:.1f} ms (median of steps "
-            f"2-3), {res.tokens_per_step / step_s:,.0f} tokens/s, peak memory "
-            f"{(res.peak_memory_bytes or 0) / 2**30:.2f} GiB, {n_groups} groups")
-        params = {n: p.detach().cpu() for n, p in res.model.named_parameters()}
-        if name == "post":
-            post_params, post_losses = params, res.losses
-        else:
-            kept = res  # probed after the counts are read
-            if res.losses != post_losses:
-                fail(f"phase 3b: dag losses {res.losses} != post losses {post_losses}")
-            for n, p in params.items():
-                if not torch.equal(p, post_params[n]):
-                    fail(f"phase 3b: dag parameter {n} differs from post")
-            say("phase 3b: dag parameters and losses bitwise equal to post")
-        del res, params
-        torch.cuda.empty_cache()
-    counts = {
-        "pack_launches": pack_arena.launches, "unpack_launches": unpack_arena.launches,
-        "issue_calls": issue.calls,
-    }
-    if not (counts["pack_launches"] == counts["unpack_launches"] == counts["issue_calls"]
-            == groups * steps) or pack_arena.ref_calls or unpack_arena.ref_calls:
-        fail(f"phase 3b: launch counts {counts}: expected {groups} groups x {steps} steps")
-    want = {"rglru_fwd": (rg.rglru_fwd, 2 * RG_REC_LAYERS * steps),
-            "rglru_bwd": (rg.rglru_bwd, RG_REC_LAYERS * steps),
-            "flash_fwd": (fa.flash_attention_fwd, 2 * RG_ATTN_LAYERS * steps),
-            "flash_dq": (fa.flash_attention_dq, RG_ATTN_LAYERS * steps),
-            "flash_dkv": (fa.flash_attention_dkv, RG_ATTN_LAYERS * steps)}
-    for name, (fn, n) in want.items():
-        counts[f"{name}_launches"] = fn.launches
-        if fn.launches != n or fn.ref_calls:
-            fail(f"phase 3b: {name}: {fn.launches} launches and {fn.ref_calls} plain calls, "
-                 f"expected {n} launches over {steps} steps and no plain call")
-    say(f"phase 3b: pack {counts['pack_launches']}, unpack {counts['unpack_launches']}, issue() "
-        f"{counts['issue_calls']} = {groups} groups x {steps} steps; rglru fwd "
-        f"{counts['rglru_fwd_launches']} (2 x {RG_REC_LAYERS} layers x {steps} steps), bwd "
-        f"{counts['rglru_bwd_launches']}; flash fwd {counts['flash_fwd_launches']}, dQ "
-        f"{counts['flash_dq_launches']}, dK/dV {counts['flash_dkv_launches']}; 0 plain calls")
-    probe_pass("phase 3b", kept, RG_ARGS)
-    del kept
-    torch.cuda.empty_cache()
-    return counts
+def reckon_bytes(model, optimizer: str) -> int:
+    """Static bytes of a training run, reckoned before it: each parameter
+    and its gradient in the parameter's dtype, AdamW's two f32 moments
+    (plain SGD keeps none) and the f32 wire arenas (4 B a parameter)."""
+    total = 0
+    for p in model.parameters():
+        state = 8 if optimizer == "adamw" else 0
+        total += p.numel() * (2 * p.element_size() + state + 4)
+    return total
 
 
-def phase_rwkv_full_width(device):
-    """Full-width RWKV6-7B at 8 layers: ``post`` then ``dag``, 3 steps each
-    from the same weights, every launch counted."""
+def train_cell(tag, label, args, overrides, per_step):
+    """One training cell through the launcher: ``post`` then ``dag``, 3 steps
+    each from the same weights.  Held: finite losses, ``dag`` bitwise equal
+    to ``post``, pack / unpack / ``issue()`` = groups x steps, and each
+    kernel wrapper of ``per_step`` ({name: (wrapper, launches a step)})
+    launched that many times a step, with no plain call.  Prints each run's
+    step time, peak memory (``torch.cuda.max_memory_allocated``) beside the
+    reckoned static bytes, and groups.  Returns the counts
+    (``pack_launches``, ..., ``<name>_launches``) and the ``dag`` run's
+    result."""
     import torch
     from repro_torch.fabric.ops import issue
     from repro_torch.kernels import flash_attention as fa
@@ -1426,6 +1505,7 @@ def phase_rwkv_full_width(device):
     from repro_torch.kernels import rwkv6_wkv as wk
     from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
 
+    optimizer = _arg(args, "--optimizer") if "--optimizer" in args else "adamw"
     # every launch counter to 0 just before the main path, read just after
     reset_counts()
     fa.reset_counts()
@@ -1434,31 +1514,34 @@ def phase_rwkv_full_width(device):
     issue.calls = 0
     post_params, post_losses, groups, steps = None, None, None, 0
     for name in ("post", "dag"):
-        res = train(f"phase3c_{name}", RWKV_ARGS + ["--issue-order", name],
-                    overrides={"n_layers": RWKV_LAYERS})
+        res = train(f"{tag.replace(' ', '')}_{name}", args + ["--issue-order", name],
+                    overrides=overrides)
         n_groups = res.engine.sync.n_groups
         groups = n_groups if groups is None else groups
         if n_groups != groups:
-            fail(f"phase 3c {name}: {n_groups} groups, expected {groups}")
+            fail(f"{tag} {name}: {n_groups} groups, expected {groups}")
         steps += len(res.losses)
         if not all(math.isfinite(x) for x in res.losses):
-            fail(f"phase 3c {name}: non-finite loss {res.losses}")
+            fail(f"{tag} {name}: non-finite loss {res.losses}")
         step_s = statistics.median(res.step_seconds[1:])
-        say(f"phase 3c: rwkv6-7b x {RWKV_LAYERS} layers {name}_f32: losses "
-            f"{[round(x, 4) for x in res.losses]}, step {step_s * 1e3:.1f} ms (median of steps "
-            f"2-3), {res.tokens_per_step / step_s:,.0f} tokens/s, peak memory "
-            f"{(res.peak_memory_bytes or 0) / 2**30:.2f} GiB, {n_groups} groups")
+        n_params = sum(p.numel() for p in res.model.parameters())
+        say(f"{tag}: {label} {name}_f32 ({optimizer}): losses {[round(x, 4) for x in res.losses]}, "
+            f"step {step_s * 1e3:.1f} ms (median of steps 2-3), "
+            f"{res.tokens_per_step / step_s:,.0f} tokens/s, peak memory "
+            f"{(res.peak_memory_bytes or 0) / 2**30:.2f} GiB (static + arenas reckoned "
+            f"{reckon_bytes(res.model, optimizer) / 1e9:.1f} GB over {n_params / 1e9:.3f} B "
+            f"parameters), {n_groups} groups")
         params = {n: p.detach().cpu() for n, p in res.model.named_parameters()}
         if name == "post":
             post_params, post_losses = params, res.losses
         else:
             kept = res  # probed after the counts are read
             if res.losses != post_losses:
-                fail(f"phase 3c: dag losses {res.losses} != post losses {post_losses}")
+                fail(f"{tag}: dag losses {res.losses} != post losses {post_losses}")
             for n, p in params.items():
                 if not torch.equal(p, post_params[n]):
-                    fail(f"phase 3c: dag parameter {n} differs from post")
-            say("phase 3c: dag parameters and losses bitwise equal to post")
+                    fail(f"{tag}: dag parameter {n} differs from post")
+            say(f"{tag}: dag parameters and losses bitwise equal to post")
         del res, params
         torch.cuda.empty_cache()
     counts = {
@@ -1467,23 +1550,92 @@ def phase_rwkv_full_width(device):
     }
     if not (counts["pack_launches"] == counts["unpack_launches"] == counts["issue_calls"]
             == groups * steps) or pack_arena.ref_calls or unpack_arena.ref_calls:
-        fail(f"phase 3c: launch counts {counts}: expected {groups} groups x {steps} steps")
-    want = {"wkv_fwd": (wk.wkv_fwd, 2 * RWKV_LAYERS * steps),
-            "wkv_bwd": (wk.wkv_bwd, RWKV_LAYERS * steps),
-            "flash_fwd": (fa.flash_attention_fwd, 0), "rglru_fwd": (rg.rglru_fwd, 0)}
-    for name, (fn, n) in want.items():
+        fail(f"{tag}: launch counts {counts}: expected {groups} groups x {steps} steps")
+    for name, (fn, n) in per_step.items():
         counts[f"{name}_launches"] = fn.launches
-        if fn.launches != n or fn.ref_calls:
-            fail(f"phase 3c: {name}: {fn.launches} launches and {fn.ref_calls} plain calls, "
-                 f"expected {n} launches over {steps} steps and no plain call")
-    say(f"phase 3c: pack {counts['pack_launches']}, unpack {counts['unpack_launches']}, issue() "
-        f"{counts['issue_calls']} = {groups} groups x {steps} steps; wkv fwd "
-        f"{counts['wkv_fwd_launches']} (2 x {RWKV_LAYERS} layers x {steps} steps), bwd "
-        f"{counts['wkv_bwd_launches']}; 0 plain calls")
-    probe_pass("phase 3c", kept, RWKV_ARGS)
-    del kept
-    torch.cuda.empty_cache()
+        if hasattr(fn, "windowed_launches"):  # the flash wrappers
+            counts[f"{name}_windowed_launches"] = fn.windowed_launches
+        if fn.launches != n * steps or fn.ref_calls:
+            fail(f"{tag}: {name}: {fn.launches} launches and {fn.ref_calls} plain calls, "
+                 f"expected {n} a step x {steps} steps and no plain call")
+    say(f"{tag}: pack {counts['pack_launches']}, unpack {counts['unpack_launches']}, issue() "
+        f"{counts['issue_calls']} = {groups} groups x {steps} steps; "
+        + ", ".join(f"{name} {counts[name + '_launches']} ({n} a step)"
+                    for name, (_, n) in per_step.items()) + "; 0 plain calls")
+    return counts, kept
+
+
+def phase_rg_full_width(device):
+    """Full-width RecurrentGemma-9B at 8 layers: 6 RG-LRU layers (each
+    forward twice under checkpointing) and 2 attention layers."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+
+    per_step = {"rglru_fwd": (rg.rglru_fwd, 2 * RG_REC_LAYERS),
+                "rglru_bwd": (rg.rglru_bwd, RG_REC_LAYERS),
+                "flash_fwd": (fa.flash_attention_fwd, 2 * RG_ATTN_LAYERS),
+                "flash_dq": (fa.flash_attention_dq, RG_ATTN_LAYERS),
+                "flash_dkv": (fa.flash_attention_dkv, RG_ATTN_LAYERS)}
+    counts, kept = train_cell("phase 3b", "recurrentgemma-9b x 8 layers", RG_ARGS, RG_DEPTH,
+                              per_step)
+    probe_pass("phase 3b", kept, RG_ARGS)
     return counts
+
+
+def phase_rwkv_full_width(device):
+    """Full-width RWKV6-7B at 8 layers: 8 WKV layers (each forward twice
+    under checkpointing), no attention and no RG-LRU."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6_wkv as wk
+
+    per_step = {"wkv_fwd": (wk.wkv_fwd, 2 * RWKV_LAYERS), "wkv_bwd": (wk.wkv_bwd, RWKV_LAYERS),
+                "flash_fwd": (fa.flash_attention_fwd, 0), "rglru_fwd": (rg.rglru_fwd, 0)}
+    counts, kept = train_cell("phase 3c", f"rwkv6-7b x {RWKV_LAYERS} layers", RWKV_ARGS,
+                              {"n_layers": RWKV_LAYERS}, per_step)
+    probe_pass("phase 3c", kept, RWKV_ARGS)
+    return counts
+
+
+def phase_new_full_width(device):
+    """Phases 3d-3h: the full-width cells of ``NEW_CELLS``, one after the
+    other, each freed before the next; every layer attends (flash fwd
+    twice a layer and step under checkpointing, dQ and dK/dV once), and the
+    layers with a window (``window_for``) make the windowed share of those
+    launches.  Returns {arch: counts}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6_wkv as wk
+    from repro_torch.models.transformer import ATTN_KINDS, window_for
+
+    out = {}
+    for tag, arch, depth, extra in NEW_CELLS:
+        cfg = get_config(arch, **depth)
+        n_attn = sum(k in ATTN_KINDS for k in cfg.block_kinds())
+        n_win = sum(k in ATTN_KINDS and window_for(cfg, k) is not None
+                    for k in cfg.block_kinds())
+        per_step = {"flash_fwd": (fa.flash_attention_fwd, 2 * n_attn),
+                    "flash_dq": (fa.flash_attention_dq, n_attn),
+                    "flash_dkv": (fa.flash_attention_dkv, n_attn),
+                    "rglru_fwd": (rg.rglru_fwd, 0), "wkv_fwd": (wk.wkv_fwd, 0)}
+        args = ["--arch", arch, "--steps", "3", "--fuse", "arena", "--policy", "mg_wfbp",
+                "--fabric", "gpu_nccl"] + extra
+        label = f"{arch} x {cfg.n_layers} layers"
+        out[arch], kept = train_cell(tag, label, args, depth, per_step)
+        del kept
+        c = out[arch]
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            if c[f"{name}_windowed_launches"] * n_attn != c[f"{name}_launches"] * n_win:
+                fail(f"{tag}: {name}: {c[name + '_windowed_launches']} of "
+                     f"{c[name + '_launches']} launches with a window, expected "
+                     f"{n_win} of every {n_attn}")
+        say(f"{tag}: flash launches with a window: fwd {c['flash_fwd_windowed_launches']}, dQ "
+            f"{c['flash_dq_windowed_launches']}, dK/dV {c['flash_dkv_windowed_launches']} "
+            f"({n_win} of {n_attn} attention layers)")
+        torch.cuda.empty_cache()
+    return out
 
 
 def _arg(args, flag):
@@ -1876,13 +2028,17 @@ def main() -> None:
     rglru_errs, rglru_timings = phase_rglru(device)
     rg_flash_errs, rg_flash_timings = phase_rg_flash(device)
     wkv_errs, wkv_timings = phase_wkv(device)
+    new_flash = phase_new_flash(device)
     phase_reduced_model(device)
     phase_reduced_model(device, "recurrentgemma-9b", seq=128, tag="phase 2b")
     phase_reduced_model(device, "rwkv6-7b", seq=64, tag="phase 2c")
+    for arch in ("gemma2-2b", "mixtral-8x7b", "dbrx-132b"):
+        phase_reduced_model(device, arch, seq=128, tag=f"phase 2d {arch}")
     try:
         counts, dag = phase_full_width(device)
         rg_counts = phase_rg_full_width(device)
         rwkv_counts = phase_rwkv_full_width(device)
+        new_counts = phase_new_full_width(device)
         p4_counts = phase_autotune(device, dag)
         p5_counts = phase_restart(device)
     finally:
@@ -1898,11 +2054,12 @@ def main() -> None:
             "route": "cuda",
             "source": PACK_SRC,
             "replaces": f"src/repro/kernels/comm_pack/kernel.py:{src_line}",
-            # phases 3, 3b, 3c, 4 and 5 (their training steps), each counted from
-            # 0 around its own runs
+            # phases 3, 3b-3h, 4 and 5 (their training steps), each counted
+            # from 0 around its own runs
             "launches": (counts[f"{name}_launches"] + rg_counts[f"{name}_launches"]
-                         + rwkv_counts[f"{name}_launches"] + p4_counts[f"{name}_arena"]
-                         + p5_counts[f"{name}_arena"]),
+                         + rwkv_counts[f"{name}_launches"]
+                         + sum(c[f"{name}_launches"] for c in new_counts.values())
+                         + p4_counts[f"{name}_arena"] + p5_counts[f"{name}_arena"]),
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1911,10 +2068,20 @@ def main() -> None:
             "library_ms": t["library_ms"],
         })
     # the flash kernels once per configuration: TinyLlama's (phase 1b, run
-    # 3) and RecurrentGemma's MQA / hd 256 / window 2048 (phase 1c, run 3b)
-    for suffix, f_errs, f_timings, f_counts, f_more, f_restart in (
-            ("", flash_errs, flash_timings, counts, p4_counts, p5_counts),
-            ("[recurrentgemma]", rg_flash_errs, rg_flash_timings, rg_counts, {}, {})):
+    # 3), RecurrentGemma's MQA / hd 256 / window 2048 (phase 1c, run 3b) and
+    # each new cell's (phase 1e, run 3d-3h).  A new shape's launches are its
+    # run's launches with a window if the shape has one, else those without
+    # (Gemma2's local and global layers split run 3f's so)
+    configs = [("", flash_errs, flash_timings, counts, p4_counts, p5_counts),
+               ("[recurrentgemma]", rg_flash_errs, rg_flash_timings, rg_counts, {}, {})]
+    for tag, (f_errs, f_timings) in new_flash.items():
+        c = new_counts[tag.split()[0]]
+        windowed = dict(NEW_ATTN)[tag][6] is not None
+        configs.append((f"[{tag}]", f_errs, f_timings, {
+            f"{n}_launches": c[f"{n}_windowed_launches"] if windowed
+            else c[f"{n}_launches"] - c[f"{n}_windowed_launches"]
+            for n in ("flash_fwd", "flash_dq", "flash_dkv")}, {}, {}))
+    for suffix, f_errs, f_timings, f_counts, f_more, f_restart in configs:
         for name, replaces in (
                 ("fwd", "src/repro/kernels/flash_attention/kernel.py:40"),
                 ("dq", "src/repro/kernels/flash_attention/kernel_bwd.py:53"),

@@ -2,9 +2,13 @@
 
 ``get_config(name)`` returns the full ArchConfig, ``get_reduced(name)`` a
 small same-family variant for CPU tests; keyword overrides replace fields
-of either, as the JAX registry's do.  The names are the JAX package's;
-``tinyllama-1.1b``, ``recurrentgemma-9b`` and ``rwkv6-7b`` are ported so
-far, and the others raise ``NotImplementedError`` (ROADMAP queue A9 lists them).
+of either, as the JAX registry's do.  The names are the JAX package's; the
+eight token-input archs are ported, and ``musicgen-large`` and
+``qwen2-vl-2b`` (embeds input, sinusoidal positions, M-RoPE) raise
+``NotImplementedError`` until they are.  The JAX configs' MoE knobs
+``moe_groups`` (dispatch groups per token shard, set by its launcher under
+expert parallelism) and ``moe_token_chunk`` (a legacy field nothing reads)
+are left out: the port routes every token as one group.
 """
 
 from __future__ import annotations
@@ -16,8 +20,13 @@ from ..models.common import ArchConfig
 
 _MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
-    "recurrentgemma-9b": "recurrentgemma_9b",
+    "starcoder2-7b": "starcoder2_7b",
+    "gemma2-2b": "gemma2_2b",
+    "starcoder2-3b": "starcoder2_3b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "dbrx-132b": "dbrx_132b",
     "rwkv6-7b": "rwkv6_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 #: Every arch the JAX package registers; the ones outside ``_MODULES`` are

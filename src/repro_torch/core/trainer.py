@@ -82,8 +82,15 @@ def lm_unit_costs(
 
     t = tokens_per_device
     units = [cost("embed", embed_p, 2.0 * t * cfg.d_model, 2.0 * t * cfg.d_model)]
-    for i in range(cfg.n_stages):  # dense: every stage parameter runs for every token
-        units.append(cost(f"stage_{i}", stage_p, 4.0 * stage_p * t, 2.0 * stage_p * t))
+    active = 1.0
+    if cfg.moe is not None:
+        # only top-k of E experts run per token; the stage's attention is
+        # dense, so the share is approximated as 1/4 dense + 3/4 routed
+        active = cfg.moe.top_k / cfg.moe.n_experts
+        active = 0.25 + 0.75 * active if active < 1 else 1.0
+    for i in range(cfg.n_stages):
+        units.append(cost(f"stage_{i}", stage_p, 4.0 * stage_p * t * active,
+                          2.0 * stage_p * t * active))
     if tail_p:
         units.append(cost("tail", tail_p, 4.0 * tail_p * t, 2.0 * tail_p * t))
     head_flops_p = norm_p + cfg.d_model * cfg.vocab

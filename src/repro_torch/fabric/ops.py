@@ -36,12 +36,14 @@ def issue(
       ``out`` (``N x tensor.numel()`` elements;
       ``dist.all_gather_into_tensor``).
 
-    ``all_to_all`` (MoE expert parallelism) comes with the slice that
-    ports the MoE models, and raises until then.
+    ``all_to_all`` is issued only by serving's group collectives (the JAX
+    package's ``planning/serve.py``); data-parallel training, MoE models
+    included, never issues it.  It comes with the port of serving, and
+    raises until then.
     """
     op = Collective(op)
     if op is Collective.ALL_TO_ALL:
-        raise NotImplementedError("all_to_all is ported with the MoE models (mixtral, dbrx)")
+        raise NotImplementedError("all_to_all is ported with serving's group collectives")
     if op is not Collective.ALL_REDUCE and out is None:
         raise ValueError(f"{op.value} needs an output tensor (out=)")
     issue.calls += 1

@@ -5,8 +5,9 @@ CPU (counterpart of ``repro/kernels/flash_attention/ops.py``).
 Which path runs follows from where the tensors lie, and from nothing
 else: a CUDA tensor launches the kernel or raises.  Each kernel's wrapper
 (``flash_attention_fwd``, ``flash_attention_dq``, ``flash_attention_dkv``)
-counts its launches in ``.launches`` and its calls that took the plain
-version in ``.ref_calls``; ``reset_counts()`` zeroes them.
+counts its launches in ``.launches`` (those with a window also in
+``.windowed_launches``) and its calls that took the plain version in
+``.ref_calls``; ``reset_counts()`` zeroes them.
 
 ``flash_attention_train`` is the differentiable op (the JAX package's
 custom-VJP ``flash_attention_train``): its forward saves only
@@ -185,6 +186,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None, retu
                                        lse.data_ptr(), *tail)
         _check_launch(err, "forward")
         flash_attention_fwd.launches += 1
+        flash_attention_fwd.windowed_launches += window is not None
     return (o, lse) if return_lse else o
 
 
@@ -208,6 +210,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal=True, window=None, sof
                                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail)
     _check_launch(err, "dQ")
     flash_attention_dq.launches += 1
+    flash_attention_dq.windowed_launches += window is not None
     return dq
 
 
@@ -237,6 +240,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=True, window=None, so
                                    dv.data_ptr(), *tail)
     _check_launch(err, "dK/dV")
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.windowed_launches += window is not None
     return dk, dv
 
 
@@ -285,6 +289,7 @@ def reset_counts() -> None:
     """Zero the launch and plain-call counters of the three kernel wrappers."""
     for fn in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv):
         fn.launches = 0
+        fn.windowed_launches = 0
         fn.ref_calls = 0
 
 

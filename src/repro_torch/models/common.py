@@ -1,9 +1,10 @@
 """Shared model configuration (counterpart of ``repro/models/common.py``),
 with torch dtypes.
 
-Only the options the port implements are fields; the JAX package's other
-options (softcaps, M-RoPE, post-norms, MoE, ...) come back with the
-architectures that need them.
+Only the options the port implements are fields: those of the eight
+token-input archs.  The JAX package's options for the embeds-input archs
+(``input_mode``, ``Attention.rope`` / ``mrope_sections`` / ``qk_norm``)
+come back with MusicGen and Qwen2-VL.
 """
 
 from __future__ import annotations
@@ -21,7 +22,18 @@ class Attention:
     n_heads: int
     n_kv_heads: int
     head_dim: int
+    window: int | None = None  # sliding-window size of 'attn' / 'moe' layers (None = full causal)
+    softcap: float | None = None  # attention-logit softcap (gemma2)
     rope_theta: float = 10000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MoE:
+    """Mixture-of-experts options (None on the config = dense FFN)."""
+
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,13 +51,17 @@ class Recurrent:
 class ArchConfig:
     """One architecture (or a reduced smoke variant).
 
-    The port runs patterns of ``'attn'``, ``'attn_local'`` (causal attention
-    over ``local_window`` keys), ``'rec'`` (the RG-LRU block) and ``'rwkv'``
-    (the whole RWKV6 layer, its channel mix included: ``mlp='rwkv_cmix'``,
-    ``attention=None``) sublayers, with a tail, rmsnorm, gemma rmsnorm or
-    layernorm, swiglu or geglu, and tied or untied embeddings;
-    ``models.transformer`` raises on any other value rather than computing
-    something else."""
+    The port runs patterns of ``'attn'`` (causal attention, over
+    ``attention.window`` keys when set), ``'attn_global'`` (over every
+    key), ``'attn_local'`` (over ``local_window`` keys), ``'moe'``
+    (attention as ``'attn'``, then the MoE FFN of ``models.moe`` in place
+    of the MLP), ``'rec'`` (the RG-LRU block) and ``'rwkv'`` (the whole
+    RWKV6 layer, its channel mix included: ``mlp='rwkv_cmix'``,
+    ``attention=None``) sublayers, with a
+    tail, rmsnorm, gemma rmsnorm or layernorm, post-block norms, swiglu,
+    geglu or the plain GeLU MLP, attention and final-logit softcaps, and
+    tied or untied embeddings; ``models.transformer`` raises on any other
+    value rather than computing something else."""
 
     name: str
     family: str  # audio|dense|moe|ssm|hybrid|vlm
@@ -58,10 +74,13 @@ class ArchConfig:
     # n_stages + len(tail_pattern)
     pattern: tuple[str, ...] = ("attn",)
     tail_pattern: tuple[str, ...] = ()
+    moe: MoE | None = None
     recurrent: Recurrent | None = None
     norm: str = "rmsnorm"  # 'rmsnorm' | 'rmsnorm_gemma' (scale stored as scale - 1) | 'layernorm'
-    mlp: str = "swiglu"  # 'swiglu' | 'geglu' | 'rwkv_cmix' (inside the 'rwkv' block)
+    post_norm: bool = False  # gemma2 adds post-block norms
+    mlp: str = "swiglu"  # 'swiglu' | 'geglu' | 'gelu' | 'rwkv_cmix' (inside the 'rwkv' block)
     tie_embeddings: bool = False
+    logit_softcap: float | None = None
     param_dtype: Any = torch.bfloat16
     # local-attention window used by '*_local' pattern entries
     local_window: int = 4096

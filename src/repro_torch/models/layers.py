@@ -1,6 +1,7 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``):
 RMSNorm (plain and gemma), LayerNorm, RoPE, GQA attention (causal, optionally over a
-sliding window) and the gated MLPs (SwiGLU, GeGLU).
+sliding window and under a logit softcap), the gated MLPs (SwiGLU, GeGLU), the
+plain GeLU MLP and the logit softcap.
 
 ``ArchConfig.attn_impl`` picks the attention (the JAX package's
 ``attn_impl``, ``'pallas' | 'jnp'``):
@@ -9,8 +10,9 @@ sliding window) and the gated MLPs (SwiGLU, GeGLU).
   the forward, dQ and dK/dV kernels on the card (their plain versions on
   the CPU); no (S, S) tensor is kept for backward.
 - ``'plain'``: ``gqa_attention``, the path the JAX package runs at model
-  level (its q-chunked causal branch): einsum scores, a mask with value
-  ``-1e30``, an f32 softmax cast to the input dtype, an einsum with V.
+  level (its q-chunked causal branch): einsum scores, the softcap
+  ``tanh(s / cap) * cap`` when set, a mask with value ``-1e30``, an f32
+  softmax cast to the input dtype, an einsum with V.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from .common import ArchConfig, Attention
 
 ATTN_IMPLS = ("flash", "plain")
 NORMS = ("rmsnorm", "rmsnorm_gemma", "layernorm")
-MLPS = ("swiglu", "geglu")
+MLPS = ("swiglu", "geglu", "gelu")
 
 
 class RMSNorm(nn.Module):
@@ -98,10 +100,12 @@ def gqa_attention(
     v: torch.Tensor,  # (B, T, Hkv, hd)
     *,
     window: int | None = None,
+    softcap: float | None = None,
     q_chunk: int = 256,
 ) -> torch.Tensor:
     """Query-chunked causal attention, over the last ``window`` keys of each
-    query when given (``qpos - kpos < window``); returns (B, S, Hq, hd).
+    query when given (``qpos - kpos < window``), with the scores capped at
+    ``softcap`` when given; returns (B, S, Hq, hd).
 
     Each chunk of ``q_chunk`` queries sees every key, so the softmax is
     the full row softmax; the chunking only bounds score memory."""
@@ -115,6 +119,8 @@ def gqa_attention(
     def one_chunk(start: int, n: int) -> torch.Tensor:
         qs = qg[:, start : start + n]
         scores = torch.einsum("bskgh,btkh->bkgst", qs, k).float() * scale
+        if softcap is not None:
+            scores = torch.tanh(scores / softcap) * softcap
         qpos = start + torch.arange(n, device=q.device)
         mask = qpos[:, None] >= kpos[None, :]
         if window is not None:
@@ -133,8 +139,8 @@ def gqa_attention(
 
 class AttentionBlock(nn.Module):
     """``{'wq', 'wk', 'wv', 'wo'}``: project, RoPE, attend (causal, over the
-    last ``window`` keys when given), out-project (training path: no KV
-    cache)."""
+    last ``window`` keys when given, under ``att.softcap``), out-project
+    (training path: no KV cache)."""
 
     def __init__(self, cfg: ArchConfig, att: Attention, device=None, window: int | None = None):
         super().__init__()
@@ -155,24 +161,39 @@ class AttentionBlock(nn.Module):
         q = apply_rope(q, positions, att.rope_theta)
         k = apply_rope(k, positions, att.rope_theta)
         if self.cfg.attn_impl == "flash":
-            o = flash_attention_train(q, k, v, causal=True, window=self.window)
+            o = flash_attention_train(q, k, v, causal=True, window=self.window,
+                                      softcap=att.softcap)
         else:
-            o = gqa_attention(q, k, v, window=self.window, q_chunk=self.cfg.q_chunk)
+            o = gqa_attention(q, k, v, window=self.window, softcap=att.softcap,
+                              q_chunk=self.cfg.q_chunk)
         return o.reshape(B, S, -1).to(x.dtype) @ self.wo
 
 
 class MLP(nn.Module):
-    """SwiGLU ``silu(x @ w_gate) * (x @ w_up) @ w_down``, or GeGLU with the
-    tanh-approximated GeLU in place of SiLU (``cfg.mlp``)."""
+    """SwiGLU ``silu(x @ w_gate) * (x @ w_up) @ w_down``, GeGLU with the
+    tanh-approximated GeLU in place of SiLU, or the plain GeLU MLP
+    ``gelu_tanh(x @ w_up) @ w_down``, which has no ``w_gate``
+    (``cfg.mlp``)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
         mk = lambda *shape: nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
-        self.w_gate, self.w_up, self.w_down = mk(d, f), mk(d, f), mk(f, d)
-        self.geglu = cfg.mlp == "geglu"
+        if cfg.mlp != "gelu":
+            self.w_gate = mk(d, f)
+        self.w_up, self.w_down = mk(d, f), mk(f, d)
+        self.kind = cfg.mlp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "gelu":
+            return F.gelu(x @ self.w_up, approximate="tanh") @ self.w_down
         z = x @ self.w_gate
-        act = F.gelu(z, approximate="tanh") if self.geglu else F.silu(z)
+        act = F.gelu(z, approximate="tanh") if self.kind == "geglu" else F.silu(z)
         return (act * (x @ self.w_up)) @ self.w_down
+
+
+def softcap_logits(logits: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """``tanh(logits / cap) * cap``, or ``logits`` when ``cap`` is None."""
+    if cap is None:
+        return logits
+    return torch.tanh(logits / cap) * cap

@@ -1,15 +1,18 @@
 """Decoder-only LM over block patterns (counterpart of
-``repro/models/transformer.py``): dense ``('attn',)`` stacks, the Griffin
-hybrid of ``'rec'`` (RG-LRU) and ``'attn_local'`` sublayers, and RWKV6's
-``('rwkv',)`` stack.
+``repro/models/transformer.py``): dense ``('attn',)`` stacks, Gemma2's
+alternating ``('attn_local', 'attn_global')``, the MoE ``('moe',)`` stacks,
+the Griffin hybrid of ``'rec'`` (RG-LRU) and ``'attn_local'`` sublayers,
+and RWKV6's ``('rwkv',)`` stack.
 
 Parameters are held per layer, so that a gradient hook fires per layer::
 
     embed                       (vocab, d)  f32
     stages.<i>.<kind>_<j>.norm{1,2}.scale         (.bias too for layernorm)
-    stages.<i>.attn_0.attn.{wq,wk,wv,wo}          ('attn' / 'attn_local')
+    stages.<i>.<kind>_<j>.post_norm{1,2}.scale    (post_norm archs: gemma2)
+    stages.<i>.attn_0.attn.{wq,wk,wv,wo}          ('attn*' / 'moe')
     stages.<i>.rec_0.mix.{w_main,w_gate,conv_w,conv_b,wa,ba,wx,bx,lam,w_out}
-    stages.<i>.<kind>_<j>.mlp.{w_gate,w_up,w_down}
+    stages.<i>.<kind>_<j>.mlp.{w_gate,w_up,w_down}   (no w_gate for mlp='gelu')
+    stages.<i>.moe_0.moe.{router,w_gate,w_up,w_down} ('moe': no mlp; router f32)
     stages.<i>.rwkv_0.{ln1,ln2,tm,cm}....         ('rwkv': the whole block,
                                                    no norm1/norm2/mlp)
     tail.<kind>_<j>....         like one stage, for ``tail_pattern``
@@ -27,7 +30,14 @@ Tied embeddings (gemma): the head is ``embed.T`` cast to ``param_dtype``
 once per step, and the embedding output is scaled by ``sqrt(d)``.  At a
 vocab of 64k or more and a sequence longer than (and a multiple of) 512
 tokens the loss runs per 512-token chunk under activation checkpointing,
-so the (B, S, vocab) f32 logits are never held whole.
+so the (B, S, vocab) f32 logits are never held whole.  ``logit_softcap``
+(gemma2) caps the f32 logits on both paths, inside the chunks.
+
+The loss is the JAX ``loss_fn``'s ``ce + MOE_AUX_COEF * aux``, where
+``aux`` sums the MoE layers' load-balance terms (0 without MoE layers).
+Each sublayer returns ``(x, aux)`` out of its ``torch.utils.checkpoint``
+region; the recomputation in backward discards its outputs, so each
+layer's aux is counted once.
 """
 
 from __future__ import annotations
@@ -41,13 +51,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from .common import ArchConfig
-from .layers import MLP, MLPS, NORMS, AttentionBlock, LayerNorm, make_norm
+from .layers import MLP, MLPS, NORMS, AttentionBlock, LayerNorm, make_norm, softcap_logits
+from .moe import MoEBlock
 from .rglru import RGLRUBlock, lam_init
 from .rwkv6 import LORA_DECAY, LORA_MIX, RWKV6Block
 
-KINDS = ("attn", "attn_local", "rec", "rwkv")
+KINDS = ("attn", "attn_local", "attn_global", "moe", "rec", "rwkv")
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "moe")  # the kinds with an attention block
 CHUNKED_CE_VOCAB = 64000  # big-vocab archs never materialize full logits
 CE_SEQ_CHUNK = 512
+MOE_AUX_COEF = 0.01
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -60,7 +73,8 @@ def _check_supported(cfg: ArchConfig) -> None:
         "norm": cfg.norm not in NORMS,
         # an 'rwkv' block carries its own channel mix; every other kind an MLP
         "mlp": cfg.mlp not in MLPS if kinds - {"rwkv"} else cfg.mlp != "rwkv_cmix",
-        "attention": bool(kinds & {"attn", "attn_local"}) and cfg.attention is None,
+        "attention": bool(kinds & set(ATTN_KINDS)) and cfg.attention is None,
+        "moe": "moe" in kinds and cfg.moe is None,
         "remat": cfg.remat not in ("full", "none"),
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -68,27 +82,65 @@ def _check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: options not ported yet: {bad}")
 
 
+def window_for(cfg: ArchConfig, kind: str) -> int | None:
+    """The attention window of a ``kind`` sublayer (the JAX ``_window_for``):
+    ``local_window`` for ``'attn_local'``, ``attention.window`` for
+    ``'attn'`` and ``'moe'``, else None (every key)."""
+    if kind == "attn_local":
+        return cfg.local_window
+    if kind in ("attn", "moe") and cfg.attention and cfg.attention.window:
+        return cfg.attention.window
+    return None
+
+
 class SubLayer(nn.Module):
-    """One sublayer: pre-norm attention (``'attn'``; ``'attn_local'`` over
-    ``cfg.local_window`` keys) or pre-norm RG-LRU block (``'rec'``, held as
-    ``mix``), then pre-norm MLP."""
+    """One sublayer: pre-norm attention (every ``ATTN_KINDS`` kind, over
+    ``window_for`` keys) or pre-norm RG-LRU block (``'rec'``, held as
+    ``mix``), then a pre-norm MLP, or the MoE FFN for ``'moe'``; with
+    ``cfg.post_norm`` each branch's output is normed before the residual
+    add.  ``forward`` returns ``(x, aux)``: aux is the MoE block's
+    load-balance term, None for the other kinds."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
         self.norm1 = make_norm(cfg, device)
         self.norm2 = make_norm(cfg, device)
+        if cfg.post_norm:
+            self.post_norm1 = make_norm(cfg, device)
+            self.post_norm2 = make_norm(cfg, device)
         if kind == "rec":
             self.mix = RGLRUBlock(cfg, device)
         else:
-            window = cfg.local_window if kind == "attn_local" else None
-            self.attn = AttentionBlock(cfg, cfg.attention, device, window=window)
-        self.mlp = MLP(cfg, device)
-        self.kind = kind
+            self.attn = AttentionBlock(cfg, cfg.attention, device, window=window_for(cfg, kind))
+        if kind == "moe":
+            self.moe = MoEBlock(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
+        self.kind, self.post_norm = kind, cfg.post_norm
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
         h = self.norm1(x)
-        x = x + (self.mix(h) if self.kind == "rec" else self.attn(h, positions))
-        return x + self.mlp(self.norm2(x))
+        h = self.mix(h) if self.kind == "rec" else self.attn(h, positions)
+        if self.post_norm:
+            h = self.post_norm1(h)
+        x = x + h
+        h = self.norm2(x)
+        aux = None
+        if self.kind == "moe":
+            h, aux = self.moe(h)
+        else:
+            h = self.mlp(h)
+        if self.post_norm:
+            h = self.post_norm2(h)
+        return x + h, aux
+
+
+def run_sublayer(sub: nn.Module, x: torch.Tensor, positions: torch.Tensor, remat: bool):
+    """``(x, aux)`` of one sublayer, under ``torch.utils.checkpoint`` when
+    ``remat``; aux is None for a sublayer without MoE (an ``'rwkv'`` block
+    returns x alone)."""
+    out = checkpoint(sub, x, positions, use_reentrant=False) if remat else sub(x, positions)
+    return out if isinstance(out, tuple) else (out, None)
 
 
 def _sublayer(cfg: ArchConfig, kind: str, device) -> nn.Module:
@@ -171,11 +223,18 @@ class Transformer(nn.Module):
                 for w in (sub.attn.wq, sub.attn.wk, sub.attn.wv):
                     tn(w, d ** -0.5)
                 tn(sub.attn.wo, (att.n_heads * att.head_dim) ** -0.5)
-            tn(sub.mlp.w_gate, d ** -0.5)
-            tn(sub.mlp.w_up, d ** -0.5)
-            tn(sub.mlp.w_down, cfg.d_ff ** -0.5)
-            reset_norm(sub.norm1)
-            reset_norm(sub.norm2)
+            if sub.kind == "moe":  # the stds of the JAX package's init_moe
+                for w in (sub.moe.router, sub.moe.w_gate, sub.moe.w_up):
+                    tn(w, d ** -0.5)
+                tn(sub.moe.w_down, cfg.d_ff ** -0.5)
+            else:
+                if cfg.mlp != "gelu":
+                    tn(sub.mlp.w_gate, d ** -0.5)
+                tn(sub.mlp.w_up, d ** -0.5)
+                tn(sub.mlp.w_down, cfg.d_ff ** -0.5)
+            for norm in (sub.norm1, sub.norm2) + ((sub.post_norm1, sub.post_norm2)
+                                                 if cfg.post_norm else ()):
+                reset_norm(norm)
         reset_norm(self.final_norm)
         if not cfg.tie_embeddings:
             tn(self.head, d ** -0.5)
@@ -187,37 +246,42 @@ class Transformer(nn.Module):
             subs += list(self.tail.values())
         return subs
 
-    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Final-norm hidden states (B, S, d) of the token batch."""
+    def hidden(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Final-norm hidden states (B, S, d) of the token batch, and the
+        MoE aux summed over the layers (an f32 scalar, 0 without MoE)."""
         cfg = self.cfg
         x = nn.functional.embedding(tokens, self.embed).to(cfg.param_dtype)
         if cfg.tie_embeddings:  # gemma scaling
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.param_dtype, device=x.device)
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for sub in self.sublayers():
-            if cfg.remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(sub, x, positions, use_reentrant=False)
-            else:
-                x = sub(x, positions)
-        return self.final_norm(x)
+            x, a = run_sublayer(sub, x, positions, remat)
+            if a is not None:
+                aux = aux + a
+        return self.final_norm(x), aux
 
     def loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token cross-entropy (the JAX package's ``loss_fn``)."""
-        x = self.hidden(batch["tokens"])
+        """Mean next-token cross-entropy plus ``MOE_AUX_COEF`` x the MoE aux
+        (the JAX package's ``loss_fn``)."""
+        x, aux = self.hidden(batch["tokens"])
         # tied: cast once per step, outside the checkpointed loss chunks
         head = self.embed.T.to(self.cfg.param_dtype) if self.cfg.tie_embeddings else self.head
-        return ce_from_hidden(self.cfg, head, x, batch["targets"])
+        return ce_from_hidden(self.cfg, head, x, batch["targets"]) + MOE_AUX_COEF * aux
 
 
-def _token_nll(head: torch.Tensor, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    logits = (x @ head).float()
+def _token_nll(head: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
+               cap: float | None) -> torch.Tensor:
+    logits = softcap_logits((x @ head).float(), cap)
     lse = torch.logsumexp(logits, dim=-1)
     return lse - torch.gather(logits, -1, targets[..., None].long())[..., 0]
 
 
-def _chunk_nll(head: torch.Tensor, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    return torch.sum(_token_nll(head, x, targets))
+def _chunk_nll(head: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
+               cap: float | None) -> torch.Tensor:
+    return torch.sum(_token_nll(head, x, targets, cap))
 
 
 def ce_from_hidden(cfg: ArchConfig, head: torch.Tensor, x: torch.Tensor,
@@ -233,11 +297,11 @@ def ce_from_hidden(cfg: ArchConfig, head: torch.Tensor, x: torch.Tensor,
     if cfg.vocab >= CHUNKED_CE_VOCAB and seq > CE_SEQ_CHUNK and seq % CE_SEQ_CHUNK == 0:
         parts = [
             checkpoint(_chunk_nll, head, x[:, c : c + CE_SEQ_CHUNK],
-                       targets[:, c : c + CE_SEQ_CHUNK], use_reentrant=False)
+                       targets[:, c : c + CE_SEQ_CHUNK], cfg.logit_softcap, use_reentrant=False)
             for c in range(0, seq, CE_SEQ_CHUNK)
         ]
         return torch.sum(torch.stack(parts)) / (B * seq)
-    return torch.mean(_token_nll(head, x, targets))
+    return torch.mean(_token_nll(head, x, targets, cfg.logit_softcap))
 
 
 # ---------------------------------------------------------------------------

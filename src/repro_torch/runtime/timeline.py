@@ -37,10 +37,9 @@ from typing import Any, Callable
 
 import torch
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..core.profiler import time_segment
-from ..models.transformer import ce_from_hidden
+from ..models.transformer import ce_from_hidden, run_sublayer
 from ..planning.costs import MeasuredComm
 
 #: Probes time forward+backward together; the backward share of a train
@@ -111,8 +110,7 @@ def make_unit_probes(cfg, model, batch: dict) -> dict[str, tuple[Callable, tuple
             with torch.enable_grad():
                 y = xx
                 for sub in subs.values():
-                    y = checkpoint(sub, y, positions, use_reentrant=False) if remat \
-                        else sub(y, positions)
+                    y, _ = run_sublayer(sub, y, positions, remat)
                 return torch.autograd.grad(y.float().sum(), (*params, xx))
 
         return fn

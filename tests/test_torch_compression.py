@@ -262,6 +262,6 @@ def test_issue_refuses_what_it_cannot_issue():
     for op in ("reduce_scatter", "all_gather"):
         with pytest.raises(ValueError, match="output tensor"):
             issue(op, x)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(NotImplementedError, match="serving"):
         issue("all_to_all", x, out=x.clone())
     assert issue.calls == before

@@ -13,12 +13,15 @@ products, the plain versions keep them in f32, both round the result
 once); the bf16 forward also at every shape of the JAX package's forward
 tests, at RecurrentGemma's attention (MQA, hd 256, window 2048) and with
 Sq != Sk; the bf16 backward at RecurrentGemma's attention, hd 32 / 128
-with window and softcap, Sq != Sk and a ragged S; forward -> backward
-through the kernels' own (o, lse) at both main shapes; f32 inputs keep
-the CUDA-core kernels bit for bit; rows that see no key give 0; two runs
-give the same bits; and one reduced training step with the flash kernels
-gives bitwise the same parameters for the ``post`` and ``dag`` issue
-orders.
+with window and softcap, Sq != Sk and a ragged S; both also at the
+training shapes of StarCoder2 (GQA groups of 12 and 9 at hd 128), Gemma2
+(hd 256, softcap 50, with and without a window) and Mixtral (hd 128,
+window) at S 1024; forward -> backward through the kernels' own (o, lse)
+at TinyLlama's, RecurrentGemma's and three of those shapes; f32 inputs
+keep the CUDA-core kernels bit for bit; rows that see no key give 0; two
+runs give the same bits; and reduced training steps (tinyllama with the
+flash kernels; StarCoder2-3B, Gemma2, Mixtral and DBRX at seq 128) give
+bitwise the same parameters for the ``post`` and ``dag`` issue orders.
 
 rglru: the forward and backward kernels against their plain versions
 (the sequential loop and its reverse) at the JAX tests' first shape, a
@@ -176,6 +179,12 @@ BF16_BWD_CASES = [  # B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap
     (1, 256, 128, 4, 2, 64, True, 64, None),  # Sq != Sk: rows 191.. see no key
     (1, 300, 300, 4, 2, 64, True, None, None),  # ragged S
     (2, 300, 200, 4, 1, 128, False, 100, None),  # ragged, non-causal, Sq != Sk
+    # the new training shapes at S 1024 (chip_smoke.py phase 1e holds the full S)
+    (1, 1024, 1024, 24, 2, 128, True, None, None),  # StarCoder2-3B: G 12
+    (1, 1024, 1024, 36, 4, 128, True, None, None),  # StarCoder2-7B: G 9
+    (1, 1024, 1024, 8, 4, 256, True, 512, 50.0),  # Gemma2 local: hd 256, window, softcap 50
+    (1, 1024, 1024, 8, 4, 256, True, None, 50.0),  # Gemma2 global: hd 256, softcap 50
+    (1, 1024, 1024, 32, 8, 128, True, 512, None),  # Mixtral: hd 128, window
 ]
 
 
@@ -228,6 +237,12 @@ BF16_FWD_CASES = [  # B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap
     (1, 256, 128, 4, 2, 64, True, 64, None),  # Sq != Sk: rows 191.. see no key
     (2, 300, 200, 4, 1, 128, False, 100, None),  # ragged, non-causal, Sq > Sk
     (2, 200, 300, 4, 2, 32, True, None, 20.0),  # hd 32, Sq < Sk, softcap
+    # the new training shapes at S 1024 (chip_smoke.py phase 1e holds the full S)
+    (1, 1024, 1024, 24, 2, 128, True, None, None),  # StarCoder2-3B: G 12
+    (1, 1024, 1024, 36, 4, 128, True, None, None),  # StarCoder2-7B: G 9
+    (1, 1024, 1024, 8, 4, 256, True, 512, 50.0),  # Gemma2 local: hd 256, window, softcap 50
+    (1, 1024, 1024, 8, 4, 256, True, None, 50.0),  # Gemma2 global: hd 256, softcap 50
+    (1, 1024, 1024, 32, 8, 128, True, 512, None),  # Mixtral: hd 128, window
 ]
 
 
@@ -282,23 +297,26 @@ def test_cuda_f32_forward_keeps_the_cuda_core_kernel():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window", [(4, 512, 32, 4, 64, None),
-                                                   (1, 4096, 16, 1, 256, 2048)],
-                         ids=["tinyllama", "recurrentgemma"])
-def test_cuda_fwd_to_bwd_through_the_kernels_own_o_and_lse(B, S, Hq, Hkv, hd, window):
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window,softcap", [
+    (4, 512, 32, 4, 64, None, None), (1, 4096, 16, 1, 256, 2048, None),
+    (1, 1024, 24, 2, 128, None, None), (1, 1024, 8, 4, 256, 512, 50.0),
+    (1, 1024, 32, 8, 128, 512, None)],
+    ids=["tinyllama", "recurrentgemma", "starcoder2-3b", "gemma2-local", "mixtral"])
+def test_cuda_fwd_to_bwd_through_the_kernels_own_o_and_lse(B, S, Hq, Hkv, hd, window, softcap):
     """The training op on the card (bf16): the backward kernels read the
     forward kernel's own (o, lse).  dq, dk, dv lie within 1e-2 x max|g| of
     the plain backward fed the plain forward's (o, lse)."""
     dev = require_cuda()
     q, k, v, do = _qkv(B, S, S, Hq, Hkv, hd, torch.bfloat16, dev, seed=5)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    opts = dict(window=window, softcap=softcap)
     fa.reset_counts()
-    fa.flash_attention_train(qg, kg, vg, window=window).backward(do)
+    fa.flash_attention_train(qg, kg, vg, **opts).backward(do)
     torch.cuda.synchronize()
     for fn in (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv):
         assert (fn.launches, fn.ref_calls) == (1, 0), fn.__name__
-    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v, window=window)
-    want = fa.flash_attention_bwd_ref(q, k, v, want_o, want_lse, do, window=window)
+    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v, **opts)
+    want = fa.flash_attention_bwd_ref(q, k, v, want_o, want_lse, do, **opts)
     for got, w, name in zip((qg.grad, kg.grad, vg.grad), want, ("dq", "dk", "dv")):
         assert bool(torch.isfinite(got.float()).all()), name
         assert _rel(got, w) <= 1e-2, (name, _rel(got, w))
@@ -360,6 +378,28 @@ def test_cuda_reduced_step_post_and_dag_bitwise_equal_with_flash():
     for order in ("post", "dag"):
         res = run(["--arch", "tinyllama-1.1b", "--reduced", "--steps", "2", "--batch", "2",
                    "--seq", "64", "--fuse", "arena", "--issue-order", order], quiet=True)
+        params.append((res.losses, {n: p.detach().cpu() for n, p in res.model.named_parameters()}))
+    assert params[0][0] == params[1][0]
+    for n, p in params[0][1].items():
+        assert torch.equal(p, params[1][1][n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma2-2b", "mixtral-8x7b", "dbrx-132b"])
+def test_cuda_reduced_new_archs_post_and_dag_bitwise_equal(arch):
+    """The reduced token-input archs of the MoE / Gemma2 / StarCoder2 slice
+    train bitwise equal under ``post`` and ``dag`` on the card (seq 128,
+    past the 64-key windows).  Reduced StarCoder2 has head dim 24, which
+    the flash kernels do not take: it runs the plain attention."""
+    require_cuda()
+    from repro_torch.launch.train import run
+
+    extra = ["--attn-impl", "plain"] if arch.startswith("starcoder2") else []
+    params = []
+    for order in ("post", "dag"):
+        res = run(["--arch", arch, "--reduced", "--steps", "2", "--batch", "2", "--seq", "128",
+                   "--fuse", "arena", "--issue-order", order] + extra, quiet=True)
+        assert all(np.isfinite(res.losses))
         params.append((res.losses, {n: p.detach().cpu() for n, p in res.model.named_parameters()}))
     assert params[0][0] == params[1][0]
     for n, p in params[0][1].items():

@@ -170,7 +170,7 @@ def test_plan_json_round_trips_across_packages(size, tmp_path):
 
 def test_other_archs_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("mixtral-8x7b")
+        get_config("musicgen-large")
     with pytest.raises(KeyError):
         get_reduced("no-such-arch")
 

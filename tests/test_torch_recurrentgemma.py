@@ -322,8 +322,8 @@ def test_launcher_runs_recurrentgemma_with_overrides():
 def test_unported_options_raise():
     _, cfg = _cfgs("f32")
     with pytest.raises(NotImplementedError, match="pattern"):
-        Transformer(dataclasses.replace(cfg, pattern=("moe",), tail_pattern=(), n_layers=2),
+        Transformer(dataclasses.replace(cfg, pattern=("xyz",), tail_pattern=(), n_layers=2),
                     device="meta", seed=None)
-    # layernorm is ported (RWKV6); the plain GeLU MLP is not
+    # every MLP of the JAX package's token-input archs is ported; an unknown one is not
     with pytest.raises(NotImplementedError, match="mlp"):
-        Transformer(dataclasses.replace(cfg, mlp="gelu"), device="meta", seed=None)
+        Transformer(dataclasses.replace(cfg, mlp="relu"), device="meta", seed=None)
