@@ -193,13 +193,63 @@ step could hide a kernel fault.
    (32000, 2048) bf16 with an f32 residual: 3 ``issue()`` calls, sum and
    residual bitwise its plain version on the CPU.
 
+6. Serving at full depth (``launch.serve.run``, random bf16 weights from
+   seed 0, greedy, ``--fabric gpu_nccl``'s plan).  First the kernels in
+   serving mode: ``rglru_fwd`` at (4, 1 and 2, 4096) with a nonzero h0
+   (1e-5, hT == h[:, -1]), ``wkv_fwd`` at (4, 1, 64, 64) bf16 and f32 r/k/v
+   with a nonzero s0 (2e-4 + 2e-4 relative), the flash kernels at prefill
+   lengths of 6a and 6b (phase 1b's checks), each timed in that mode
+   beside its bound (the flash forward beside SDPA, B6 beside
+   ``torch.addcmul``, which computes the recurrence at T 1).  Then three cells
+   (``SERVE_CELLS``), each served twice on the same weights, once with the
+   decode step captured in a CUDA graph and once eager: 6a TinyLlama-1.1B,
+   22 layers, 8 slots / max_seq 1024, 16 requests of 64-512 prompt tokens
+   x 128 new; 6b RecurrentGemma-9B, all 38 layers, 4 / 4096, 8 requests of
+   256-2304 (the last exactly 2304: past the 2048 window, not a multiple
+   of it) x 64; 6c RWKV6-7B, all 32 layers, 4 / 4096, 8 requests of
+   256-2048 x 64.  Held: every request completes with its tokens, in the
+   vocabulary; the captured step's tokens equal the eager step's for
+   every request; the two equal-length requests batched give what each
+   gives alone; one graph captured per engine, none after a join or a
+   retirement; flash fwd = attention layers x prefills and no other flash
+   launch, ``rglru_fwd`` / ``wkv_fwd`` = recurrent layers x (prefills +
+   decode steps run in Python: the capture's warm-up and recording, eager
+   steps), no backward kernel and no plain call on the card; every
+   profiled decode step, captured and eager, ran by name in the device
+   trace B6 once per RG-LRU layer, B7's two kernels once per RWKV6 layer
+   and no flash forward (at 6c the captured step only); in 6b the
+   2304-token request's prefill (``make_prefill_step``) and 16 greedy decode
+   steps (``make_decode_step``): every window position held by a key of
+   every windowed ring after each step, and each step's logits within 3e-3
+   x max|logit| of the full forward; then the same steps from the prefill
+   caches rewritten to the JAX prefill's ring layout, which must lack
+   window positions at the first step (their logits' readings printed
+   beside the aligned ones).  Printed: prefill ms a request (median), decode step ms
+   captured and eager, tokens/s, peak GB, the calibrated plan's predicted
+   step against the observed one, each step's bound (weight bytes, the
+   embedding table only when tied, plus the cache arena, at 3.35 TB/s),
+   and at 6a and 6b a torch.profiler breakdown of a captured and of an
+   eager step (wall, device busy, idle share, ms by kernel class, the
+   port's kernels by name), at 6c of a captured step.  Then
+   the eight ported archs' reduced configs through the engine in f32 on
+   the card (graph) and on the CPU (eager): greedy tokens equal over 8
+   steps, first logits within 1e-4 x max|logit| (reduced StarCoder2's head
+   dim raised from 24 to 32 on both sides); and seeded sampling inside the
+   graph repeats on its seed.
+
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
 launches add up phases 3-3h and phases 4's and 5's training steps; it holds
 the flash kernels once per configuration (TinyLlama, RecurrentGemma and
 each ``NEW_ATTN`` shape, whose launches are its cell's: Gemma2's local and
-global shapes share phase 3f's).
+global shapes share phase 3f's), and the serving path's B3 (6a, 6b), B6
+(6b) and B7 (6c) launches of the CUDA-graph runs in rows of their own,
+timed in serving mode.  A CUDA graph's replay launches what its capture
+recorded with no Python running, so a wrapper's count holds the capture's
+recording and no replay; those rows add ``graph_replays`` (the run's
+replays) and ``launches_per_replay`` (read by kernel name from the
+device trace of profiled replays).
 """
 
 from __future__ import annotations
@@ -1960,6 +2010,566 @@ def phase_restart(device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the serving path at full depth
+# ---------------------------------------------------------------------------
+
+
+def serve_lens(n, lo, hi, exact=None):
+    """``n`` prompt lengths drawn from seed 0 in [lo, hi]; the first two are
+    equal (the batched == solo pair) and, with ``exact``, the last is it."""
+    import numpy as np
+
+    lens = [int(x) for x in np.random.default_rng(0).integers(lo, hi + 1, size=n)]
+    lens[1] = lens[0]
+    if exact is not None:
+        lens[-1] = exact
+    return lens
+
+
+# tag, arch, slots, max_seq, prompt lengths (from seed 0), new tokens
+SERVE_CELLS = [
+    ("phase 6a", "tinyllama-1.1b", 8, 1024, serve_lens(16, 64, 512), 128),
+    ("phase 6b", "recurrentgemma-9b", 4, 4096, serve_lens(8, 256, 2304, exact=2304), 64),
+    ("phase 6c", "rwkv6-7b", 4, 4096, serve_lens(8, 256, 2048), 64),
+]
+SERVE_SOLO_TOKENS = 16  # the batched == solo pair's tokens
+SERVE_REDUCED_STEPS = 8
+RG_SERVE_ATTN = (1, 2304, 16, 1, 256, True, 2048, None)  # 6b's longest prefill, one layer
+TL_SERVE_ATTN = (1, 512, 32, 4, 64, True, None, None)  # 6a's longest prefill, one layer
+DECODE_RGLRU = (4, 1, 4096)  # 6b's decode step, one RG-LRU layer
+DECODE_WKV = (4, 1, 64, 64)  # 6c's decode step, one RWKV6 layer
+
+
+def reset_all_counts() -> None:
+    from repro_torch.kernels import comm_pack, flash_attention, rglru, rwkv6_wkv
+
+    for mod in (comm_pack, flash_attention, rglru, rwkv6_wkv):
+        mod.reset_counts()
+
+
+def serve_kernel_checks(device):
+    """B6 and B7 at T = 1 with a nonzero h0 / s0, B3 at the cells' prefill
+    lengths, against their plain versions with phases 1c / 1d / 1b's
+    tolerances; then each one's time in that mode beside its bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6_wkv as wk
+
+    errs = {"rglru": 0.0, "wkv": 0.0, "flash": 0.0}
+    # B6: h_t = a h0 + g at T 1 (and T 2 at the same widths, for the threading)
+    for T in (1, 2):
+        a, g, h0 = rglru_inputs(DECODE_RGLRU[0], T, DECODE_RGLRU[2], device, 60 + T)[:3]
+        h, hT = rg.rglru_fwd(a, g, h0)
+        want_h, want_hT = rg.rglru_ref(a, g, h0)
+        d = max(float((h - want_h).abs().max()), float((hT - want_hT).abs().max()))
+        if not d <= 1e-5 or not torch.equal(hT, h[:, -1]):
+            fail(f"phase 6: rglru_fwd at ({DECODE_RGLRU[0]}, {T}, {DECODE_RGLRU[2]}) with h0 "
+                 f"differs from its plain version: {d:.3e} > 1e-5")
+        errs["rglru"] = max(errs["rglru"], d)
+    # B7 at T 1 with s0, bf16 r/k/v as the decode step gives them (and f32)
+    for dtype in (torch.bfloat16, torch.float32):
+        r, k, v, w, u, s0 = wkv_inputs(*DECODE_WKV, device, 71, dtype)[:6]
+        out, s = wk.wkv_fwd(r, k, v, w, u, s0)
+        want_out, want_s = wk.wkv_ref(r, k, v, w, u, s0)
+        for name, got, want in (("out", out, want_out), ("s_final", s, want_s)):
+            d = float((got - want).abs().max())
+            if not bool(((got - want).abs() <= 2e-4 + 2e-4 * want.abs()).all()):
+                fail(f"phase 6: wkv_fwd {name} at {DECODE_WKV} {dtype} with s0 differs from "
+                     f"its plain version: max |diff| {d:.3e}")
+            errs["wkv"] = max(errs["wkv"], d)
+    # B3 at the prefill lengths of 6a and 6b (forward and backward kernels, 1b's checks)
+    flash_errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    rel: dict = {}
+    n = 0
+    for (_, arch, _, _, lens, _), shape in ((SERVE_CELLS[0], TL_SERVE_ATTN),
+                                           (SERVE_CELLS[1], RG_SERVE_ATTN)):
+        for S in sorted(set(lens))[::max(1, len(set(lens)) // 4)] + [max(lens)]:
+            check_flash_case((1, S) + shape[2:], torch.bfloat16, device, 80 + S, flash_errs,
+                             rel=rel)
+            n += 1
+    errs["flash"] = flash_errs["fwd"]
+    say(f"phase 6: rglru_fwd at T 1 and 2 with h0 (max |diff| {errs['rglru']:.3e}, hT == "
+        f"h[:, -1]); wkv_fwd at {DECODE_WKV} with s0, bf16 and f32 r/k/v (max |diff| "
+        f"{errs['wkv']:.3e}); flash fwd/dQ/dK-dV at {n} prefill lengths of 6a and 6b (bf16: "
+        f"{fmt_rel(rel)}): all within phases 1c / 1d / 1b's tolerances")
+
+    timings = {}
+    B, T, W = DECODE_RGLRU
+    a, g, h0 = rglru_inputs(B, T, W, device, 61)[:3]
+    elems = B * T * W
+    nbytes, flops = 3 * 4 * elems + 2 * 4 * B * W, 2 * elems  # a, g, h0 -> h, hT
+    # at T 1 the recurrence is one multiply-add, which torch.addcmul computes
+    timings["rglru"] = kernel_timing(lambda: rg.rglru_fwd(a, g, h0),
+                                     lambda: rg.rglru_ref(a, g, h0),
+                                     lambda: torch.addcmul(g[:, 0], a[:, 0], h0), nbytes, flops,
+                                     PEAK_FLOPS["float32"])
+    B, T, H, K = DECODE_WKV
+    r, k, v, w, u, s0 = wkv_inputs(B, T, H, K, device, 71, torch.bfloat16)[:6]
+    elems = B * T * H * K
+    nbytes = (3 * 2 + 4 + 4) * elems + 4 * H * K + 2 * 4 * B * H * K * K  # ..., s0 -> ..., s_final
+    timings["wkv"] = kernel_timing(lambda: wk.wkv_fwd(r, k, v, w, u, s0),
+                                   lambda: wk.wkv_ref(r, k, v, w, u, s0), None, nbytes,
+                                   5 * elems * K, PEAK_FLOPS["tf32"] / 3)
+    for key, shape in (("flash[tinyllama]", TL_SERVE_ATTN), ("flash[recurrentgemma]", RG_SERVE_ATTN)):
+        B, S, Hq, Hkv, hd, _, window, _ = shape
+        q, kk, vv, _ = flash_inputs(B, S, S, Hq, Hkv, hd, torch.bfloat16, device, 90)
+        if window is None:
+            sdpa_opts = dict(is_causal=True)
+        else:
+            pos = torch.arange(S, device=device)
+            sdpa_opts = dict(attn_mask=(pos[:, None] >= pos[None, :])
+                             & (pos[:, None] - pos[None, :] < window))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, kk, vv))
+        nbytes, flops = flash_work(B, S, Hq, Hkv, hd, 2, window=window)["fwd"]
+        timings[key] = kernel_timing(
+            lambda: fa.flash_attention_fwd(q, kk, vv, window=window, return_lse=True),
+            lambda: fa.flash_attention_fwd_ref(q, kk, vv, window=window),
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                                     **sdpa_opts),
+            nbytes, flops, PEAK_FLOPS["bfloat16"])
+    for key, where, lib_name in (
+            ("rglru", f"rglru_fwd {DECODE_RGLRU} with h0", "torch.addcmul"),
+            ("wkv", f"wkv_fwd {DECODE_WKV} bf16 r/k/v with s0", None),
+            ("flash[tinyllama]", f"flash fwd {TL_SERVE_ATTN[:5]} bf16", "SDPA"),
+            ("flash[recurrentgemma]", f"flash fwd {RG_SERVE_ATTN[:5]} window 2048 bf16", "SDPA")):
+        t = timings[key]
+        lib = "none" if t["library_ms"] is None else f"{lib_name} {t['library_ms']:.4f} ms"
+        say(f"phase 6: {where}, one launch: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+            f"({t['bound_ms'] / t['ms'] * 100:.1f}% of bound)")
+    reset_all_counts()
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+def kernel_timing(kern, plain, library, nbytes, flops, peak) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return {"ms": median_ms(kern), "plain_ms": median_ms(plain, reps=3, warmup=1),
+            "library_ms": None if library is None else median_ms(library),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def decode_bytes(model, engine) -> int:
+    """Bytes one decode step must read: every parameter as stored (the
+    embedding table only when tied, as the head; untied, a step gathers a
+    row per slot) and the engine's whole cache arena (attention reads every
+    slot of the ring, the recurrences their states)."""
+    from repro_torch.models.transformer import tree_leaves
+
+    cfg = model.cfg
+    params = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                 if n != "embed" or cfg.tie_embeddings)
+    cache = sum(t.numel() * t.element_size() for t in tree_leaves(engine._state["caches"]))
+    return params + cache
+
+
+# the port's kernels by the names the device trace gives them (substrings)
+TRACE_NAMES = {"flash_fwd": ("flash_fwd_sm90_kernel", "flash_fwd_kernel"),
+               "rglru_fwd": ("rglru_fwd_kernel",), "wkv_fwd_state": ("wkv_fwd_state_kernel",),
+               "wkv_fwd_out": ("wkv_fwd_out_kernel",)}
+
+
+def decode_profile(engine, steps: int = 10) -> dict:
+    """torch.profiler over ``steps`` decode steps of ``engine`` (every slot
+    active, its state saved first and put back after): wall and device-busy
+    ms a step, the idle share, device ms a step by kernel class (the classes
+    of ``launch.profile_step``), and the launches a step of each of the
+    port's kernels, counted by name in the device trace (``TRACE_NAMES``):
+    for a graph, what its replays ran.  Two warm-up steps run with the
+    tracer already on and are dropped (the first replays under a fresh
+    tracer can lose kernel records), and the device is idle at both ends
+    of the recorded steps."""
+    import torch
+    from repro_torch.launch.profile_step import _union_us, kernel_class
+    from repro_torch.models.transformer import tree_leaves
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    warm = 2
+    saved = [t.clone() for t in tree_leaves(engine._state)]
+    with torch.inference_mode():
+        engine._state["active"].fill_(True)
+        engine._launch_step()
+        torch.cuda.synchronize()
+        once = schedule(wait=0, warmup=warm, active=steps, repeat=1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=once) as prof:
+            for i in range(warm + steps):
+                if i == warm:
+                    t0 = time.perf_counter()
+                engine._launch_step()
+                if i in (warm - 1, warm + steps - 1):
+                    torch.cuda.synchronize()
+                if i == warm + steps - 1:
+                    wall = (time.perf_counter() - t0) * 1e3 / steps
+                prof.step()
+        for dst, src in zip(tree_leaves(engine._state), saved):
+            dst.copy_(src)
+    # the device events, less the schedule's step annotations (each spans its whole step)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("ProfilerStep")]
+    busy = _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3 / steps
+    by_class: dict = {}
+    for e in events:
+        c = kernel_class(e.name)
+        by_class[c] = by_class.get(c, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    named = {key: sum(any(n in e.name for n in names) for e in events) / steps
+             for key, names in TRACE_NAMES.items()}
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1.0 - busy / wall if events else None,
+            "kernels": len(events) / steps, "named": named,
+            "classes": {c: round(ms / steps, 4)
+                        for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1])}}
+
+
+def serve_counts(cfg) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6_wkv as wk
+
+    return {"flash_fwd": fa.flash_attention_fwd.launches, "rglru_fwd": rg.rglru_fwd.launches,
+            "wkv_fwd": wk.wkv_fwd.launches,
+            "plain": sum(f.ref_calls for f in (fa.flash_attention_fwd, fa.flash_attention_dq,
+                                               fa.flash_attention_dkv, rg.rglru_fwd, rg.rglru_bwd,
+                                               wk.wkv_fwd, wk.wkv_bwd)),
+            "other": (fa.flash_attention_dq.launches + fa.flash_attention_dkv.launches
+                      + rg.rglru_bwd.launches + wk.wkv_bwd.launches)}
+
+
+def layer_counts(cfg) -> tuple[int, int, int]:
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    kinds = cfg.block_kinds()
+    return sum(k in ATTN_KINDS for k in kinds), kinds.count("rec"), kinds.count("rwkv")
+
+
+def check_serve_counts(tag, cfg, res, counts, n_prefills):
+    """The wrappers' counters: B3 once per attention layer per prefill and
+    never in decode; B6 and B7 once per recurrent layer per prefill and per
+    decode step that ran in Python (eager steps, warm-ups, eager probes, the
+    capture's warm-up and its recording; a replay runs no wrapper, and
+    ``check_step_kernels`` reads what it ran from the device trace); no
+    backward kernel, no plain version on the card."""
+    attn, rec, rwkv = layer_counts(cfg)
+    eng = res.engine
+    steps = eng.decode_launches - eng.graph_replays + eng.graph_captures
+    want = {"flash_fwd": attn * n_prefills, "rglru_fwd": rec * (n_prefills + steps),
+            "wkv_fwd": rwkv * (n_prefills + steps), "plain": 0, "other": 0}
+    if counts != want:
+        fail(f"{tag}: kernel counts {counts}, want {want} ({attn} attention, {rec} RG-LRU, "
+             f"{rwkv} RWKV6 layers; {n_prefills} prefills, {steps} decode steps in Python)")
+    return want
+
+
+def check_step_kernels(tag, cfg, prof):
+    """Each profiled decode step ran B6 once per RG-LRU layer, B7's two
+    kernels once per RWKV6 layer and no flash forward, by name in the
+    device trace."""
+    _, rec, rwkv = layer_counts(cfg)
+    want = {"flash_fwd": 0, "rglru_fwd": rec, "wkv_fwd_state": rwkv, "wkv_fwd_out": rwkv}
+    if prof["named"] != want:
+        fail(f"{tag}: a decode step's kernels in the device trace {prof['named']}, want {want}")
+
+
+RING_STEPS = 16  # decode steps of the ring check; the JAX ring loses one more key a step
+RING_GATE = 3e-3  # max |diff| / max|logit| a step of the aligned ring (PERF.md)
+
+
+def fmt_steps(readings: list[float]) -> str:
+    return (f"first {readings[0]:.3e}, step 8 {readings[7]:.3e}, last {readings[-1]:.3e}, "
+            f"worst {max(readings):.3e}")
+
+
+def jax_ring_layout(caches, S: int) -> None:
+    """Rewrite, in place, every attention ring shorter than the ``S``-token
+    prompt from the port's layout (slot ``p % T`` holds position ``p``) to
+    the JAX prefill's (``src/repro/models/layers.py:310-320``: the trailing
+    ``T`` positions at slots 0..T-1), which a decode step then misreads."""
+    import torch
+
+    with torch.inference_mode():
+        for part in caches.values():
+            for leaf in part.values():
+                if isinstance(leaf, tuple) and leaf[2].shape[-1] < S:
+                    k, v, kpos = leaf
+                    shift = -(S % kpos.shape[-1])
+                    for t, axis in ((k, kpos.dim()), (v, kpos.dim()), (kpos, kpos.dim() - 1)):
+                        t.copy_(torch.roll(t, shift, axis))
+
+
+def window_keys_missing(caches, S: int, q: int) -> int:
+    """Over every attention ring shorter than ``S`` (every stage's copy):
+    how many of the window's positions ``q - T + 1 .. q`` a decode step at
+    position ``q`` finds no key for (the ring holds each at most once)."""
+    import torch
+
+    missing = 0
+    for part in caches.values():
+        for leaf in part.values():
+            if isinstance(leaf, tuple) and leaf[2].shape[-1] < S:
+                kpos = leaf[2].reshape(-1, leaf[2].shape[-1]).long()
+                T = kpos.shape[-1]
+                for row in kpos:
+                    held = row[(row <= q) & (q - row < T)]
+                    missing += min(T, q + 1) - int(torch.unique(held).numel())
+    return missing
+
+
+def ring_check(tag, cfg, model, max_seq, prompt, device) -> dict:
+    """``prompt``'s prefill (``make_prefill_step``) and ``RING_STEPS``
+    greedy decode steps (``make_decode_step``): after each step every
+    windowed ring holds a key for each position of its window, and the
+    step's logits lie within ``RING_GATE`` x max|logit| of the full forward
+    over the prompt and the tokens fed.  Then the same steps, fed the same
+    tokens, from the prefill caches rewritten to the JAX ring layout: the
+    first step must find window positions without a key (the fault the
+    aligned ring repairs); its logits' readings are reported beside the
+    aligned ones."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import tree_map
+
+    S = len(prompt)
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device=device)[None]
+    decode = make_decode_step(cfg)
+    logits0, caches = make_prefill_step(cfg, max_seq)(model, {"tokens": tokens})
+    jax_caches = tree_map(torch.clone, caches)
+    fed = [logits0.argmax(-1)]
+    aligned, missing = [], 0
+    for i in range(RING_STEPS):
+        lg, caches = decode(model, caches, {"tokens": fed[-1][:, None]},
+                            torch.tensor(S + i, dtype=torch.int32, device=device))
+        missing += window_keys_missing(caches, S, S + i)
+        aligned.append(lg)
+        fed.append(lg.argmax(-1))
+    del caches
+    with torch.inference_mode():
+        full = model(torch.cat([tokens] + [t[:, None] for t in fed[:RING_STEPS]], 1))[0]
+    want = full[0, S:]
+    del full
+    jax_ring_layout(jax_caches, S)
+    jax, jax_missing = [], []
+    for i in range(RING_STEPS):
+        lg, jax_caches = decode(model, jax_caches, {"tokens": fed[i][:, None]},
+                                torch.tensor(S + i, dtype=torch.int32, device=device))
+        jax_missing.append(window_keys_missing(jax_caches, S, S + i))
+        jax.append(lg)
+    del jax_caches
+
+    def readings(steps):
+        return [float((lg[0] - want[i]).abs().max() / want[i].abs().max())
+                for i, lg in enumerate(steps)]
+
+    out = {"S": S, "aligned": readings(aligned), "jax": readings(jax), "jax_missing": jax_missing,
+           "argmax_equal": bool(aligned[0].argmax() == want[0].argmax())}
+    if missing:
+        fail(f"{tag}: the aligned ring lacks {missing} window positions over {RING_STEPS} steps")
+    if not all(torch.isfinite(lg).all() for lg in aligned) or max(out["aligned"]) > RING_GATE:
+        fail(f"{tag}: the {S}-token prompt's decode logits differ from the full forward past "
+             f"{RING_GATE:g} x max|logit|: {fmt_steps(out['aligned'])}")
+    if not jax_missing[0]:
+        fail(f"{tag}: the JAX prefill's ring holds every window position at the first decode: "
+             f"the check cannot tell the misaligned ring")
+    return out
+
+
+def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
+    """One full-depth serving cell through ``launch.serve.run``: the CUDA
+    graph engine, then the eager one on the same weights and requests."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    from repro_torch.serving import Request, ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    model = Transformer(cfg, device=device, seed=0)
+    args = ["--arch", arch, "--slots", str(slots), "--requests", str(len(lens)),
+            "--prompt-lens", ",".join(map(str, lens)), "--tokens", str(tokens),
+            "--max-seq", str(max_seq), "--fabric", "gpu_nccl", "--device", str(device)]
+    out = {}
+    for mode, graph in (("graph", True), ("eager", False)):
+        reset_all_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve.run(args, model=model, cuda_graph=graph, quiet=True)
+        torch.cuda.synchronize()
+        counts = serve_counts(cfg)
+        check_serve_counts(f"{tag} {mode}", cfg, res, counts, len(lens))
+        toks = {r.rid: r.generated for r in res.completed}
+        if len(toks) != len(lens) or any(len(t) != tokens for t in toks.values()):
+            fail(f"{tag} {mode}: {len(toks)} requests completed, lengths "
+                 f"{sorted({len(t) for t in toks.values()})}")
+        stats = res.engine.compile_stats()
+        if graph and (stats["graph_captures"] != 1 or res.engine.graph_captures != 1):
+            fail(f"{tag}: {stats['graph_captures']} decode graphs captured, want 1 (none after a "
+                 f"join or a retirement)")
+        out[mode] = {"res": res, "counts": counts, "tokens": toks, "stats": stats,
+                     "steps": res.engine.decode_launches, "replays": res.engine.graph_replays,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "prefill_ms": statistics.median(res.timer.prefill_times) * 1e3,
+                     "step_ms": res.engine.observed_step_time() * 1e3}
+    g, e = out["graph"], out["eager"]
+    if g["tokens"] != e["tokens"]:
+        bad = [rid for rid in g["tokens"] if g["tokens"][rid] != e["tokens"][rid]]
+        fail(f"{tag}: the captured step's tokens differ from the eager step's for requests {bad}")
+    vocab_ok = all(0 <= t < cfg.vocab for ts in g["tokens"].values() for t in ts)
+    if not vocab_ok:
+        fail(f"{tag}: a token outside the vocabulary")
+
+    # batched == solo: the two equal-length requests, together and alone (same slots)
+    reqs = serve.make_requests(serve.parse_args(args), cfg.vocab)[:2]
+
+    def serve_solo(rs):
+        eng = ServingEngine(cfg, model, slots=slots, max_seq=max_seq, cuda_graph=True)
+        for r in rs:
+            eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=SERVE_SOLO_TOKENS))
+        done = {r.rid: r.generated for r in eng.run_to_completion()}
+        if eng.graph_captures != 1:
+            fail(f"{tag}: {eng.graph_captures} graphs captured by one engine")
+        del eng
+        return done
+
+    both = serve_solo(reqs)
+    for r in reqs:
+        alone = serve_solo([r])
+        if alone[r.rid] != both[r.rid]:
+            fail(f"{tag}: request {r.rid} batched {both[r.rid]} != alone {alone[r.rid]}")
+
+    # the decode-step profile, captured and eager, on the graph run's engine; at 6c only
+    # the captured step's, for what its replays run
+    prof = {"graph": decode_profile(g["res"].engine, steps=10 if arch != "rwkv6-7b" else 3)}
+    if arch != "rwkv6-7b":
+        prof["eager"] = decode_profile(e["res"].engine)
+    for mode, p in prof.items():
+        check_step_kernels(f"{tag} {mode}", cfg, p)
+
+    # the longest prompt's decode steps against the full forward, with the ring as the port
+    # writes it and as the JAX prefill writes it
+    fwd = None
+    if arch == "recurrentgemma-9b":
+        req = serve.make_requests(serve.parse_args(args), cfg.vocab)[-1]
+        fwd = ring_check(tag, cfg, model, max_seq, req.prompt, device)
+    plan = g["res"].plan
+    bound_ms = decode_bytes(model, g["res"].engine) / HBM_BYTES_PER_S * 1e3
+    res = {
+        "counts": {m: out[m]["counts"] for m in out}, "prefill_ms": g["prefill_ms"],
+        "step_ms": g["step_ms"], "eager_step_ms": e["step_ms"],
+        "tok_s": g["res"].n_tokens / g["res"].seconds,
+        "eager_tok_s": e["res"].n_tokens / e["res"].seconds,
+        "peak_gb": max(g["peak_gb"], e["peak_gb"]),
+        "predicted_ms": plan.predicted_step_time() * 1e3, "bound_ms": bound_ms, "fwd": fwd,
+        "prof": prof, "steps": g["steps"], "replays": g["replays"],
+    }
+    say(f"{tag}: {arch} all {cfg.n_layers} layers bf16, {slots} slots / max_seq {max_seq}, "
+        f"{len(lens)} requests (prompts {min(lens)}-{max(lens)}) x {tokens} tokens, greedy: "
+        f"captured step tokens == eager step tokens for every request; batched == alone for "
+        f"the two {lens[0]}-token requests; 1 decode graph, none after joins or retirements; "
+        f"kernel counts {out['graph']['counts']} (graph run) and {out['eager']['counts']} "
+        f"(eager run), {res['steps']} decode steps in the graph run")
+    say(f"{tag}: prefill {res['prefill_ms']:.2f} ms a request (median); decode step "
+        f"{res['step_ms']:.3f} ms captured, {res['eager_step_ms']:.3f} ms eager; "
+        f"{res['tok_s']:.1f} tokens/s captured ({res['eager_tok_s']:.1f} eager); peak "
+        f"{res['peak_gb']:.2f} GB; plan predicted step {res['predicted_ms']:.3f} ms (calibrated) "
+        f"against {res['step_ms']:.3f} ms observed; bound {bound_ms:.3f} ms "
+        f"({decode_bytes(model, g['res'].engine) / 1e9:.2f} GB of weights and caches at 3.35 "
+        f"TB/s, {bound_ms / res['step_ms'] * 100:.1f}% of it)")
+    for mode, p in prof.items():
+        idle = "not measured" if p["idle"] is None else f"{p['idle']:.3f}"
+        named = {k: int(v) for k, v in p["named"].items()}
+        say(f"{tag}: {mode} decode step under torch.profiler: {p['wall_ms']:.3f} ms wall, "
+            f"{p['busy_ms']:.3f} ms device busy, idle share {idle}, {p['kernels']:.0f} kernels "
+            f"a step, of them by name {named}; device ms a step by class {p['classes']}")
+    if fwd:
+        say(f"{tag}: the {fwd['S']}-token request's {RING_STEPS} decode steps against the full "
+            f"forward at positions {fwd['S']}-{fwd['S'] + RING_STEPS - 1}, max |diff| / "
+            f"max|logit| a step: aligned ring {fmt_steps(fwd['aligned'])} (gate {RING_GATE:g}; "
+            f"first argmax equal {fwd['argmax_equal']}; every window position held); the JAX "
+            f"prefill's ring {fmt_steps(fwd['jax'])}, window positions without a key over its "
+            f"rings at steps 1 / 8 / {RING_STEPS}: {fwd['jax_missing'][0]} / "
+            f"{fwd['jax_missing'][7]} / {fwd['jax_missing'][-1]}")
+    say(f"{tag}: {time.perf_counter() - t0:.1f} s")
+    del model, g, e, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_reduced(device):
+    """The eight ported archs' reduced configs through the engine in f32, on
+    the card (CUDA graph) and on the CPU (eager): the same greedy tokens over
+    ``SERVE_REDUCED_STEPS`` steps, and the first request's prefill logits
+    within 1e-4 x max|logit|.  Reduced StarCoder2's head dim 24 is raised to
+    32 on both sides (the kernels take 32, 64, 128 and 256)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import PORTED_ARCHS, get_reduced
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import Transformer
+    from repro_torch.serving import Request, ServingEngine, gumbel_sampler
+
+    worst = 0.0
+    for arch in PORTED_ARCHS:
+        cfg = get_reduced(arch, param_dtype=torch.float32)
+        if cfg.attention is not None and cfg.attention.head_dim == 24:
+            import dataclasses
+
+            cfg = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, head_dim=32))
+        cpu = Transformer(cfg, device="cpu", seed=0)
+        gpu = Transformer(cfg, device=device, seed=None)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32) for n in (12, 20, 33)]
+        done = []
+        for model in (gpu, cpu):
+            eng = ServingEngine(cfg, model, slots=2, max_seq=64)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p, max_new_tokens=SERVE_REDUCED_STEPS))
+            done.append({r.rid: r.generated for r in eng.run_to_completion()})
+        if done[0] != done[1]:
+            fail(f"phase 6: reduced {arch} through the engine: card {done[0]} != CPU {done[1]}")
+        first = [make_prefill_step(cfg, 64)(m, {"tokens": torch.as_tensor(
+            prompts[0][None], dtype=torch.long, device=m.embed.device)})[0].cpu()
+            for m in (gpu, cpu)]
+        d, top = float((first[0] - first[1]).abs().max()), float(first[1].abs().max())
+        if not d <= 1e-4 * top:
+            fail(f"phase 6: reduced {arch} prefill logits on the card differ from the CPU: "
+                 f"{d:.3e} > 1e-4 x {top:.3e}")
+        worst = max(worst, d / top)
+        if arch == "tinyllama-1.1b":  # seeded sampling inside the graph repeats on its seed
+            drawn = []
+            for seed in (2, 2, 3):
+                eng = ServingEngine(cfg, gpu, slots=2, max_seq=64, sample=gumbel_sampler(1.0),
+                                    sample_seed=seed)
+                for rid, p in enumerate(prompts):
+                    eng.submit(Request(rid=rid, prompt=p, max_new_tokens=SERVE_REDUCED_STEPS))
+                drawn.append({r.rid: r.generated for r in eng.run_to_completion()})
+            if drawn[0] != drawn[1]:
+                fail(f"phase 6: seeded sampling in the CUDA graph does not repeat on its seed: "
+                     f"{drawn[0]} != {drawn[1]}")
+            sampled_differs = drawn[0] != drawn[2]
+    say(f"phase 6: seeded sampling (Gumbel-max, T 1) inside the CUDA graph: seed 2 twice gives "
+        f"the same tokens; seed 3 gives {'others' if sampled_differs else 'the same'}")
+    say(f"phase 6: the {len(PORTED_ARCHS)} ported archs' reduced configs through the engine in "
+        f"f32, card (CUDA graph) against CPU (eager): greedy tokens equal over "
+        f"{SERVE_REDUCED_STEPS} steps for 3 requests each; first logits within "
+        f"{worst:.3e} x max|logit| (gate 1e-4)")
+    reset_all_counts()
+
+
+def phase_serve(device):
+    """Phase 6: the kernels in serving mode, the three full-depth cells, the
+    reduced archs card against CPU."""
+    t0 = time.perf_counter()
+    errs, timings = serve_kernel_checks(device)
+    cells = {tag: serve_cell(tag, arch, slots, max_seq, lens, tokens, device)
+             for tag, arch, slots, max_seq, lens, tokens in SERVE_CELLS}
+    serve_reduced(device)
+    say(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    return errs, timings, cells
+
+
 def demangle(names: list[str]) -> list[str]:
     """Kernel names as ``name<template arguments>`` (c++filt, where the
     machine has it; else as ptxas gave them)."""
@@ -2023,26 +2633,41 @@ def main() -> None:
         say(f"build: {lib.name} ({secs:.1f} s)" + ("" if log else " (already built)"))
         report_ptxas(log)
 
+    lap = [time.perf_counter()]
+
+    def took(what: str) -> None:  # each group of phases' seconds, for the budget
+        now = time.perf_counter()
+        say(f"{what}: {now - lap[0]:.1f} s")
+        lap[0] = now
+
     errs, timings = phase_kernels(device)
     flash_errs, flash_timings = phase_flash(device)
     rglru_errs, rglru_timings = phase_rglru(device)
     rg_flash_errs, rg_flash_timings = phase_rg_flash(device)
     wkv_errs, wkv_timings = phase_wkv(device)
+    took("phases 1-1d")
     new_flash = phase_new_flash(device)
+    took("phase 1e")
     phase_reduced_model(device)
     phase_reduced_model(device, "recurrentgemma-9b", seq=128, tag="phase 2b")
     phase_reduced_model(device, "rwkv6-7b", seq=64, tag="phase 2c")
     for arch in ("gemma2-2b", "mixtral-8x7b", "dbrx-132b"):
         phase_reduced_model(device, arch, seq=128, tag=f"phase 2d {arch}")
+    took("phases 2-2d")
     try:
         counts, dag = phase_full_width(device)
+        took("phase 3")
         rg_counts = phase_rg_full_width(device)
         rwkv_counts = phase_rwkv_full_width(device)
+        took("phases 3b-3c")
         new_counts = phase_new_full_width(device)
+        took("phases 3d-3h")
         p4_counts = phase_autotune(device, dag)
         p5_counts = phase_restart(device)
+        took("phases 4-5")
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    serve_errs, serve_timings, serve_cells = phase_serve(device)
     say(f"all phases, the build included: {time.perf_counter() - t_start:.1f} s")
 
     main_cfg = timings["float32"]  # the main path's wire
@@ -2139,6 +2764,33 @@ def main() -> None:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+        })
+    # the serving path (phase 6's CUDA-graph runs): B3 in each prefill, B6 and
+    # B7 in each prefill and decode step, each timed in that mode.  The wrappers
+    # count the prefills and the capture's recording; a replay's launches are
+    # read by name from the device trace
+    graph_counts = {tag: c["counts"]["graph"] for tag, c in serve_cells.items()}
+    for name, source, replaces, key, counter, err, extra in (
+            ("flash_attention.fwd[serve tinyllama]", FLASH_SM90_SRC,
+             "src/repro/kernels/flash_attention/kernel.py:40", "flash[tinyllama]",
+             ("phase 6a", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
+            ("flash_attention.fwd[serve recurrentgemma]", FLASH_SM90_SRC,
+             "src/repro/kernels/flash_attention/kernel.py:40", "flash[recurrentgemma]",
+             ("phase 6b", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
+            ("rglru.fwd[serve]", RGLRU_SRC, "src/repro/kernels/rglru/kernel.py:31", "rglru",
+             ("phase 6b", "rglru_fwd"), "rglru", {}),
+            ("rwkv6_wkv.fwd[serve]", WKV_SRC, "src/repro/kernels/rwkv6_wkv/kernel.py:31", "wkv",
+             ("phase 6c", "wkv_fwd"), "wkv", {})):
+        t = serve_timings[key]
+        cell = serve_cells[counter[0]]
+        per_replay = cell["prof"]["graph"]["named"][
+            "wkv_fwd_state" if counter[1] == "wkv_fwd" else counter[1]]
+        kernels.append({
+            "name": name, **extra, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": graph_counts[counter[0]][counter[1]],
+            "graph_replays": cell["replays"], "launches_per_replay": int(per_replay),
+            "max_abs_err": serve_errs[err], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,186 @@
+"""Serving launcher: continuous batching through ``serving.ServingEngine``
+under a fabric-priced ``ServePlan`` (counterpart of the unsharded path of
+``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --slots 4 --requests 8 --prompt-len 32 --tokens 16 --fabric gpu_nccl
+
+    # on the CPU, at the reduced size (f32 weights)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --reduced --device cpu --plan-out /tmp/serve_plan.json
+
+Runs on ``cuda`` unless ``--device cpu`` is given; the weights are random,
+drawn from seed 0.  The launcher builds the decode-side ``ServePlan``
+(KV all-gathers for dense archs, expert all-to-alls for MoE, priced by
+the ``--fabric`` preset over a ``--virtual-tp``-wide model axis), hands
+it to the engine, captures the engine's step (a CUDA graph on the card),
+calibrates the plan's fixed per-step term, runs the requests and prints
+throughput and predicted against observed step time.  Prompts are drawn
+from seed 0, ``--prompt-len`` tokens each or, with ``--prompt-lens``, the
+listed lengths in turn.
+
+Not ported yet, and raising ``NotImplementedError`` when given:
+``--sharded`` and ``--measure-comm`` (sharded serving, ROADMAP A.3.1);
+``--chaos-*``, ``--deadline-ms``, ``--snapshot-*`` and ``--max-restarts``
+(the resilient serve loop, ROADMAP A.3.2); the embeds-input archs
+``musicgen-large`` and ``qwen2-vl-2b`` (ROADMAP A.2.1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..configs import ARCH_NAMES, PORTED_ARCHS, get_config, get_reduced
+from ..devices import resolve_device
+from ..fabric import available_fabrics
+from ..models import Transformer, param_shapes
+from ..planning import ServePlan, available_policies, build_serve_plan
+from ..planning.serve import SHARDED_SERVING
+from ..serving import Request, ServeTimer, ServingEngine, gumbel_sampler
+from ..serving.engine import EMBEDS, RESILIENCE
+
+RESILIENT_FLAGS = ("chaos_kill_every", "chaos_seed", "chaos_slow_factor", "chaos_slow_after",
+                   "deadline_ms", "snapshot_every", "snapshot_dir", "max_restarts")
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's small variant, with f32 weights")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; nothing falls back to the CPU on its own")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode batch slots (continuous batching)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--prompt-lens", default=None,
+                    help="comma-separated prompt lengths, taken in turn by the requests "
+                         "(replaces --prompt-len)")
+    ap.add_argument("--tokens", type=int, default=16, help="new tokens per request")
+    ap.add_argument("--max-seq", type=int, default=None,
+                    help="cache length (default: the longest prompt + --tokens + 1)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--fabric", default="tpu_v5e", choices=available_fabrics(),
+                    help="interconnect preset pricing the decode collectives")
+    ap.add_argument("--policy", default="mg_wfbp", choices=list(available_policies()),
+                    help="scheduler policy for the serve plan")
+    ap.add_argument("--virtual-tp", type=int, default=8,
+                    help="TP size of the serve-plan collective model")
+    ap.add_argument("--plan-out", default=None, help="write the ServePlan JSON here")
+    ap.add_argument("--sharded", action="store_true",
+                    help="not ported yet (ROADMAP A.3.1): sharded TP decode")
+    ap.add_argument("--measure-comm", action="store_true",
+                    help="not ported yet (ROADMAP A.3.1): timed serve collectives")
+    for flag, kind in (("--chaos-kill-every", int), ("--chaos-seed", int),
+                       ("--chaos-slow-factor", float), ("--chaos-slow-after", int),
+                       ("--deadline-ms", float), ("--snapshot-every", int),
+                       ("--snapshot-dir", str), ("--max-restarts", int)):
+        ap.add_argument(flag, type=kind, default=None,
+                        help="not ported yet (ROADMAP A.3.2): the resilient serve loop")
+    return ap.parse_args(argv)
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """What a serving run gives back: the completed requests, the
+    (calibrated) plan, the engine, the run's wall seconds and generated
+    tokens, and the timer's prefill and decode-step samples."""
+
+    completed: list[Request]
+    plan: ServePlan
+    engine: ServingEngine
+    seconds: float
+    n_tokens: int
+    timer: ServeTimer
+
+
+def _prompt_lens(args: argparse.Namespace) -> list[int]:
+    if args.prompt_lens:
+        return [int(x) for x in args.prompt_lens.split(",")]
+    return [args.prompt_len]
+
+
+def make_requests(args: argparse.Namespace, vocab: int) -> list[Request]:
+    """``--requests`` requests, prompts drawn from seed 0 (the JAX
+    launcher's draw at a single ``--prompt-len``)."""
+    rng = np.random.default_rng(0)
+    lens = _prompt_lens(args)
+    return [Request(rid=rid, prompt=rng.integers(0, vocab, size=lens[rid % len(lens)],
+                                                 dtype=np.int32),
+                    max_new_tokens=args.tokens)
+            for rid in range(args.requests)]
+
+
+def run(argv: list[str] | None = None, *, model: Transformer | None = None,
+        cuda_graph: bool | None = None, quiet: bool = False) -> ServeResult:
+    """Parse ``argv``, build (or take) the model, plan, engine and
+    requests, and serve them to completion.  ``model`` reuses built
+    weights; ``cuda_graph`` is the engine's (None: a graph on the card)."""
+    args = parse_args(argv)
+    if args.sharded or args.measure_comm:
+        raise NotImplementedError(SHARDED_SERVING)
+    given = [f"--{n.replace('_', '-')}" for n in RESILIENT_FLAGS if getattr(args, n) is not None]
+    if given:
+        raise NotImplementedError(f"{', '.join(given)}: {RESILIENCE}")
+    if args.arch not in PORTED_ARCHS:
+        raise NotImplementedError(f"{args.arch}: {EMBEDS}")
+    say = (lambda msg: None) if quiet else (lambda msg: print(f"[serve] {msg}", flush=True))
+    device = resolve_device(args.device)
+    cfg = (get_reduced(args.arch, param_dtype=torch.float32) if args.reduced
+           else get_config(args.arch))
+    if model is None:
+        model = Transformer(cfg, device=device, seed=0)
+    max_seq = args.max_seq or max(_prompt_lens(args)) + args.tokens + 1
+
+    # the engine's decode caches are f32, so the wire would ship 4-byte
+    # elements: price the plan at what the step ships
+    plan = build_serve_plan(cfg, param_shapes(cfg), args.fabric, {"model": args.virtual_tp},
+                            batch_rows=args.slots, policy=args.policy,
+                            cache_dtype_bytes=4, act_dtype_bytes=4)
+    say(plan.describe())
+    sample = gumbel_sampler(args.temperature) if args.temperature > 0 else None
+    timer = ServeTimer()
+    engine = ServingEngine(cfg, model, slots=args.slots, max_seq=max_seq, sample=sample,
+                           sample_seed=2, plan=plan, timer=timer, cuda_graph=cuda_graph)
+    engine.warmup()  # build (capture) the step before anything is timed
+    if plan.schedule.result is not None:
+        plan = engine.calibrate_plan()
+        wire = plan.schedule.result.t_iter
+        say(f"calibrated step: fixed={plan.t_step_fixed * 1e6:.1f}us + wire={wire * 1e6:.1f}us"
+            f" = {(plan.t_step_fixed + wire) * 1e6:.1f}us")
+    for req in make_requests(args, cfg.vocab):
+        engine.submit(req)
+    t0 = time.perf_counter()
+    completed = engine.run_to_completion()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.generated) for r in completed)
+    step = "CUDA graph" if engine.cuda_graph else "eager step"
+    say(f"{len(completed)} requests, {n_tok} tokens in {dt:.2f}s "
+        f"({n_tok / max(dt, 1e-9):.1f} tok/s, {args.slots} slots, unsharded, {step} on {device})")
+    predicted, observed = engine.predicted_step_time(), engine.observed_step_time()
+    if predicted is not None:
+        say(f"plan predicted step: {predicted * 1e3:.3f}ms "
+            f"({plan.op} over {plan.axis_sizes} on {plan.fabric})")
+    if observed is not None:
+        say(f"observed step: {observed * 1e3:.3f}ms"
+            + (f" (observed/predicted = {observed / predicted:.1f}x)" if predicted else ""))
+    if args.plan_out:
+        say(f"serve plan written to {plan.save(args.plan_out)}")
+    return ServeResult(completed=completed, plan=plan, engine=engine, seconds=dt,
+                       n_tokens=n_tok, timer=timer)
+
+
+def main() -> None:
+    run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,59 @@
+"""Serving step builders (counterpart of ``repro/launch/steps.py``'s
+``make_prefill_step`` and ``make_decode_step``).
+
+The JAX package's third builder, ``make_train_step``, has its counterpart
+in ``core/trainer.py``.  Nothing here shards: the JAX builders' sharding
+rules come with sharded serving (ROADMAP A.3.1).  Both steps run under
+``torch.inference_mode()`` and take the model itself where the JAX steps
+take its parameter tree.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.common import ArchConfig
+from ..models.transformer import init_caches
+
+
+def _tokens(batch: dict) -> torch.Tensor:
+    if "tokens" not in batch:
+        raise NotImplementedError(
+            "input_mode='embeds' (musicgen-large, qwen2-vl-2b) is not ported yet: ROADMAP A.2.1")
+    return batch["tokens"]
+
+
+def make_prefill_step(cfg: ArchConfig, max_seq: int, cache_dtype=torch.bfloat16):
+    """``prefill(model, batch) -> (last_logits (B, vocab) f32, caches)``.
+
+    ``batch['tokens']`` (B, S) starts at position 0; the caches are a fresh
+    ``init_caches(cfg, B, max_seq)`` tree on the tokens' device, in
+    ``cache_dtype`` (bf16 by default, as the JAX step's), filled by the
+    forward.  The head runs on the last row only."""
+
+    def prefill(model, batch: dict):
+        tokens = _tokens(batch)
+        with torch.inference_mode():
+            caches = init_caches(cfg, tokens.shape[0], max_seq, dtype=cache_dtype,
+                                 device=tokens.device)
+            logits, caches, _ = model(tokens, caches, last_only=True)
+        return logits[:, -1], caches
+
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig):
+    """``decode(model, caches, batch, pos) -> (logits (B, vocab) f32, caches)``.
+
+    ``batch['tokens']`` (B, 1) holds one token per row, all at the absolute
+    position ``pos`` (an int or a 0-d device tensor; per-row positions are
+    the serving engine's, layered above this step).  The caches are
+    updated in place and returned."""
+
+    def decode(model, caches: dict, batch: dict, pos):
+        tokens = _tokens(batch)
+        with torch.inference_mode():
+            logits, caches, _ = model(tokens, caches, pos)
+        return logits[:, 0], caches
+
+    return decode

@@ -1,9 +1,11 @@
-"""The dense decoder LM and the weight bridge to the JAX package."""
+"""The decoder LM, its serving caches (``init_caches``) and the weight
+bridge to the JAX package."""
 
 from .common import ArchConfig, Attention
 from .transformer import (
     Transformer,
     from_jax_params,
+    init_caches,
     load_arrays,
     param_shapes,
     to_jax_params,
@@ -14,6 +16,7 @@ __all__ = [
     "Attention",
     "Transformer",
     "from_jax_params",
+    "init_caches",
     "load_arrays",
     "param_shapes",
     "to_jax_params",

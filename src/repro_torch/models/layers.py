@@ -13,16 +13,33 @@ plain GeLU MLP and the logit softcap.
   level (its q-chunked causal branch): einsum scores, the softcap
   ``tanh(s / cap) * cap`` when set, a mask with value ``-1e30``, an f32
   softmax cast to the input dtype, an einsum with V.
+
+With a KV cache (serving), ``AttentionBlock`` keeps the JAX package's
+``(k, v, kpos)`` cache, ``kpos`` holding the absolute position stored in
+each slot (``KPOS_EMPTY`` where none is).  A prefill attends over its own
+k/v (the flash forward kernel, or ``gqa_attention``, without autograd) and
+then stores them; a decode step (one token) stores its k/v, then attends
+over the whole cache with ``gqa_attention`` masked by ``kpos``, in torch
+ops, as the JAX package computes decode attention outside any kernel.
+The ring of a windowed layer is written **aligned**: slot ``p % T`` holds
+position ``p`` in prefill and decode alike, so a decode step after any
+prompt length sees exactly the keys the full forward does.  The JAX
+prefill stores the trailing ``min(S, T)`` keys at slots ``0..``; the two
+agree wherever ``S <= T`` or ``S % T == 0``, and elsewhere the JAX
+decode overwrites a key still inside the window (a fact about the
+reference; the port keeps the aligned ring on purpose).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.flash_attention import flash_attention_train
+from ..kernels.flash_attention import flash_attention, flash_attention_train
 from .common import ArchConfig, Attention
 
 ATTN_IMPLS = ("flash", "plain")
@@ -82,16 +99,27 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
 
 
+@functools.cache
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    # made once per device, so a CUDA graph captured later copies nothing from the host;
+    # outside inference mode, so training may use it after serving
+    with torch.inference_mode(False):
+        return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
     hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32, device=x.device)
+    freqs = _rope_freqs_on(hd, theta, x.device)
     ang = positions[..., :, None].float() * freqs  # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+KPOS_EMPTY = 2**30  # the position of a cache slot that holds no key (masked by causality)
 
 
 def gqa_attention(
@@ -102,45 +130,64 @@ def gqa_attention(
     window: int | None = None,
     softcap: float | None = None,
     q_chunk: int = 256,
+    q_offset: torch.Tensor | int = 0,
+    kpos: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Query-chunked causal attention, over the last ``window`` keys of each
     query when given (``qpos - kpos < window``), with the scores capped at
     ``softcap`` when given; returns (B, S, Hq, hd).
+
+    ``q_offset`` is the absolute position of ``q[:, 0]`` (an int or a 0-d
+    tensor: a decode step's position lives on the device), ``kpos`` (T,)
+    the absolute position of each key (a ring cache's slots; default
+    ``0..T-1``).  q and k/v of different dtypes are promoted first, as
+    ``jnp.einsum`` promotes them (bf16 queries over an f32 cache).
 
     Each chunk of ``q_chunk`` queries sees every key, so the softmax is
     the full row softmax; the chunking only bounds score memory."""
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    qg = q.reshape(B, S, Hkv, G, hd)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(B, S, Hkv, G, hd).to(dt)
+    k, v = k.to(dt), v.to(dt)
     scale = hd ** -0.5
-    kpos = torch.arange(T, device=q.device)
+    if kpos is None:
+        kpos = torch.arange(T, device=q.device)
 
     def one_chunk(start: int, n: int) -> torch.Tensor:
         qs = qg[:, start : start + n]
         scores = torch.einsum("bskgh,btkh->bkgst", qs, k).float() * scale
         if softcap is not None:
             scores = torch.tanh(scores / softcap) * softcap
-        qpos = start + torch.arange(n, device=q.device)
+        qpos = q_offset + start + torch.arange(n, device=q.device)
         mask = qpos[:, None] >= kpos[None, :]
         if window is not None:
             mask &= qpos[:, None] - kpos[None, :] < window
-        scores = torch.where(mask, scores, torch.tensor(-1e30, dtype=scores.dtype, device=q.device))
-        p = torch.softmax(scores, dim=-1).to(q.dtype)
+        scores = scores.masked_fill(~mask, -1e30)
+        p = torch.softmax(scores, dim=-1).to(q.dtype).to(dt)
         return torch.einsum("bkgst,btkh->bskgh", p, v)
 
     if S <= q_chunk:
         return one_chunk(0, S).reshape(B, S, Hq, hd)
-    if S % q_chunk:
-        raise ValueError(f"sequence {S} is not a multiple of q_chunk {q_chunk}")
-    chunks = [one_chunk(s, q_chunk) for s in range(0, S, q_chunk)]
+    # a last, shorter chunk takes a length that q_chunk does not divide
+    chunks = [one_chunk(s, min(q_chunk, S - s)) for s in range(0, S, q_chunk)]
     return torch.cat(chunks, dim=1).reshape(B, S, Hq, hd)
 
 
 class AttentionBlock(nn.Module):
     """``{'wq', 'wk', 'wv', 'wo'}``: project, RoPE, attend (causal, over the
-    last ``window`` keys when given, under ``att.softcap``), out-project
-    (training path: no KV cache)."""
+    last ``window`` keys when given, under ``att.softcap``), out-project.
+
+    ``forward(x, positions, kv_cache=None, q_offset=0)`` returns ``(out,
+    new_cache)``.  Without a cache (training) new_cache is None.  With one,
+    ``kv_cache`` is ``(k, v, kpos)``: k and v (B, T, Hkv, hd), kpos (T,)
+    int32; the block writes them in place and returns the same tensors.
+    A prefill (S > 1) starts at ``q_offset`` 0 and attends over its own
+    k/v; a decode step (S == 1) attends over the cache at position
+    ``q_offset`` (an int or a 0-d device tensor), which a full-causal
+    cache writes at slot ``min(q_offset, T - 1)``, as the JAX
+    ``dynamic_update_slice`` clamps it."""
 
     def __init__(self, cfg: ArchConfig, att: Attention, device=None, window: int | None = None):
         super().__init__()
@@ -152,7 +199,8 @@ class AttentionBlock(nn.Module):
         self.wq, self.wk, self.wv, self.wo = mk(d, qd), mk(d, kvd), mk(d, kvd), mk(qd, d)
         self.cfg, self.att, self.window = cfg, att, window
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, kv_cache=None,
+                q_offset: torch.Tensor | int = 0):
         att = self.att
         B, S, _ = x.shape
         q = (x @ self.wq).reshape(B, S, att.n_heads, att.head_dim)
@@ -160,13 +208,46 @@ class AttentionBlock(nn.Module):
         v = (x @ self.wv).reshape(B, S, att.n_kv_heads, att.head_dim)
         q = apply_rope(q, positions, att.rope_theta)
         k = apply_rope(k, positions, att.rope_theta)
+        if kv_cache is not None:
+            return self._cached(x, q, k, v, kv_cache, q_offset)
         if self.cfg.attn_impl == "flash":
             o = flash_attention_train(q, k, v, causal=True, window=self.window,
                                       softcap=att.softcap)
         else:
             o = gqa_attention(q, k, v, window=self.window, softcap=att.softcap,
                               q_chunk=self.cfg.q_chunk)
-        return o.reshape(B, S, -1).to(x.dtype) @ self.wo
+        return o.reshape(B, S, -1).to(x.dtype) @ self.wo, None
+
+    def _cached(self, x, q, k, v, kv_cache, q_offset):
+        ck, cv, ckpos = kv_cache
+        B, S, _ = x.shape
+        Tc = ck.shape[1]
+        att = self.att
+        if S == 1:  # decode: store this token's k/v, attend over the cache
+            pos = torch.as_tensor(q_offset, device=x.device).reshape(1).long()
+            idx = pos % Tc if self.window else torch.clamp(pos, max=Tc - 1)
+            ck.index_copy_(1, idx, k.to(ck.dtype))
+            cv.index_copy_(1, idx, v.to(cv.dtype))
+            ckpos.index_copy_(0, idx, pos.to(ckpos.dtype))
+            o = gqa_attention(q, ck, cv, window=self.window, softcap=att.softcap,
+                              q_chunk=self.cfg.q_chunk, q_offset=q_offset, kpos=ckpos)
+        else:  # prefill: attend over its own k/v, then store the window's keys
+            if not isinstance(q_offset, int) or q_offset != 0:
+                raise ValueError("a prefill starts at position 0")
+            if self.cfg.attn_impl == "flash":
+                o = flash_attention(q, k, v, causal=True, window=self.window,
+                                    softcap=att.softcap)
+            else:
+                o = gqa_attention(q, k, v, window=self.window, softcap=att.softcap,
+                                  q_chunk=self.cfg.q_chunk)
+            keep = min(S, Tc)
+            pos = torch.arange(S - keep, S, device=x.device)
+            slot = pos % Tc  # aligned: slot p % Tc holds position p
+            ck.index_copy_(1, slot, k[:, S - keep:].to(ck.dtype))
+            cv.index_copy_(1, slot, v[:, S - keep:].to(cv.dtype))
+            ckpos.fill_(KPOS_EMPTY)
+            ckpos.index_copy_(0, slot, pos.to(ckpos.dtype))
+        return o.reshape(B, S, -1).to(x.dtype) @ self.wo, (ck, cv, ckpos)
 
 
 class MLP(nn.Module):

@@ -12,7 +12,13 @@ The gates and decays are plain f32 PyTorch; the recurrence itself runs
 through ``kernels.rglru.rglru`` (the ``rglru_fwd`` / ``rglru_bwd`` kernels
 on the card, their plain versions on the CPU).  The JAX model computes the
 same recurrence with ``jax.lax.associative_scan``; the two agree up to the
-order of the f32 products.  Training path only: no decode state.
+order of the f32 products.
+
+Serving carries a state per row, ``{'conv': (B, cw-1, W), 'h': (B, W)}``
+(``init_rglru_state``): the conv's trailing inputs, in ``param_dtype``,
+and the recurrence's last h, f32.  The block reads it as the conv's left
+context and the kernel's ``h0``, and writes the new state into the same
+tensors in place, so a one-token decode step runs the kernel at T = 1.
 """
 
 from __future__ import annotations
@@ -55,21 +61,35 @@ class RGLRUBlock(nn.Module):
         self.lam = mk(w, dtype=torch.float32)
         self.w_out = mk(w, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, T, D), already normed by the caller -> (B, T, D)."""
+    def forward(self, x: torch.Tensor, state: dict | None = None):
+        """x (B, T, D), already normed by the caller -> (out (B, T, D), new
+        state).  Without ``state`` (training) the conv starts from zeros, the
+        recurrence from h0 = None, and the new state is None; with it, the
+        state's tensors are read and then overwritten in place."""
         gate = F.gelu(x @ self.w_gate, approximate="tanh")
-        main = causal_conv1d(x @ self.w_main, self.conv_w, self.conv_b)
-        rec, _ = rglru_scan(main, self)
-        return (rec * gate) @ self.w_out
+        conv_state = None if state is None else state["conv"]
+        main, new_conv = causal_conv1d(x @ self.w_main, self.conv_w, self.conv_b, conv_state)
+        rec, new_h = rglru_scan(main, self, None if state is None else state["h"])
+        out = (rec * gate) @ self.w_out
+        if state is None:
+            return out, None
+        state["conv"].copy_(new_conv)
+        state["h"].copy_(new_h)
+        return out, state
 
 
-def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over time: x (B, T, W), w (cw, W), b (W,), from a
-    zero state; the terms are summed in the JAX package's order."""
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: torch.Tensor | None = None):
+    """Depthwise causal conv over time: x (B, T, W), w (cw, W), b (W,), from
+    ``state`` (B, cw-1, W), the trailing inputs before x (zeros when None);
+    the terms are summed in the JAX package's order.  Returns (out in x's
+    dtype, the new state: the last cw-1 inputs)."""
     cw, T = w.shape[0], x.shape[1]
-    xp = torch.cat([x.new_zeros(x.shape[0], cw - 1, x.shape[2]), x], dim=1)
+    if state is None:
+        state = x.new_zeros(x.shape[0], cw - 1, x.shape[2])
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
     out = sum(xp[:, i : i + T] * w[i] for i in range(cw)) + b
-    return out.to(x.dtype)
+    return out.to(x.dtype), xp[:, -(cw - 1):]
 
 
 def rglru_scan(x: torch.Tensor, p: RGLRUBlock,
@@ -85,3 +105,14 @@ def rglru_scan(x: torch.Tensor, p: RGLRUBlock,
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * xf)
     h, hT = rglru(a, gated, None if h0 is None else h0.float())
     return h.to(x.dtype), hT
+
+
+def init_rglru_state(cfg: ArchConfig, batch: int, device=None) -> dict:
+    """A zero decode state for ``batch`` rows: ``conv`` (batch, cw-1, W) in
+    ``param_dtype`` and ``h`` (batch, W) f32, as the JAX package's."""
+    w = cfg.recurrent.lru_width or cfg.d_model
+    cw = cfg.recurrent.conv_width
+    return {
+        "conv": torch.zeros(batch, cw - 1, w, dtype=cfg.param_dtype, device=device),
+        "h": torch.zeros(batch, w, dtype=torch.float32, device=device),
+    }

@@ -13,8 +13,14 @@ It runs through ``kernels.rwkv6_wkv.wkv`` (the ``wkv_fwd`` / ``wkv_bwd``
 kernels on the card, their plain versions on the CPU).  The JAX model
 computes it in chunked form (``wkv_chunked``), whose decay factorisation
 breaks where a chunk's decay product falls below 1e-30; the port follows
-the sequential recurrence of ``wkv_ref`` for any decay.  Training path
-only: no decode state.
+the sequential recurrence of ``wkv_ref`` for any decay.
+
+Serving carries a state per row (``init_rwkv6_state``): ``{'tm': {'shift':
+(B, D), 'wkv': (B, H, K, K)}, 'cm': (B, D)}``, the last token's normed
+features before each mix, in ``param_dtype``, and the WKV state, f32.  The
+time mix hands ``wkv`` to the kernels as ``s0`` and takes ``s_final`` back;
+every tensor of the state is overwritten in place, so a one-token decode
+step runs the kernels at T = 1.
 """
 
 from __future__ import annotations
@@ -35,9 +41,11 @@ def _param(*shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
-def token_shift(x: torch.Tensor) -> torch.Tensor:
-    """The previous token's features (zeros before the first token)."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+def token_shift(x: torch.Tensor, prev: torch.Tensor | None = None) -> torch.Tensor:
+    """The previous token's features: ``prev`` (B, D) before the first
+    token, zeros when None."""
+    first = torch.zeros_like(x[:, :1]) if prev is None else prev[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
 
 
 class TimeMix(nn.Module):
@@ -59,12 +67,14 @@ class TimeMix(nn.Module):
         self.gn_scale = mk(d)
         self.hd = hd
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, T, D), already normed by the caller -> (B, T, D)."""
+    def forward(self, x: torch.Tensor, state: dict | None = None):
+        """x (B, T, D), already normed by the caller -> (out (B, T, D), new
+        state, or None without ``state``); the state ``{'shift', 'wkv'}`` is
+        read, then overwritten in place."""
         B, T, D = x.shape
         hd = self.hd
         H = D // hd
-        xx = token_shift(x) - x
+        xx = token_shift(x, None if state is None else state["shift"]) - x
         xxx = x + xx * self.mu_x
         a = torch.tanh(xxx @ self.lora_a).float().reshape(B, T, 5, LORA_MIX)
         m = torch.einsum("btkl,kld->btkd", a, self.lora_b.float())  # (B, T, 5, D) f32
@@ -78,12 +88,17 @@ class TimeMix(nn.Module):
         ww = torch.tanh(x_w @ self.decay_a).float() @ self.decay_b.float()
         w = torch.exp(-torch.exp(self.decay_base + ww)).reshape(B, T, H, hd)  # (0, 1)
 
-        out, _ = wkv(r, k, v, w, self.u)
+        out, s_final = wkv(r, k, v, w, self.u, None if state is None else state["wkv"])
         # per-head group norm: population variance, eps 1e-5, no bias
         mu = torch.mean(out, dim=-1, keepdim=True)
         var = torch.var(out, dim=-1, keepdim=True, correction=0)
         out = ((out - mu) * torch.rsqrt(var + 1e-5)).reshape(B, T, D) * self.gn_scale.float()
-        return (out.to(x.dtype) * g) @ self.w_o
+        out = (out.to(x.dtype) * g) @ self.w_o
+        if state is None:
+            return out, None
+        state["shift"].copy_(x[:, -1])
+        state["wkv"].copy_(s_final)
+        return out, state
 
 
 class ChannelMix(nn.Module):
@@ -97,12 +112,18 @@ class ChannelMix(nn.Module):
         self.mu_k, self.mu_r = mk(d), mk(d)
         self.w_k, self.w_v, self.w_r = mk(d, f), mk(f, d), mk(d, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xx = token_shift(x) - x
+    def forward(self, x: torch.Tensor, state: torch.Tensor | None = None):
+        """x (B, T, D) -> (out, new state): the state is the previous
+        token's features (B, D), overwritten in place; None without one."""
+        xx = token_shift(x, state) - x
         x_k = x + xx * self.mu_k
         x_r = x + xx * self.mu_r
         kk = torch.square(torch.relu(x_k @ self.w_k))
-        return torch.sigmoid(x_r @ self.w_r) * (kk @ self.w_v)
+        out = torch.sigmoid(x_r @ self.w_r) * (kk @ self.w_v)
+        if state is None:
+            return out, None
+        state.copy_(x[:, -1])
+        return out, state
 
 
 class RWKV6Block(nn.Module):
@@ -119,7 +140,27 @@ class RWKV6Block(nn.Module):
         self.tm = TimeMix(cfg, device)
         self.cm = ChannelMix(cfg, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor | None = None) -> torch.Tensor:
-        """x (B, T, D) -> (B, T, D); ``positions`` is unused (no RoPE)."""
-        x = x + self.tm(self.ln1(x))
-        return x + self.cm(self.ln2(x))
+    def forward(self, x: torch.Tensor, positions: torch.Tensor | None = None,
+                cache: dict | None = None, q_offset=0):
+        """x (B, T, D) -> (x, None, new state): the sublayer protocol of
+        ``models.transformer`` (no MoE aux).  ``positions`` and ``q_offset``
+        are unused (no RoPE); ``cache`` is the layer's decode state, None
+        in training."""
+        h, tm = self.tm(self.ln1(x), None if cache is None else cache["tm"])
+        x = x + h
+        h, cm = self.cm(self.ln2(x), None if cache is None else cache["cm"])
+        return x + h, None, (None if cache is None else {"tm": tm, "cm": cm})
+
+
+def init_rwkv6_state(cfg: ArchConfig, batch: int, device=None) -> dict:
+    """A zero decode state for ``batch`` rows, as the JAX package's:
+    token-shift rows in ``param_dtype``, the WKV state f32."""
+    d, hd = cfg.d_model, cfg.recurrent.head_dim
+    pd = cfg.param_dtype
+    return {
+        "tm": {
+            "shift": torch.zeros(batch, d, dtype=pd, device=device),
+            "wkv": torch.zeros(batch, d // hd, hd, hd, dtype=torch.float32, device=device),
+        },
+        "cm": torch.zeros(batch, d, dtype=pd, device=device),
+    }

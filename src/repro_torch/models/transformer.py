@@ -42,6 +42,7 @@ layer's aux is counted once.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -51,10 +52,19 @@ from torch.utils.checkpoint import checkpoint
 
 from ..devices import resolve_device
 from .common import ArchConfig
-from .layers import MLP, MLPS, NORMS, AttentionBlock, LayerNorm, make_norm, softcap_logits
+from .layers import (
+    KPOS_EMPTY,
+    MLP,
+    MLPS,
+    NORMS,
+    AttentionBlock,
+    LayerNorm,
+    make_norm,
+    softcap_logits,
+)
 from .moe import MoEBlock
-from .rglru import RGLRUBlock, lam_init
-from .rwkv6 import LORA_DECAY, LORA_MIX, RWKV6Block
+from .rglru import RGLRUBlock, init_rglru_state, lam_init
+from .rwkv6 import LORA_DECAY, LORA_MIX, RWKV6Block, init_rwkv6_state
 
 KINDS = ("attn", "attn_local", "attn_global", "moe", "rec", "rwkv")
 ATTN_KINDS = ("attn", "attn_local", "attn_global", "moe")  # the kinds with an attention block
@@ -98,8 +108,10 @@ class SubLayer(nn.Module):
     ``window_for`` keys) or pre-norm RG-LRU block (``'rec'``, held as
     ``mix``), then a pre-norm MLP, or the MoE FFN for ``'moe'``; with
     ``cfg.post_norm`` each branch's output is normed before the residual
-    add.  ``forward`` returns ``(x, aux)``: aux is the MoE block's
-    load-balance term, None for the other kinds."""
+    add.  ``forward(x, positions, cache=None, q_offset=0)`` returns ``(x,
+    aux, new_cache)``: aux is the MoE block's load-balance term, None for
+    the other kinds; new_cache is the sublayer's KV cache or decode state,
+    written in place (None without one)."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
@@ -118,9 +130,13 @@ class SubLayer(nn.Module):
             self.mlp = MLP(cfg, device)
         self.kind, self.post_norm = kind, cfg.post_norm
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, cache=None,
+                q_offset: torch.Tensor | int = 0):
         h = self.norm1(x)
-        h = self.mix(h) if self.kind == "rec" else self.attn(h, positions)
+        if self.kind == "rec":
+            h, new_cache = self.mix(h, cache)
+        else:
+            h, new_cache = self.attn(h, positions, cache, q_offset)
         if self.post_norm:
             h = self.post_norm1(h)
         x = x + h
@@ -132,15 +148,15 @@ class SubLayer(nn.Module):
             h = self.mlp(h)
         if self.post_norm:
             h = self.post_norm2(h)
-        return x + h, aux
+        return x + h, aux, new_cache
 
 
 def run_sublayer(sub: nn.Module, x: torch.Tensor, positions: torch.Tensor, remat: bool):
-    """``(x, aux)`` of one sublayer, under ``torch.utils.checkpoint`` when
-    ``remat``; aux is None for a sublayer without MoE (an ``'rwkv'`` block
-    returns x alone)."""
+    """``(x, aux)`` of one sublayer in training (no cache), under
+    ``torch.utils.checkpoint`` when ``remat``; aux is None for a sublayer
+    without MoE."""
     out = checkpoint(sub, x, positions, use_reentrant=False) if remat else sub(x, positions)
-    return out if isinstance(out, tuple) else (out, None)
+    return out[0], out[1]
 
 
 def _sublayer(cfg: ArchConfig, kind: str, device) -> nn.Module:
@@ -149,6 +165,14 @@ def _sublayer(cfg: ArchConfig, kind: str, device) -> nn.Module:
 
 def _sublayers(cfg: ArchConfig, pattern: tuple[str, ...], device) -> nn.ModuleDict:
     return nn.ModuleDict({f"{kind}_{i}": _sublayer(cfg, kind, device) for i, kind in enumerate(pattern)})
+
+
+@functools.cache
+def _constant(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # a 0-d tensor made once per device: a CUDA graph captured later copies nothing from the
+    # host.  Made outside inference mode, so training may save it for backward after serving
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=dtype, device=device)
 
 
 class Transformer(nn.Module):
@@ -246,19 +270,66 @@ class Transformer(nn.Module):
             subs += list(self.tail.values())
         return subs
 
-    def hidden(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Final-norm hidden states (B, S, d) of the token batch, and the
-        MoE aux summed over the layers (an f32 scalar, 0 without MoE)."""
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if tokens.is_floating_point():
+            raise NotImplementedError(
+                "input_mode='embeds' (musicgen-large, qwen2-vl-2b) is not ported yet: ROADMAP A.2.1")
         x = nn.functional.embedding(tokens, self.embed).to(cfg.param_dtype)
         if cfg.tie_embeddings:  # gemma scaling
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.param_dtype, device=x.device)
+            x = x * _constant(cfg.d_model ** 0.5, cfg.param_dtype, x.device)
+        return x
+
+    def forward(self, tokens: torch.Tensor, caches: dict | None = None,
+                q_offset: torch.Tensor | int = 0, *, last_only: bool = False):
+        """The serving forward (the JAX ``forward`` with ``caches``):
+        ``(logits f32, new_caches, aux)``, ``hidden`` plus the head.
+
+        ``tokens`` (B, S) int start at absolute position ``q_offset`` (an int,
+        or a 0-d device tensor in a decode step); ``caches`` is an
+        ``init_caches`` tree, which every sublayer updates in place, so
+        ``new_caches`` is ``caches`` itself (None without caches).  A prefill
+        (S > 1) starts at 0; a decode step feeds one token per row.  With
+        ``last_only`` the head runs on the last row only (the prefill's
+        (B, 1, vocab) logits; the JAX prefill computes all rows and keeps
+        the last).  Float ``tokens`` (the JAX ``embeds`` input) raise
+        ``NotImplementedError``."""
+        cfg = self.cfg
+        x, aux = self.hidden(tokens, caches, q_offset)
+        if last_only:
+            x = x[:, -1:]
+        head = self.embed.T.to(cfg.param_dtype) if cfg.tie_embeddings else self.head
+        logits = softcap_logits((x @ head).float(), cfg.logit_softcap)
+        return logits, caches, aux
+
+    def named_sublayers(self) -> list[tuple[tuple, nn.Module]]:
+        """``sublayers()`` with where each sits in the cache tree:
+        ``('stages', i, key)`` or ``('tail', key)``."""
+        out = [(("stages", i, key), sub) for i, stage in enumerate(self.stages)
+               for key, sub in stage.items()]
+        if self.cfg.tail_pattern:
+            out += [(("tail", key), sub) for key, sub in self.tail.items()]
+        return out
+
+    def hidden(self, tokens: torch.Tensor, caches: dict | None = None,
+               q_offset: torch.Tensor | int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+        """Final-norm hidden states (B, S, d) of the token batch, and the
+        MoE aux summed over the layers (an f32 scalar, 0 without MoE).
+        With ``caches`` (serving, see ``forward``) every sublayer reads and
+        updates its cache in place; without them (training) each runs under
+        activation checkpointing when ``cfg.remat == 'full'`` and gradients
+        are on."""
+        cfg = self.cfg
+        x = self._embed(tokens)
         B, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        positions = (torch.arange(S, device=tokens.device) + q_offset)[None, :].expand(B, S)
+        remat = caches is None and cfg.remat == "full" and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for sub in self.sublayers():
-            x, a = run_sublayer(sub, x, positions, remat)
+        for where, sub in self.named_sublayers():
+            if caches is None:
+                x, a = run_sublayer(sub, x, positions, remat)
+            else:
+                x, a, _ = sub(x, positions, layer_cache(caches, where), q_offset)
             if a is not None:
                 aux = aux + a
         return self.final_norm(x), aux
@@ -270,6 +341,70 @@ class Transformer(nn.Module):
         # tied: cast once per step, outside the checkpointed loss chunks
         head = self.embed.T.to(self.cfg.param_dtype) if self.cfg.tie_embeddings else self.head
         return ce_from_hidden(self.cfg, head, x, batch["targets"]) + MOE_AUX_COEF * aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: KV caches and decode states
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn, tree):
+    """``fn`` over the tensor leaves of a cache tree (dicts and tuples),
+    dict keys in sorted order, as ``jax.tree.map`` visits them."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensor leaves of a cache tree, in ``tree_map``'s order."""
+    out: list[torch.Tensor] = []
+    tree_map(out.append, tree)
+    return out
+
+
+def layer_cache(caches: dict, where: tuple):
+    """One sublayer's cache: views into the stacked ``caches['stages']``
+    leaves at stage ``where[1]``, or the tail's own; writes to them land in
+    ``caches``."""
+    if where[0] == "stages":
+        return tree_map(lambda a: a[where[1]], caches["stages"][where[2]])
+    return caches["tail"][where[1]]
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+                device=None) -> dict:
+    """Empty decode caches for every stage (and the tail), in the JAX
+    package's tree: ``{'stages': {key: leaves stacked on a leading n_stages
+    axis}, 'tail': {key: ...}}``.  An attention kind holds ``(k, v, kpos)``:
+    k and v (batch, T, Hkv, hd) in ``dtype``, T = ``min(max_seq, window)``
+    for a windowed kind, else ``max_seq``, and kpos (T,) int32 at
+    ``KPOS_EMPTY``; ``'rec'`` holds ``init_rglru_state``, ``'rwkv'``
+    ``init_rwkv6_state``.  On ``device`` (cuda when None, see
+    ``resolve_device``)."""
+    device = resolve_device(device)
+    att = cfg.attention
+
+    def cache_for(kind: str):
+        if kind == "rwkv":
+            return init_rwkv6_state(cfg, batch, device)
+        if kind == "rec":
+            return init_rglru_state(cfg, batch, device)
+        window = window_for(cfg, kind)
+        T = min(max_seq, window) if window else max_seq
+        shape = (batch, T, att.n_kv_heads, att.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device),
+                torch.full((T,), KPOS_EMPTY, dtype=torch.int32, device=device))
+
+    stack = lambda a: a.unsqueeze(0).expand(cfg.n_stages, *a.shape).contiguous()
+    out = {"stages": {f"{kind}_{i}": tree_map(stack, cache_for(kind))
+                      for i, kind in enumerate(cfg.pattern)}}
+    if cfg.tail_pattern:
+        out["tail"] = {f"{kind}_{i}": cache_for(kind) for i, kind in enumerate(cfg.tail_pattern)}
+    return out
 
 
 def _token_nll(head: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,

@@ -12,6 +12,8 @@ sources and the closed-loop tuner.
     ``MeasuredComm`` (timed all-reduce α–β fit, journal §V-A Fig. 5(b)).
   * ``tuner``    — ``Tuner`` (registry-wide argmin-``t_iter`` sweep) and
     ``CommRefitter`` (amortized online (α, β) re-fit).
+  * ``serve``    — the decode-side ``ServePlan`` (``build_serve_plan``,
+    ``rebuild_serve_plan``, ``refit_serve_fit``).
 """
 
 from .costs import (
@@ -39,6 +41,20 @@ from .registry import (
     get_policy,
     register_policy,
     resolve_policy_name,
+)
+from .serve import (
+    SERVE_PLAN_FORMAT,
+    ServePlan,
+    build_serve_plan,
+    decode_unit_costs,
+    group_comparison_lines,
+    make_group_collective,
+    measure_serve_comm,
+    rebuild_serve_plan,
+    refit_serve_fit,
+    serve_collective_time_fn,
+    serve_fabric_fits,
+    time_serve_groups,
 )
 from .tuner import (
     Candidate,
@@ -74,6 +90,18 @@ __all__ = [
     "get_policy",
     "register_policy",
     "resolve_policy_name",
+    "SERVE_PLAN_FORMAT",
+    "ServePlan",
+    "build_serve_plan",
+    "decode_unit_costs",
+    "group_comparison_lines",
+    "make_group_collective",
+    "measure_serve_comm",
+    "rebuild_serve_plan",
+    "refit_serve_fit",
+    "serve_collective_time_fn",
+    "serve_fabric_fits",
+    "time_serve_groups",
     "Candidate",
     "CommRefitter",
     "SweepRecord",

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from _torch_env import bits
+from _torch_registry import pristine_policy_registries  # noqa: F401  (autouse)
 from repro import checkpoint as jax_ckpt
 from repro.configs import get_reduced as jax_get_reduced
 from repro.core import bucketing as jax_bucketing

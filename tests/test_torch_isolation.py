@@ -54,7 +54,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.planning.tuner", "repro_torch.fabric.measured",
                 "repro_torch.runtime", "repro_torch.runtime.timeline",
                 "repro_torch.checkpoint.checkpoint", "repro_torch.runtime.fault_tolerance",
-                "repro_torch.runtime.compression"):
+                "repro_torch.runtime.compression", "repro_torch.launch.steps",
+                "repro_torch.launch.serve", "repro_torch.planning.serve",
+                "repro_torch.serving", "repro_torch.serving.engine"):
         assert mod in rec["modules"]
 
 
@@ -139,6 +141,7 @@ def test_model_defaults_to_cuda(monkeypatch):
     "repro_torch.kernels.comm_pack", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6_wkv", "repro_torch.kernels",
     "repro_torch.models", "repro_torch.optim", "repro_torch.runtime", "repro_torch.checkpoint",
+    "repro_torch.serving",
 ])
 def test_public_exports_have_docstrings(modname):
     """As the JAX package's docs-check: every exported class and function

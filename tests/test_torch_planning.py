@@ -35,6 +35,7 @@ from repro_torch.core.trainer import lm_unit_costs
 from repro_torch.fabric import available_fabrics, get_fabric
 from repro_torch.models import Transformer, param_shapes
 from repro_torch.planning import Plan, available_policies, build_plan, build_schedule
+from _torch_registry import pristine_policy_registries  # noqa: F401  (autouse)
 
 ARCH = "tinyllama-1.1b"
 TOKENS = 2048

@@ -144,7 +144,7 @@ def test_rglru_block_matches_reference():
         for k, v in p.items():
             getattr(block, k).copy_(torch.from_numpy(np.array(v)))
     tx = torch.from_numpy(x).requires_grad_()
-    out = block(tx)
+    out = block(tx)[0]  # (out, state): no state in training
     out.backward(torch.from_numpy(cot))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
     for name, want in list(jgp.items()) + [("x", jgx)]:

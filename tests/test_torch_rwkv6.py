@@ -156,7 +156,7 @@ def test_time_mix_and_channel_mix_match_reference():
             for k, v in p.items():
                 getattr(mod, k).copy_(torch.from_numpy(np.array(v)))
         tx = torch.from_numpy(x).requires_grad_()
-        out = mod(tx)
+        out = mod(tx)[0]  # (out, state): no state in training
         out.backward(torch.from_numpy(cot))
         np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
         for name, want in list(jgp.items()) + [("x", jgx)]:

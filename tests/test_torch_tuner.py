@@ -30,6 +30,7 @@ from repro.planning import (
     replan_if_drifted as jax_replan,
 )
 from repro.planning.plan import build_plan as jax_build_plan
+from _torch_registry import pristine_policy_registries  # noqa: F401  (autouse)
 from repro_torch.configs import get_reduced
 from repro_torch.core import bucketing
 from repro_torch.core.comm_model import AllReduceModel
