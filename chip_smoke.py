@@ -42,17 +42,28 @@ step could hide a kernel fault.
    device time (torch.profiler) and host time of a call of the forward and
    of the backward beside SDPA's.
 1c. RG-LRU, and flash at RecurrentGemma's attention.  The recurrence
-   kernels ``rglru_fwd`` (B6) and ``rglru_bwd`` (its gradient) against their
-   plain versions on the same CUDA tensors, at the three shapes of the JAX
-   package's RG-LRU tests and at the main path's (1, 4096, 4096), with and
-   without h0: h / hT within 1e-5, gradients within 1e-5 x max(1, max|g|);
-   hT exactly h[:, -1]; a run split at T/2 and threaded through hT -> h0
-   matches one run; a second run gives the same bits.  Then each kernel's
-   time per launch at the main path's shape beside its bound and its plain
-   version's (no single PyTorch call computes a linear recurrence, so no
-   library yardstick).  The flash kernels at RecurrentGemma's attention (B 1,
-   S 4096, 16 query heads over 1 KV head, hd 256, causal, window 2048, bf16)
-   against their plain versions (a second run of all three bitwise equal),
+   kernels ``rglru_fwd`` (B6: a step kernel for T up to ``step_max_t()``,
+   a tiled one past it) and ``rglru_bwd`` (its gradient) against their
+   plain versions on the same CUDA tensors: at the three shapes of the JAX
+   package's RG-LRU tests, the training shape (1, 4096, 4096), the prefill
+   shape (1, 2304, 4096), the decode step's (4, 1 and 2, 4096), and T one
+   below, at and one past the threshold, 255, 256, 257 and 300 at (B 1,
+   W 40) and (B 4, W 4097); with and without h0: h / hT within 1e-5,
+   gradients within 1e-5 x max(1, max|g|); hT exactly h[:, -1]; a second
+   run gives the same bits; a run split at T/2, and one split at the
+   threshold (step kernel, then tiled), threaded through hT -> h0 match one
+   run; row b of a B 4 call has the bits of a B 1 call on that row (T 1 and
+   300, forward and backward); the step kernel's h at T 1 and at the
+   threshold is bitwise the first steps of the tiled kernel's.  Then each
+   mode's time per launch, by CUDA events and by torch.profiler's device
+   time, beside its bound and its plain version's: training forward and
+   backward, prefill, and the decode step with ``torch.addcmul`` (at T 1
+   the recurrence is one multiply-add) beside it, device time too (both
+   are launch-bound); no other PyTorch call computes a linear recurrence.
+   Then the forward's device time at the threshold (the step kernel) and
+   one past it (the tiled one).  The flash kernels at RecurrentGemma's
+   attention (B 1, S 4096, 16 query heads over 1 KV head, hd 256, causal,
+   window 2048, bf16) against their plain versions (a second run of all three bitwise equal),
    forward -> backward through the kernels' own (o, lse) as in 1b, timed
    beside SDPA with the same window mask.
 1d. WKV6.  The RWKV6 recurrence kernels ``wkv_fwd`` (B7) and ``wkv_bwd`` (its
@@ -198,9 +209,9 @@ step could hide a kernel fault.
    serving mode: ``rglru_fwd`` at (4, 1 and 2, 4096) with a nonzero h0
    (1e-5, hT == h[:, -1]), ``wkv_fwd`` at (4, 1, 64, 64) bf16 and f32 r/k/v
    with a nonzero s0 (2e-4 + 2e-4 relative), the flash kernels at prefill
-   lengths of 6a and 6b (phase 1b's checks), each timed in that mode
-   beside its bound (the flash forward beside SDPA, B6 beside
-   ``torch.addcmul``, which computes the recurrence at T 1).  Then three cells
+   lengths of 6a and 6b (phase 1b's checks), B7 and B3 timed in that mode
+   beside their bounds (the flash forward beside SDPA; B6 is timed in
+   phase 1c).  Then three cells
    (``SERVE_CELLS``), each served twice on the same weights, once with the
    decode step captured in a CUDA graph and once eager: 6a TinyLlama-1.1B,
    22 layers, 8 slots / max_seq 1024, 16 requests of 64-512 prompt tokens
@@ -217,7 +228,11 @@ step could hide a kernel fault.
    steps), no backward kernel and no plain call on the card; every
    profiled decode step, captured and eager, ran by name in the device
    trace B6 once per RG-LRU layer, B7's two kernels once per RWKV6 layer
-   and no flash forward (at 6c the captured step only); in 6b the
+   and no flash forward (at 6c the captured step only), B6 as its step
+   kernel and never its tiled one; in 6b B6's launches inside the
+   prefills (the wrapper's count read around each prefill) are the
+   RG-LRU layers x the prefills, and the 2304-token prefill's device trace
+   holds B6's tiled kernel once per RG-LRU layer and no step kernel; in 6b the
    2304-token request's prefill (``make_prefill_step``) and 16 greedy decode
    steps (``make_decode_step``): every window position held by a key of
    every windowed ring after each step, and each step's logits within 3e-3
@@ -244,8 +259,10 @@ launches add up phases 3-3h and phases 4's and 5's training steps; it holds
 the flash kernels once per configuration (TinyLlama, RecurrentGemma and
 each ``NEW_ATTN`` shape, whose launches are its cell's: Gemma2's local and
 global shapes share phase 3f's), and the serving path's B3 (6a, 6b), B6
-(6b) and B7 (6c) launches of the CUDA-graph runs in rows of their own,
-timed in serving mode.  A CUDA graph's replay launches what its capture
+(6b: its decode steps, and its prefills, counted around each, in a row of
+their own) and B7 (6c)
+launches of the CUDA-graph runs in rows of their own, timed in serving
+mode.  A CUDA graph's replay launches what its capture
 recorded with no Python running, so a wrapper's count holds the capture's
 recording and no replay; those rows add ``graph_replays`` (the run's
 replays) and ``launches_per_replay`` (read by kernel name from the
@@ -254,6 +271,7 @@ device trace of profiled replays).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -291,6 +309,7 @@ RG_ARGS = [
 RG_DEPTH = {"n_layers": 8}  # 2 x (rec, rec, attn_local) + (rec, rec): 6 RG-LRU, 2 attention
 RG_REC_LAYERS, RG_ATTN_LAYERS = 6, 2
 MAIN_RGLRU = (1, 4096, 4096)  # B, T, lru_width of one full-width RG-LRU layer
+PREFILL_RGLRU = (1, 2304, 4096)  # 6b's longest prefill, one RG-LRU layer
 #: The JAX package's RG-LRU test shapes (tests/test_kernels.py): B, T, W.
 JAX_RGLRU_SHAPES = [(2, 64, 128), (1, 128, 256), (1, 256, 512)]
 RWKV_ARGS = [
@@ -386,23 +405,39 @@ def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def device_ms(fn, calls: int = 10, tries: int = 4) -> float:
     """Device time of one call of ``fn``: the kernels (and copies) that
-    torch.profiler records over ``calls`` calls, after a warm-up call, over
-    ``calls``.  The host's time to enqueue them is not in it."""
+    torch.profiler records over ``calls`` calls, over ``calls``, after
+    ``calls`` warm-up calls under the same tracer whose records it drops (a
+    fresh tracer can lose its first records).  The host's time to enqueue
+    them is not in it.  Every call launches at least one kernel, so a trace
+    with fewer device events than calls lost some: it is taken again, up to
+    ``tries`` times, and then the time is NaN (printed "nan": not
+    measured).  Fails if no trace recorded a device event."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        fail("the profiler recorded no device events")
-    return sum(e.time_range.end - e.time_range.start for e in events) / calls / 1e3
+    seen = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
+        if len(events) >= calls:
+            return sum(e.time_range.end - e.time_range.start for e in events) / calls / 1e3
+        seen = max(seen, len(events))
+    if not seen:
+        fail(f"the profiler recorded no device events in {tries} traces")
+    say(f"device time not measured: at most {seen} device events in {tries} traces of "
+        f"{calls} calls")
+    return math.nan
 
 
 def host_ms(fn, calls: int = 20) -> float:
@@ -959,7 +994,10 @@ def phase_rglru(device):
     import torch
     from repro_torch.kernels import rglru as rg
 
-    errs = {"fwd": 0.0, "bwd": 0.0}
+    # the largest |diff| of the forward, of the gradients, and of the forward at the
+    # prefill shape alone
+    errs = {"fwd": 0.0, "bwd": 0.0, "prefill": 0.0}
+    thr = rg.step_max_t()  # the longest T of the forward's step kernel
 
     def close(name, got, want, tag, grad=False):
         d = (got - want).abs()
@@ -971,9 +1009,15 @@ def phase_rglru(device):
             fail(f"rglru {name} differs from its plain version at {tag}: max |diff| "
                  f"{float(d.max()):.3e}")
         errs["bwd" if grad else "fwd"] = max(errs["bwd" if grad else "fwd"], float(d.max()))
+        return float(d.max())
 
+    # the JAX tests' shapes, the training, prefill and decode shapes, and T on either side
+    # of the step kernel's threshold and of the tiles' 256 steps at ragged W, B 1 and 4
+    shapes = JAX_RGLRU_SHAPES + [MAIN_RGLRU, PREFILL_RGLRU, DECODE_RGLRU, (4, 2, 4096)]
+    shapes += [(B, T, W) for T in (thr - 1, thr, thr + 1, 255, 256, 257, 300)
+               for B, W in ((1, 40), (4, 4097))]
     n = 0
-    for i, shape in enumerate(JAX_RGLRU_SHAPES + [MAIN_RGLRU]):
+    for i, shape in enumerate(shapes):
         for with_h0 in (False, True):
             a, g, h0, dh, dhT = rglru_inputs(*shape, device, seed=40 + i)
             h0 = h0 if with_h0 else None
@@ -983,8 +1027,9 @@ def phase_rglru(device):
             want_h, want_hT = rg.rglru_ref(a, g, h0)
             want_da, want_dg, want_dh0 = rg.rglru_bwd_ref(a, h, h0, dh, dhT)
             torch.cuda.synchronize()
-            close("h", h, want_h, tag)
-            close("hT", hT, want_hT, tag)
+            err = max(close("h", h, want_h, tag), close("hT", hT, want_hT, tag))
+            if shape == PREFILL_RGLRU:
+                errs["prefill"] = max(errs["prefill"], err)
             if not torch.equal(hT, h[:, -1]):
                 fail(f"rglru hT is not h[:, -1] at {tag}")
             close("da", da, want_da, tag, grad=True)
@@ -1004,31 +1049,91 @@ def phase_rglru(device):
     split = max(float((torch.cat([h_a, h_b], 1) - h).abs().max()), float((s_b - hT).abs().max()))
     if split > 1e-5:
         fail(f"rglru: a run split at T/2 and threaded through hT -> h0 differs by {split:.3e}")
-    say(f"phase 1c: rglru fwd/bwd within tolerance of the plain versions on {n} cases "
-        f"(max |diff| h {errs['fwd']:.3e}, gradients {errs['bwd']:.3e}); hT == h[:, -1]; "
-        f"split at T/2 through hT -> h0 {split:.3e}; repeated runs bitwise equal")
+    # across the threshold: the first thr steps through the step kernel, the rest tiled
+    a3, g3, h03 = rglru_inputs(4, 300, 4096, device, seed=2)[:3]
+    h, hT = rg.rglru_fwd(a3, g3, h03)
+    h_a, s_a = rg.rglru_fwd(a3[:, :thr], g3[:, :thr], h03)
+    h_b, s_b = rg.rglru_fwd(a3[:, thr:], g3[:, thr:], s_a)
+    across = max(float((torch.cat([h_a, h_b], 1) - h).abs().max()),
+                 float((s_b - hT).abs().max()))
+    if across > 1e-5:
+        fail(f"rglru: a run split at T {thr} (step kernel, then tiled) and threaded through "
+             f"hT -> h0 differs from one run by {across:.3e}")
+    # a row alone has the bits it has in a batch of 4 (the serving gate batched == alone)
+    for T3 in (1, 300):
+        a3, g3, h03, dh3, dhT3 = rglru_inputs(4, T3, 4096, device, seed=3)
+        h, hT = rg.rglru_fwd(a3, g3, h03)
+        da, dg, dh0 = rg.rglru_bwd(a3, h, h03, dh3, dhT3)
+        for b in range(4):
+            r = slice(b, b + 1)
+            alone = rg.rglru_fwd(a3[r], g3[r], h03[r]) + rg.rglru_bwd(a3[r], h[r], h03[r],
+                                                                     dh3[r], dhT3[r])
+            if not all(torch.equal(x, y[r]) for x, y in zip(alone, (h, hT, da, dg, dh0))):
+                fail(f"rglru: row {b} alone differs from row {b} of a B 4 call at T {T3}")
+    # up to the threshold the step kernel walks the fmafs of the tiled kernel's first chunk
+    # from h0, so its h is bitwise the first steps of a tiled call one step longer: at T 1,
+    # fmaf(a, h0, g), the decode step's bits before the step kernel
+    a3, g3, h03 = rglru_inputs(4, thr + 1, 4096, device, seed=4)[:3]
+    tiled = rg.rglru_fwd(a3, g3, h03)[0]
+    for T3 in (1, thr):
+        step = rg.rglru_fwd(a3[:, :T3].contiguous(), g3[:, :T3].contiguous(), h03)[0]
+        if not torch.equal(step, tiled[:, :T3]):
+            fail(f"rglru: the step kernel at (4, {T3}, 4096) differs from the first {T3} steps "
+                 f"of the tiled kernel's")
+    say(f"phase 1c: rglru fwd/bwd within tolerance of the plain versions on {n} cases (the "
+        f"forward's step kernel up to T {thr}; max |diff| h {errs['fwd']:.3e}, at "
+        f"{PREFILL_RGLRU} {errs['prefill']:.3e}, gradients {errs['bwd']:.3e}); hT == h[:, -1]; "
+        f"split at T/2 through hT -> h0 {split:.3e}, split at T {thr} across the threshold "
+        f"{across:.3e}; repeated runs bitwise equal; rows alone == rows of a B 4 call at T 1 "
+        f"and 300, bitwise; the step kernel's h at T 1 and {thr} == the tiled kernel's first "
+        f"steps, bitwise")
+    del a3, g3, h03, dh3, dhT3, h, hT, da, dg, dh0, h_a, h_b, tiled, step
 
-    # --- timing at the main path's shape, as the path calls them (no h0, no dhT)
-    elems = B * T * W
-    work = {"fwd": (3 * 4 * elems, 2 * elems),  # a, g -> h; one multiply-add a step
-            "bwd": (5 * 4 * elems, 3 * elems)}  # a, h, dh -> da, dg; a multiply-add and a multiply
-    calls = {"fwd": (lambda: rg.rglru_fwd(a, g), lambda: rg.rglru_ref(a, g)),
-             "bwd": (lambda: rg.rglru_bwd(a, h, None, dh), lambda: rg.rglru_bwd_ref(a, h, None, dh))}
+    # --- timing in each mode, as the paths call them: training (no h0, no dhT), the
+    # 2304-token prefill (6b's longest), the decode step (h0 from the engine's state)
     timings = {}
-    for name, (kern, plain) in calls.items():
-        nbytes, flops = work[name]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-        timings[name] = t = {
-            "ms": median_ms(kern), "plain_ms": median_ms(plain, reps=3, warmup=1),
-            "library_ms": None, "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        say(f"phase 1c: rglru {name} {MAIN_RGLRU} f32, one launch: {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library none (no PyTorch call computes a linear "
-            f"recurrence), {nbytes / 1e6:.1f} MB, bound {t['bound_ms'] * 1e3:.2f} us by "
-            f"{t['bound_by']} ({t['bound_ms'] / t['ms'] * 100:.1f}% of bound)")
-    del a, g, h, dh, h_a, h_b
+    for mode, name, (B, T, W), with_h0 in (("train", "fwd", MAIN_RGLRU, False),
+                                           ("train", "bwd", MAIN_RGLRU, False),
+                                           ("prefill", "fwd", PREFILL_RGLRU, False),
+                                           ("decode", "fwd", DECODE_RGLRU, True)):
+        a, g, h0, dh, _ = rglru_inputs(B, T, W, device, seed=1)
+        h0 = h0 if with_h0 else None
+        elems = B * T * W
+        if name == "fwd":
+            kern, plain = (lambda: rg.rglru_fwd(a, g, h0)), (lambda: rg.rglru_ref(a, g, h0))
+            # a, g (, h0) -> h, hT; one multiply-add a step
+            nbytes = 3 * 4 * elems + 4 * B * W * (2 if with_h0 else 1)
+            flops = 2 * elems
+        else:
+            h = rg.rglru_fwd(a, g)[0]
+            kern, plain = (lambda: rg.rglru_bwd(a, h, None, dh)), (
+                lambda: rg.rglru_bwd_ref(a, h, None, dh))
+            nbytes, flops = 5 * 4 * elems, 3 * elems  # a, h, dh -> da, dg
+        # at T 1 the recurrence is one multiply-add, which torch.addcmul computes
+        library = (lambda: torch.addcmul(g[:, 0], a[:, 0], h0)) if mode == "decode" else None
+        t = kernel_timing(kern, plain, library, nbytes, flops, PEAK_FLOPS["float32"])
+        t.update(bytes=nbytes, dev_ms=device_ms(kern, calls=50),
+                 library_dev_ms=None if library is None else device_ms(library, calls=50))
+        timings[name if mode == "train" else mode] = t
+        lib = "library none (no PyTorch call computes a linear recurrence)"
+        if library is not None:
+            lib = (f"torch.addcmul {t['library_ms']:.4f} ms, device {t['library_dev_ms'] * 1e3:.2f} "
+                   f"us (kernel / addcmul device {t['dev_ms'] / t['library_dev_ms']:.2f}x)")
+        say(f"phase 1c: rglru {name} {mode} {(B, T, W)} f32{' h0' if with_h0 else ''}, one "
+            f"launch: {t['ms']:.4f} ms, device {t['dev_ms'] * 1e3:.2f} us, plain "
+            f"{t['plain_ms']:.4f} ms, {lib}, {nbytes / 1e6:.2f} MB, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} ({t['bound_ms'] / t['ms'] * 100:.1f}% "
+            f"of bound by events, {t['bound_ms'] / t['dev_ms'] * 100:.1f}% by device time)")
+        del a, g, h0, dh
+    # either side of the threshold: the step kernel at T thr, the tiled one at thr + 1
+    cmp = []
+    for B in (1, 4):
+        for T in (thr, thr + 1):
+            a, g, h0 = rglru_inputs(B, T, 4096, device, seed=5)[:3]
+            cmp.append(f"({B}, {T}) {device_ms(lambda: rg.rglru_fwd(a, g, h0), calls=50) * 1e3:.2f}")
+    say(f"phase 1c: rglru_fwd at (B, T, 4096) with h0, the step kernel to T {thr} and the tiled "
+        f"one past it, device us a launch: {', '.join(cmp)}")
+    del a, g, h0
     torch.cuda.empty_cache()
     rg.reset_counts()
     return errs, timings
@@ -2051,7 +2156,8 @@ def reset_all_counts() -> None:
 def serve_kernel_checks(device):
     """B6 and B7 at T = 1 with a nonzero h0 / s0, B3 at the cells' prefill
     lengths, against their plain versions with phases 1c / 1d / 1b's
-    tolerances; then each one's time in that mode beside its bound."""
+    tolerances; then B7's and B3's time in that mode beside its bound (B6's
+    is phase 1c's)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru as rg
@@ -2095,16 +2201,7 @@ def serve_kernel_checks(device):
         f"{errs['wkv']:.3e}); flash fwd/dQ/dK-dV at {n} prefill lengths of 6a and 6b (bf16: "
         f"{fmt_rel(rel)}): all within phases 1c / 1d / 1b's tolerances")
 
-    timings = {}
-    B, T, W = DECODE_RGLRU
-    a, g, h0 = rglru_inputs(B, T, W, device, 61)[:3]
-    elems = B * T * W
-    nbytes, flops = 3 * 4 * elems + 2 * 4 * B * W, 2 * elems  # a, g, h0 -> h, hT
-    # at T 1 the recurrence is one multiply-add, which torch.addcmul computes
-    timings["rglru"] = kernel_timing(lambda: rg.rglru_fwd(a, g, h0),
-                                     lambda: rg.rglru_ref(a, g, h0),
-                                     lambda: torch.addcmul(g[:, 0], a[:, 0], h0), nbytes, flops,
-                                     PEAK_FLOPS["float32"])
+    timings = {}  # B6 in this mode is timed in phase 1c
     B, T, H, K = DECODE_WKV
     r, k, v, w, u, s0 = wkv_inputs(B, T, H, K, device, 71, torch.bfloat16)[:6]
     elems = B * T * H * K
@@ -2130,7 +2227,6 @@ def serve_kernel_checks(device):
                                                                      **sdpa_opts),
             nbytes, flops, PEAK_FLOPS["bfloat16"])
     for key, where, lib_name in (
-            ("rglru", f"rglru_fwd {DECODE_RGLRU} with h0", "torch.addcmul"),
             ("wkv", f"wkv_fwd {DECODE_WKV} bf16 r/k/v with s0", None),
             ("flash[tinyllama]", f"flash fwd {TL_SERVE_ATTN[:5]} bf16", "SDPA"),
             ("flash[recurrentgemma]", f"flash fwd {RG_SERVE_ATTN[:5]} window 2048 bf16", "SDPA")):
@@ -2168,7 +2264,8 @@ def decode_bytes(model, engine) -> int:
 
 # the port's kernels by the names the device trace gives them (substrings)
 TRACE_NAMES = {"flash_fwd": ("flash_fwd_sm90_kernel", "flash_fwd_kernel"),
-               "rglru_fwd": ("rglru_fwd_kernel",), "wkv_fwd_state": ("wkv_fwd_state_kernel",),
+               "rglru_fwd": ("rglru_fwd_kernel",), "rglru_step": ("rglru_step_kernel",),
+               "wkv_fwd_state": ("wkv_fwd_state_kernel",),
                "wkv_fwd_out": ("wkv_fwd_out_kernel",)}
 
 
@@ -2263,13 +2360,60 @@ def check_serve_counts(tag, cfg, res, counts, n_prefills):
 
 
 def check_step_kernels(tag, cfg, prof):
-    """Each profiled decode step ran B6 once per RG-LRU layer, B7's two
-    kernels once per RWKV6 layer and no flash forward, by name in the
-    device trace."""
+    """Each profiled decode step ran B6's step kernel once per RG-LRU layer
+    and never its tiled one, B7's two kernels once per RWKV6 layer and no
+    flash forward, by name in the device trace."""
     _, rec, rwkv = layer_counts(cfg)
-    want = {"flash_fwd": 0, "rglru_fwd": rec, "wkv_fwd_state": rwkv, "wkv_fwd_out": rwkv}
+    want = {"flash_fwd": 0, "rglru_fwd": 0, "rglru_step": rec, "wkv_fwd_state": rwkv,
+            "wkv_fwd_out": rwkv}
     if prof["named"] != want:
         fail(f"{tag}: a decode step's kernels in the device trace {prof['named']}, want {want}")
+
+
+@contextlib.contextmanager
+def prefill_counts():
+    """B6's launches inside the serving engine's prefills: the wrapper's
+    count read before and after each one (``ServingEngine._prefill_ids``)."""
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.serving import ServingEngine
+
+    seen = {"prefills": 0, "rglru_fwd": 0}
+    prefill = ServingEngine._prefill_ids
+
+    def counted(self, ids):
+        before = rg.rglru_fwd.launches
+        out = prefill(self, ids)
+        seen["prefills"] += 1
+        seen["rglru_fwd"] += rg.rglru_fwd.launches - before
+        return out
+
+    ServingEngine._prefill_ids = counted
+    try:
+        yield seen
+    finally:
+        ServingEngine._prefill_ids = prefill
+
+
+def prefill_trace(cfg, model, max_seq, prompt, device) -> dict:
+    """The port's kernels by name (``TRACE_NAMES``) in the device trace of
+    one prefill of ``prompt`` (``make_prefill_step``), after a warm-up
+    prefill under the same tracer."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device=device)[None]
+    prefill = make_prefill_step(cfg, max_seq)
+    once = schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=once) as prof:
+        for _ in range(2):
+            prefill(model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            prof.step()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {key: sum(any(n in name for n in keys) for name in names)
+            for key, keys in TRACE_NAMES.items()}
 
 
 RING_STEPS = 16  # decode steps of the ring check; the JAX ring loses one more key a step
@@ -2389,15 +2533,20 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
     args = ["--arch", arch, "--slots", str(slots), "--requests", str(len(lens)),
             "--prompt-lens", ",".join(map(str, lens)), "--tokens", str(tokens),
             "--max-seq", str(max_seq), "--fabric", "gpu_nccl", "--device", str(device)]
+    _, rec, _ = layer_counts(cfg)
     out = {}
     for mode, graph in (("graph", True), ("eager", False)):
         reset_all_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        res = serve.run(args, model=model, cuda_graph=graph, quiet=True)
+        with prefill_counts() as pre:
+            res = serve.run(args, model=model, cuda_graph=graph, quiet=True)
         torch.cuda.synchronize()
         counts = serve_counts(cfg)
         check_serve_counts(f"{tag} {mode}", cfg, res, counts, len(lens))
+        if pre != {"prefills": len(lens), "rglru_fwd": rec * len(lens)}:
+            fail(f"{tag} {mode}: B6 launches inside the prefills {pre}, want {rec} a prefill "
+                 f"over {len(lens)} prefills")
         toks = {r.rid: r.generated for r in res.completed}
         if len(toks) != len(lens) or any(len(t) != tokens for t in toks.values()):
             fail(f"{tag} {mode}: {len(toks)} requests completed, lengths "
@@ -2406,7 +2555,8 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
         if graph and (stats["graph_captures"] != 1 or res.engine.graph_captures != 1):
             fail(f"{tag}: {stats['graph_captures']} decode graphs captured, want 1 (none after a "
                  f"join or a retirement)")
-        out[mode] = {"res": res, "counts": counts, "tokens": toks, "stats": stats,
+        out[mode] = {"res": res, "counts": counts, "prefill_counts": pre, "tokens": toks,
+                     "stats": stats,
                      "steps": res.engine.decode_launches, "replays": res.engine.graph_replays,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "prefill_ms": statistics.median(res.timer.prefill_times) * 1e3,
@@ -2445,6 +2595,15 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
         prof["eager"] = decode_profile(e["res"].engine)
     for mode, p in prof.items():
         check_step_kernels(f"{tag} {mode}", cfg, p)
+    # a prefill runs B6's tiled kernel once per RG-LRU layer and never the step kernel
+    pre_trace = None
+    if rec:
+        req = serve.make_requests(serve.parse_args(args), cfg.vocab)[-1]
+        pre_trace = prefill_trace(cfg, model, max_seq, req.prompt, device)
+        if (pre_trace["rglru_fwd"], pre_trace["rglru_step"]) != (rec, 0):
+            fail(f"{tag}: the {len(req.prompt)}-token prefill's device trace holds B6's tiled "
+                 f"kernel {pre_trace['rglru_fwd']} times and its step kernel "
+                 f"{pre_trace['rglru_step']} times, want {rec} and 0")
 
     # the longest prompt's decode steps against the full forward, with the ring as the port
     # writes it and as the JAX prefill writes it
@@ -2462,6 +2621,7 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
         "peak_gb": max(g["peak_gb"], e["peak_gb"]),
         "predicted_ms": plan.predicted_step_time() * 1e3, "bound_ms": bound_ms, "fwd": fwd,
         "prof": prof, "steps": g["steps"], "replays": g["replays"],
+        "prefill_launches": g["prefill_counts"]["rglru_fwd"],
     }
     say(f"{tag}: {arch} all {cfg.n_layers} layers bf16, {slots} slots / max_seq {max_seq}, "
         f"{len(lens)} requests (prompts {min(lens)}-{max(lens)}) x {tokens} tokens, greedy: "
@@ -2476,6 +2636,10 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
         f"against {res['step_ms']:.3f} ms observed; bound {bound_ms:.3f} ms "
         f"({decode_bytes(model, g['res'].engine) / 1e9:.2f} GB of weights and caches at 3.35 "
         f"TB/s, {bound_ms / res['step_ms'] * 100:.1f}% of it)")
+    if pre_trace:
+        say(f"{tag}: B6 launches inside the prefills (the wrapper's count around each): "
+            f"{g['prefill_counts']['rglru_fwd']} over {g['prefill_counts']['prefills']} prefills "
+            f"(graph run); the {max(lens)}-token prefill's device trace, by name: {pre_trace}")
     for mode, p in prof.items():
         idle = "not measured" if p["idle"] is None else f"{p['idle']:.3f}"
         named = {k: int(v) for k, v in p["named"].items()}
@@ -2777,21 +2941,36 @@ def main() -> None:
             ("flash_attention.fwd[serve recurrentgemma]", FLASH_SM90_SRC,
              "src/repro/kernels/flash_attention/kernel.py:40", "flash[recurrentgemma]",
              ("phase 6b", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
-            ("rglru.fwd[serve]", RGLRU_SRC, "src/repro/kernels/rglru/kernel.py:31", "rglru",
-             ("phase 6b", "rglru_fwd"), "rglru", {}),
+            ("rglru.fwd[serve]", RGLRU_SRC, "src/repro/kernels/rglru/kernel.py:31", "decode",
+             ("phase 6b", "rglru_fwd"), "rglru", {"kernel": "rglru_step_kernel"}),
             ("rwkv6_wkv.fwd[serve]", WKV_SRC, "src/repro/kernels/rwkv6_wkv/kernel.py:31", "wkv",
              ("phase 6c", "wkv_fwd"), "wkv", {})):
-        t = serve_timings[key]
+        t = rglru_timings[key] if key == "decode" else serve_timings[key]
         cell = serve_cells[counter[0]]
         per_replay = cell["prof"]["graph"]["named"][
-            "wkv_fwd_state" if counter[1] == "wkv_fwd" else counter[1]]
+            {"wkv_fwd": "wkv_fwd_state", "rglru_fwd": "rglru_step"}.get(counter[1], counter[1])]
+        launches = graph_counts[counter[0]][counter[1]]
+        if name == "rglru.fwd[serve]":
+            # B6's launches inside the prefills (the tiled kernel, read around each prefill)
+            # have a row of their own below; this row keeps the decode steps run in Python
+            launches -= cell["prefill_launches"]
         kernels.append({
             "name": name, **extra, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": graph_counts[counter[0]][counter[1]],
+            "launches": launches,
             "graph_replays": cell["replays"], "launches_per_replay": int(per_replay),
             "max_abs_err": serve_errs[err], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+    # B6 in 6b's prefills (the tiled kernel), checked and timed at the longest prompt's
+    # (1, 2304, 4096) in phase 1c
+    t, cell = rglru_timings["prefill"], serve_cells["phase 6b"]
+    kernels.append({
+        "name": "rglru.fwd[prefill]", "kernel": "rglru_fwd_kernel", "route": "cuda",
+        "source": RGLRU_SRC, "replaces": "src/repro/kernels/rglru/kernel.py:31",
+        "launches": cell["prefill_launches"], "max_abs_err": rglru_errs["prefill"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

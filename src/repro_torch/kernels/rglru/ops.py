@@ -3,10 +3,16 @@
 for tensors on the CPU (counterpart of ``repro/kernels/rglru/ops.py``).
 
 Which path runs follows from where the tensors lie, and from nothing
-else: a CUDA tensor launches the kernel or raises.  Each kernel's wrapper
-(``rglru_fwd``, ``rglru_bwd``) counts its launches in ``.launches`` and its
-calls that took the plain version in ``.ref_calls``; ``reset_counts()``
-zeroes them.
+else: a CUDA tensor launches a kernel or raises.  The forward has two
+kernels, which the library picks by T alone (never by B, so a row's bits
+do not depend on the rows batched with it): for T up to ``step_max_t()``
+(the decode step) the step kernel, one thread walking T for 4 adjacent
+channels; past it the tiled kernel, 16 x 16-step chunks a tile, the
+tiles streamed through a ring in shared memory (training, prefill).  The
+backward, which only training runs, is one tiled kernel.  Each wrapper
+(``rglru_fwd``, ``rglru_bwd``) counts the launches of whichever kernel
+ran in ``.launches`` and its calls that took the plain version in
+``.ref_calls``; ``reset_counts()`` zeroes them.
 
 ``rglru`` is the differentiable op (``RGLRUScan``): its forward launches
 ``rglru_fwd`` and saves ``(a, h, h0)``, its backward launches
@@ -37,8 +43,16 @@ def _library() -> ctypes.CDLL:
         lib.rglru_fwd.argtypes = [p] * 5 + [i, i, i, p]
         lib.rglru_bwd.argtypes = [p] * 8 + [i, i, i, p]
         lib.rglru_fwd.restype = lib.rglru_bwd.restype = ctypes.c_int
+        lib.rglru_step_max_t.argtypes = []
+        lib.rglru_step_max_t.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def step_max_t() -> int:
+    """The longest T that the forward's step kernel takes (``kStepMaxT``
+    of ``csrc/rglru.cu``); builds the library."""
+    return _library().rglru_step_max_t()
 
 
 def _on_cpu(*tensors: torch.Tensor | None) -> bool:

@@ -25,13 +25,17 @@ bitwise the same parameters for the ``post`` and ``dag`` issue orders.
 
 rglru: the forward and backward kernels against their plain versions
 (the sequential loop and its reverse) at the JAX tests' first shape, a
-ragged one and the main path's (1, 4096, 4096), with and without h0:
-h / hT within 1e-5 (the tolerance of ``tests/test_kernels.py``), gradients
-within 1e-5 x max(1, max|g|) (the kernels reassociate the carry across
-time chunks; the plain versions do not); hT is exactly h[:, -1], two runs
-give the same bits, a run split at T/2 and threaded through hT -> h0
-matches one run; and reduced RecurrentGemma trains bitwise equal under
-``post`` and ``dag``.
+ragged one, the training shape (1, 4096, 4096), the prefill shape
+(1, 2304, 4096), the decode step's (4, 1 and 2, 4096) and T one below, at
+and one past the step kernel's threshold (W 40 and 4097), with and without
+h0: h / hT within 1e-5 (the tolerance of ``tests/test_kernels.py``),
+gradients within 1e-5 x max(1, max|g|) (the tiled kernels reassociate the
+carry across time chunks; the plain versions do not); hT is exactly
+h[:, -1], two runs give the same bits, a row of a B = 4 call has the bits
+of a B = 1 call on it (T 1 and 300), the step kernel's h is bitwise the
+first steps of the tiled kernel's, a run split at T/2 and threaded
+through hT -> h0 matches one run; and reduced RecurrentGemma trains
+bitwise equal under ``post`` and ``dag``.
 
 rwkv6_wkv: the forward and backward kernels against their plain versions
 (the sequential loop and its reverse walk) at the JAX tests' four shapes
@@ -420,13 +424,23 @@ def _grad_close(got, want, name):
     assert err <= 1e-5 * max(1.0, float(want.abs().max())), (name, err)
 
 
+def _steps(T) -> int:
+    """T of a case: an int, or ``step_max_t()`` plus an offset (the step
+    kernel's threshold, read from the library on the card)."""
+    return T if isinstance(T, int) else rg.step_max_t() + int(T.removeprefix("max_t"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
-@pytest.mark.parametrize("shape", [(2, 64, 128), (3, 300, 40), (1, 4096, 4096)],
-                         ids=["jax-test", "ragged", "main-path"])
+@pytest.mark.parametrize("shape", [(2, 64, 128), (3, 300, 40), (1, 4096, 4096), (4, 1, 4096),
+                                   (4, 2, 4096), (2, "max_t-1", 40), (2, "max_t+0", 40),
+                                   (2, "max_t+1", 4097), (1, 2304, 4096)],
+                         ids=["jax-test", "ragged", "main-path", "decode", "decode-t2",
+                              "below-threshold", "at-threshold", "past-threshold", "prefill"])
 def test_cuda_rglru_kernels_match_plain(shape, with_h0):
     dev = require_cuda()
-    a, g, h0, dh, dhT = _rglru_inputs(*shape, dev)
+    B, T, W = shape
+    a, g, h0, dh, dhT = _rglru_inputs(B, _steps(T), W, dev)
     h0 = h0 if with_h0 else None
     rg.reset_counts()
     h, hT = rg.rglru_fwd(a, g, h0)
@@ -447,6 +461,39 @@ def test_cuda_rglru_kernels_match_plain(shape, with_h0):
     h2, _ = rg.rglru_fwd(a, g, h0)
     da2, dg2, _ = rg.rglru_bwd(a, h, h0, dh, dhT)
     assert torch.equal(h2, h) and torch.equal(da2, da) and torch.equal(dg2, dg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 300])
+def test_cuda_rglru_row_alone_equals_row_in_batch(T):
+    """The serving gate "batched == alone": row b of a B = 4 call has the
+    bits of a B = 1 call on that row (the kernel is picked by T, never by
+    B), forward and backward."""
+    dev = require_cuda()
+    a, g, h0, dh, dhT = _rglru_inputs(4, T, 4096, dev, seed=11)
+    h, hT = rg.rglru_fwd(a, g, h0)
+    da, dg, dh0 = rg.rglru_bwd(a, h, h0, dh, dhT)
+    for b in range(4):
+        r = slice(b, b + 1)
+        h1, hT1 = rg.rglru_fwd(a[r], g[r], h0[r])
+        da1, dg1, dh01 = rg.rglru_bwd(a[r], h[r], h0[r], dh[r], dhT[r])
+        for got, want in ((h1, h[r]), (hT1, hT[r]), (da1, da[r]), (dg1, dg[r]), (dh01, dh0[r])):
+            assert torch.equal(got, want), b
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_step_kernel_has_the_tiled_bits():
+    """Up to the threshold the step kernel walks the fmafs of the tiled
+    kernel's first chunk from h0: its h is bitwise the first steps of a
+    tiled call one step longer (at T = 1, the decode step's bits before
+    the step kernel)."""
+    dev = require_cuda()
+    thr = rg.step_max_t()
+    a, g, h0 = _rglru_inputs(4, thr + 1, 4096, dev, seed=12)[:3]
+    tiled = rg.rglru_fwd(a, g, h0)[0]
+    for T in (1, thr):
+        assert torch.equal(rg.rglru_fwd(a[:, :T].contiguous(), g[:, :T].contiguous(), h0)[0],
+                           tiled[:, :T])
 
 
 @pytest.mark.cuda

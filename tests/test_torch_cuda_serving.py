@@ -88,8 +88,9 @@ def test_cuda_graph_replays_run_their_kernels():
                 torch.cuda.synchronize()
             prof.step()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert sum("rglru_fwd_kernel" in n for n in names) == 3 * rec
-    assert not any("flash_fwd" in n for n in names)
+    # a decode step (T 1) runs B6's step kernel, never the tiled one
+    assert sum("rglru_step_kernel" in n for n in names) == 3 * rec
+    assert not any("flash_fwd" in n or "rglru_fwd_kernel" in n for n in names)
     assert rg.rglru_fwd.launches == launches and eng.graph_replays >= 4
 
 

@@ -4,7 +4,8 @@ versions against the JAX package's, on the CPU.
 - ``rglru_ref`` (the sequential loop, the CUDA kernel's plain version) and
   ``rglru_scan_ref`` (jax.lax.associative_scan's order) against the JAX
   oracle ``rglru_ref`` and the Pallas kernel in interpret mode, at the
-  shapes of ``tests/test_kernels.py`` and at the tolerance it uses (1e-5);
+  shapes of ``tests/test_kernels.py`` and at the serving decode step's
+  (4, 1 and 2, 4096), with and without h0, at the tolerance it uses (1e-5);
 - state threading: a run split in two, carried through ``hT -> h0``,
   matches one full run;
 - ``rglru_bwd_ref`` against ``jax.vjp`` of the JAX oracle and against
@@ -40,6 +41,8 @@ TOL = 1e-5
 GRAD_REL = 1e-5
 #: tests/test_kernels.py's shapes: B, T, W, Pallas chunk, Pallas block_w
 SHAPES = [(2, 64, 128, 16, 128), (1, 128, 256, 32, 128), (1, 256, 512, 128, 256)]
+#: the serving decode step's shapes (4 slots, lru_width 4096), one chunk of T
+DECODE_SHAPES = [(4, 1, 4096, 1, 512), (4, 2, 4096, 2, 512)]
 
 
 def _inputs(B, T, W, seed=0, h0=False):
@@ -71,7 +74,7 @@ def _grad_close(got, want):
 
 
 @pytest.mark.parametrize("plain", [rglru_ref, rglru_scan_ref], ids=["sequential", "assoc"])
-@pytest.mark.parametrize("B,T,W,chunk,block_w", SHAPES)
+@pytest.mark.parametrize("B,T,W,chunk,block_w", SHAPES + DECODE_SHAPES)
 @pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
 def test_plain_matches_jax_ref_and_pallas_interpret(plain, B, T, W, chunk, block_w, with_h0):
     a, g, h0 = _inputs(B, T, W, seed=T, h0=with_h0)
