@@ -252,6 +252,44 @@ step could hide a kernel fault.
    dim raised from 24 to 32 on both sides); and seeded sampling inside the
    graph repeats on its seed.
 
+7. Resilient serving and the fleet at full width (random bf16 weights from
+   seed 0, ``gpu_nccl``'s plan, the decode step one CUDA graph; snapshots
+   under ``build/chip_smoke_snapshots``, removed at the end).  7a:
+   TinyLlama-1.1B, 22 layers, through ``launch.serve.run`` with 6a's 16
+   prompts (64-512 tokens) x 64 new, 8 slots / max_seq 1024, greedy,
+   ``--snapshot-every 8`` and ``chaos=ChaosConfig(kill_every=12,
+   max_kills=3, corrupt_snapshot_at=24, partial_write_at=36)``: every
+   request's tokens equal the launcher's uninterrupted run's, 3 restarts,
+   at least one fallback past the corrupted snapshot, one graph captured by
+   the chaos engine across its restores, B3 = 22 x the prefills both
+   engines counted and B6 / B7 none, no plain call or backward kernel.
+   Then the snapshot's bytes and, median of 3 on the finished engine, the
+   ms of its copy to the host, its write (CRC-32s and the atomic rename),
+   its load and verification, and its restore into the graph's buffers
+   (every state tensor keeps its storage); the loop's recovery seconds,
+   with and without the backoff sleep.  Then 4 of the requests with
+   ``--temperature 1.0`` (``gumbel_sampler``, seed 2) killed at steps 5 and
+   17: the tokens equal the uninterrupted seeded run's.  7b: RecurrentGemma-
+   9B, all 38 layers, 4 slots / max_seq 4096, 4 requests of 256-2304 prompt
+   tokens (the last 2304) x 32, snapshots every 4 steps, killed at steps 9
+   and 21: tokens equal the uninterrupted run's (the ``(conv, h)`` states,
+   the rings and ``kpos`` restored); counts as 7a's with B6 = 26 x (prefills
+   + decode steps in Python), B6 inside the prefills 26 x prefills; by name
+   in the device trace a replay runs 26 B6 step kernels and no tiled one,
+   a prefill 26 tiled kernels and no step kernel.  7c: 3 TinyLlama-1.1B
+   replicas sharing one model, 4 slots / 1024 and one graph each, through
+   ``launch.serve_fleet.run``: 24 requests of 128 prompt tokens x 32 at
+   1e6 requests/s from seed 0, snapshots every 32 steps, replica 0 killed
+   at its step 4 with ``--max-restores 0``, on a step clock (``StepClock``):
+   1 death, failovers >= 1, 24 completed, 0 token mismatches, goodput 24 x
+   32 tokens, every failed-over request finished on a live replica; B3 =
+   22 x the prefills the replicas counted (fresh and resumed), no plain
+   call; a second identical run gives the same tokens for every request.
+   Then one fault-free run on the wall clock: p50 / p99 latency and goodput
+   tokens/s, gated only on all 24 completing.  Fleet tokens are not held
+   against a single engine's: the engine's shared ``kpos`` row makes a
+   row's tokens depend on its batch (ROADMAP C).
+
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
@@ -266,7 +304,10 @@ mode.  A CUDA graph's replay launches what its capture
 recorded with no Python running, so a wrapper's count holds the capture's
 recording and no replay; those rows add ``graph_replays`` (the run's
 replays) and ``launches_per_replay`` (read by kernel name from the
-device trace of profiled replays).
+device trace of profiled replays).  Phase 7 adds rows of its own: B3 over
+7a's, 7a's sampled run's and 7c's runs (TinyLlama) and over 7b's
+(RecurrentGemma), B6 inside 7b's prefills and in its decode steps run in
+Python (with its replays), each timed as phase 6's row for the same shapes.
 """
 
 from __future__ import annotations
@@ -2734,6 +2775,369 @@ def phase_serve(device):
     return errs, timings, cells
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: resilient serving and the fleet at full width
+# ---------------------------------------------------------------------------
+
+SNAP_ROOT = ROOT / "build" / "chip_smoke_snapshots"  # every cell's own directory, removed
+P7_LENS = SERVE_CELLS[0][4]  # 6a's prompt lengths, 64-512 tokens
+P7_TOKENS = 64
+P7_SNAPSHOT_REPS = 3
+P7B_LENS = serve_lens(4, 256, 2304, exact=2304)
+P7B_TOKENS = 32
+FLEET_ARGS = ["--arch", "tinyllama-1.1b", "--replicas", "3", "--slots", "4", "--max-seq", "1024",
+              "--requests", "24", "--prompt-len", "128", "--tokens", "32", "--rate", "1e6",
+              "--load-seed", "0", "--snapshot-every", "32", "--fabric", "gpu_nccl"]
+FLEET_CHAOS = ["--chaos-kill-at", "4", "--chaos-replicas", "0", "--max-restores", "0"]
+
+
+class StepClock:
+    """A clock that advances ``dt`` seconds a call: deadlines, heartbeats
+    and arrivals then depend on the calls made, not on the host's speed."""
+
+    def __init__(self, dt: float = 1e-3):
+        self.t, self.dt = 0.0, dt
+
+    def __call__(self) -> float:
+        self.t += self.dt
+        return self.t
+
+
+@contextlib.contextmanager
+def snapshot_seconds():
+    """The serve loops' snapshot writes (``ServeLoopDriver.snapshot_now``
+    through ``resilience.save_snapshot``): each one's host seconds, in
+    order."""
+    from repro_torch.serving import resilience
+
+    seen: list[float] = []
+    save = resilience.save_snapshot
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = save(*args, **kwargs)
+        seen.append(time.perf_counter() - t0)
+        return out
+
+    resilience.save_snapshot = timed
+    try:
+        yield seen
+    finally:
+        resilience.save_snapshot = save
+
+
+def snapshot_dir(tag: str) -> pathlib.Path:
+    path = SNAP_ROOT / tag.replace(" ", "_")
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def resilient_cell(tag, model, cfg, args, chaos, restarts, min_fallbacks=0):
+    """``launch.serve.run`` of ``args`` under ``chaos``, with the launcher's
+    uninterrupted run beside it: every request's tokens equal that run's,
+    ``restarts`` restarts and at least ``min_fallbacks`` fallbacks, one graph
+    captured by the chaos engine across its restores, and the wrappers'
+    counts those of the prefills (both engines' own counts) and of the
+    decode steps run in Python, with no plain call and no backward kernel."""
+    import torch
+    from repro_torch.launch import serve
+
+    reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with prefill_counts() as pre:
+        res = serve.run(args, model=model, chaos=chaos, quiet=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = serve_counts(cfg)
+    rep, eng, ref = res.report, res.engine, res.reference
+    if res.tokens_match is not True:
+        got = {r.rid: r.generated for r in res.completed}
+        want = {r.rid: r.generated for r in ref.completed}
+        bad = sorted(rid for rid in want if got.get(rid) != want[rid])
+        fail(f"{tag}: the killed and restored run's tokens differ from the uninterrupted run's "
+             f"for requests {bad}")
+    if rep.restarts != restarts or rep.snapshot_fallbacks < min_fallbacks:
+        fail(f"{tag}: {rep.restarts} restarts and {rep.snapshot_fallbacks} snapshot fallbacks, "
+             f"want {restarts} and at least {min_fallbacks}")
+    if eng.graph_captures != 1 or eng.compile_stats()["graph_captures"] != 1:
+        fail(f"{tag}: the chaos engine captured {eng.graph_captures} graphs across "
+             f"{rep.restarts} restores, want 1")
+    attn, rec, rwkv = layer_counts(cfg)
+    prefills = eng.prefills + ref.prefills
+    steps = sum(e.decode_launches - e.graph_replays + e.graph_captures for e in (eng, ref))
+    want = {"flash_fwd": attn * prefills, "rglru_fwd": rec * (prefills + steps),
+            "wkv_fwd": rwkv * (prefills + steps), "plain": 0, "other": 0}
+    if counts != want or pre != {"prefills": prefills, "rglru_fwd": rec * prefills}:
+        fail(f"{tag}: kernel counts {counts} (inside the prefills {pre}), want {want} "
+             f"({prefills} prefills counted by the engines, {steps} decode steps in Python)")
+    if len(res.completed) != len(ref.completed) or any(not 0 <= t < cfg.vocab for r in
+                                                       res.completed for t in r.generated):
+        fail(f"{tag}: {len(res.completed)} requests completed, or a token outside the vocabulary")
+    return {"res": res, "counts": counts, "prefills": prefills, "chaos_prefills": eng.prefills,
+            "steps_in_python": steps, "prefill_launches": pre["rglru_fwd"], "seconds": seconds,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def snapshot_timing(engine, directory) -> dict:
+    """Each part of a snapshot and its restore on ``engine``, median of
+    ``P7_SNAPSHOT_REPS``: the copy to the host, the write (CRC-32s and the
+    atomic rename included), the load with its CRC-32 checks, and the copy
+    into the captured graph's buffers; every state tensor keeps its storage
+    and no graph is captured."""
+    import torch
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.serving import load_snapshot, snapshot_engine, write_snapshot
+
+    ptrs = [t.data_ptr() for t in tree_leaves(engine._state)]
+    parts = {"host_ms": [], "write_ms": [], "load_ms": [], "restore_ms": []}
+    for i in range(P7_SNAPSHOT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = snapshot_engine(engine, step=1000 + i)
+        t1 = time.perf_counter()
+        write_snapshot(snap, str(directory))
+        t2 = time.perf_counter()
+        loaded = load_snapshot(str(directory), 1000 + i, engine)
+        t3 = time.perf_counter()
+        engine.restore_snapshot(loaded)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[key].append(dt * 1e3)
+        shutil.rmtree(directory / f"step_{1000 + i:08d}")
+    if [t.data_ptr() for t in tree_leaves(engine._state)] != ptrs or engine.graph_captures != 1:
+        fail("phase 7a: a restore rebound a state tensor or captured a graph")
+    return {"bytes": snap.nbytes, **{k: statistics.median(v) for k, v in parts.items()}}
+
+
+def fmt_recovery(rep, backoff=0.05) -> str:
+    """The loop's recovery seconds, and each less its backoff sleep."""
+    rec = rep.recovery_times_s
+    net = [r - backoff * 2 ** i for i, r in enumerate(rec)]
+    return (f"recovery {', '.join(f'{r:.3f}' for r in rec)} s (less the backoff "
+            f"{', '.join(f'{r:.3f}' for r in net)} s)")
+
+
+def phase_resilient_tinyllama(device) -> dict:
+    """7a: TinyLlama-1.1B through ``launch.serve.run`` with snapshots every
+    8 steps, a kill every 12 (3 at most), the snapshot of step 24 corrupted
+    and a partial write after step 36; then the snapshot's parts timed; then
+    a seeded ``gumbel_sampler(1.0)`` run of 4 requests killed at steps 5 and
+    17."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ChaosConfig
+
+    cfg = get_config("tinyllama-1.1b")
+    model = Transformer(cfg, device=device, seed=0)
+    d = snapshot_dir("phase 7a")
+    args = ["--arch", "tinyllama-1.1b", "--slots", "8", "--max-seq", "1024", "--requests",
+            str(len(P7_LENS)), "--prompt-lens", ",".join(map(str, P7_LENS)), "--tokens",
+            str(P7_TOKENS), "--fabric", "gpu_nccl", "--device", str(device),
+            "--snapshot-every", "8", "--snapshot-dir", str(d)]
+    greedy = resilient_cell("phase 7a", model, cfg, args, ChaosConfig(
+        kill_every=12, max_kills=3, corrupt_snapshot_at=24, partial_write_at=36), restarts=3,
+        min_fallbacks=1)
+    rep = greedy["res"].report
+    timing = snapshot_timing(greedy["res"].engine, d)
+    shutil.rmtree(d, ignore_errors=True)
+    say(f"phase 7a: tinyllama-1.1b all 22 layers bf16, 8 slots / max_seq 1024, "
+        f"{len(P7_LENS)} requests (prompts {min(P7_LENS)}-{max(P7_LENS)}) x {P7_TOKENS} tokens, "
+        f"greedy, snapshots every 8 steps, killed every 12 (3 kills), the snapshot of step 24 "
+        f"corrupted, a partial write after step 36: tokens == the uninterrupted run's for every "
+        f"request; {rep.steps} steps, {rep.restarts} restarts, {rep.snapshots} snapshots, "
+        f"{rep.snapshot_fallbacks} fallback(s); 1 graph captured across the restores; "
+        f"flash fwd {greedy['counts']['flash_fwd']} = 22 x {greedy['prefills']} prefills "
+        f"({greedy['chaos_prefills']} the chaos engine's), no plain call; "
+        f"{fmt_recovery(rep)}; {greedy['seconds']:.1f} s with the uninterrupted run, peak "
+        f"{greedy['peak_gb']:.2f} GB")
+    say(f"phase 7a: a snapshot of {timing['bytes'] / 1e9:.4f} GB (cache arena, positions, "
+        f"mask, budgets, both generators), median of {P7_SNAPSHOT_REPS}: to the host "
+        f"{timing['host_ms']:.1f} ms, written with CRC-32s {timing['write_ms']:.1f} ms, loaded "
+        f"and verified {timing['load_ms']:.1f} ms, restored into the graph's buffers "
+        f"{timing['restore_ms']:.1f} ms")
+
+    d = snapshot_dir("phase 7a gumbel")
+    sampled_args = args[:]
+    sampled_args[sampled_args.index("--requests") + 1] = "4"
+    sampled_args[sampled_args.index("--snapshot-dir") + 1] = str(d)
+    sampled = resilient_cell("phase 7a gumbel", model, cfg, sampled_args + [
+        "--temperature", "1.0"], ChaosConfig(kill_at=(5, 17)), restarts=2)
+    shutil.rmtree(d, ignore_errors=True)
+    srep = sampled["res"].report
+    say(f"phase 7a: gumbel_sampler(1.0), seed 2, 4 requests x {P7_TOKENS} tokens, killed at "
+        f"steps 5 and 17: tokens == the uninterrupted seeded run's for every request (both "
+        f"generators restored, the step's registered with the graph); {srep.steps} steps, "
+        f"{srep.restarts} restarts, 1 graph captured; {fmt_recovery(srep)}")
+    for cell in (greedy, sampled):
+        del cell["res"]
+    out = {"greedy": greedy, "timing": timing, "sampled": sampled}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resilient_recurrentgemma(device) -> dict:
+    """7b: RecurrentGemma-9B, all 38 layers, as 6b: 4 requests of 256-2304
+    prompt tokens x 32, snapshots every 4 steps, killed at steps 9 and 21;
+    then B6 by name in the device trace of the replays and of a prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ChaosConfig
+
+    cfg = get_config("recurrentgemma-9b")
+    model = Transformer(cfg, device=device, seed=0)
+    d = snapshot_dir("phase 7b")
+    args = ["--arch", "recurrentgemma-9b", "--slots", "4", "--max-seq", "4096", "--requests",
+            str(len(P7B_LENS)), "--prompt-lens", ",".join(map(str, P7B_LENS)), "--tokens",
+            str(P7B_TOKENS), "--fabric", "gpu_nccl", "--device", str(device),
+            "--snapshot-every", "4", "--snapshot-dir", str(d)]
+    cell = resilient_cell("phase 7b", model, cfg, args, ChaosConfig(kill_at=(9, 21)),
+                          restarts=2)
+    shutil.rmtree(d, ignore_errors=True)
+    res = cell["res"]
+    prof = decode_profile(res.engine, steps=3)
+    check_step_kernels("phase 7b", cfg, prof)
+    _, rec, _ = layer_counts(cfg)
+    first = make_requests_p7b(cfg)[0].prompt
+    pre_trace = prefill_trace(cfg, model, 4096, first, device)
+    if (pre_trace["rglru_fwd"], pre_trace["rglru_step"]) != (rec, 0):
+        fail(f"phase 7b: a prefill's device trace holds B6's tiled kernel "
+             f"{pre_trace['rglru_fwd']} times and its step kernel {pre_trace['rglru_step']} "
+             f"times, want {rec} and 0")
+    rep = res.report
+    snap_gb = res.engine.snapshot().nbytes / 1e9
+    say(f"phase 7b: recurrentgemma-9b all 38 layers bf16, 4 slots / max_seq 4096, "
+        f"{len(P7B_LENS)} requests (prompts {min(P7B_LENS)}-{max(P7B_LENS)}) x {P7B_TOKENS} "
+        f"tokens, greedy, snapshots of {snap_gb:.4f} GB every 4 steps, killed at steps 9 and "
+        f"21: tokens == the uninterrupted run's for every request (the (conv, h) states, the "
+        f"rings and kpos restored); {rep.steps} steps, {rep.restarts} restarts, 1 graph; kernel "
+        f"counts {cell['counts']} over {cell['prefills']} prefills (B6 inside them "
+        f"{cell['prefill_launches']}) and {cell['steps_in_python']} decode steps in Python; by "
+        f"name a replay runs {int(prof['named']['rglru_step'])} B6 step kernels and no tiled "
+        f"one, a {len(first)}-token prefill "
+        f"{pre_trace['rglru_fwd']} tiled and no step kernel; {fmt_recovery(rep)}; "
+        f"{cell['seconds']:.1f} s with the uninterrupted run, peak {cell['peak_gb']:.2f} GB")
+    cell["graph_replays"] = res.engine.graph_replays
+    del cell["res"], model, res  # the 38-layer model goes with its engines
+    out = {"cell": cell, "prof": prof}
+    torch.cuda.empty_cache()
+    return out
+
+
+def make_requests_p7b(cfg):
+    from repro_torch.launch import serve
+
+    return serve.make_requests(serve.parse_args([
+        "--arch", "recurrentgemma-9b", "--requests", str(len(P7B_LENS)), "--prompt-lens",
+        ",".join(map(str, P7B_LENS)), "--tokens", str(P7B_TOKENS)]), cfg.vocab)
+
+
+def fleet_run(tag, model, args, clock):
+    """One ``launch.serve_fleet.run``; the wrappers' counts around it held
+    to the prefills its replicas counted (B3 once per attention layer in
+    each, fresh or resumed), no plain call, one graph per replica."""
+    import torch
+    from repro_torch.launch import serve_fleet
+
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serve_fleet.run(args, model=model, clock=clock, quiet=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = serve_counts(model.cfg)
+    engines = [r.engine for r in res.fleet.replicas]
+    prefills = sum(e.prefills for e in engines)
+    want = {"flash_fwd": layer_counts(model.cfg)[0] * prefills, "rglru_fwd": 0, "wkv_fwd": 0, "plain": 0, "other": 0}
+    if counts != want:
+        fail(f"{tag}: kernel counts {counts}, want {want} ({prefills} prefills over the replicas)")
+    if [e.graph_captures for e in engines] != [1] * len(engines):
+        fail(f"{tag}: graphs captured per replica {[e.graph_captures for e in engines]}, want 1")
+    return res, counts, prefills, seconds
+
+
+def phase_fleet(device) -> dict:
+    """7c: 3 TinyLlama-1.1B replicas sharing one model on the card, through
+    ``launch.serve_fleet.run``: 24 requests of 128 prompt tokens x 32 at
+    1e6 requests/s from seed 0; replica 0 killed at its step 4 with no
+    restore budget, on a step clock, twice (the same tokens per request);
+    then a fault-free run on the wall clock."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    cfg = get_config("tinyllama-1.1b")
+    model = Transformer(cfg, device=device, seed=0)
+    runs = []
+    for i in range(2):
+        d = snapshot_dir(f"phase 7c {i}")
+        res, counts, prefills, seconds = fleet_run(
+            "phase 7c", model, FLEET_ARGS + FLEET_CHAOS + [
+                "--device", str(device), "--snapshot-root", str(d)], StepClock())
+        shutil.rmtree(d, ignore_errors=True)
+        s = res.report.summary()
+        if (s["replica_deaths"], s["completed"], s["failover_token_mismatches"],
+                s["goodput_tokens"]) != (1, 24, 0, 24 * 32) or s["failovers"] < 1:
+            fail(f"phase 7c: {s}")
+        moved = [r for r in res.report.completed.values() if r.retries]
+        if not moved or any(r.replica_id == 0 or len(r.generated) != 32 for r in moved):
+            fail(f"phase 7c: failed-over requests {[(r.rid, r.replica_id) for r in moved]}")
+        runs.append({"tokens": {rid: r.generated for rid, r in res.report.completed.items()},
+                     "summary": s, "counts": counts, "prefills": prefills, "seconds": seconds,
+                     "moved": len(moved)})
+        del res
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        bad = [rid for rid in runs[0]["tokens"] if runs[0]["tokens"][rid] != runs[1]["tokens"][rid]]
+        fail(f"phase 7c: a second identical run gives other tokens for requests {bad}")
+    d = snapshot_dir("phase 7c wall")
+    with snapshot_seconds() as snaps:
+        res, counts, prefills, seconds = fleet_run(
+            "phase 7c wall", model,
+            FLEET_ARGS + ["--device", str(device), "--snapshot-root", str(d)], None)
+    shutil.rmtree(d, ignore_errors=True)
+    wall = res.report.summary()
+    if wall["completed"] != 24:
+        fail(f"phase 7c: the fault-free run completed {wall['completed']} of 24")
+    r0 = runs[0]
+    say(f"phase 7c: 3 tinyllama-1.1b replicas (one model, 4 slots / max_seq 1024 and one graph "
+        f"each), 24 requests of 128 prompt tokens x 32 at 1e6 requests/s, replica 0 killed at "
+        f"its step 4 with no restore budget, on a step clock: deaths {r0['summary']['replica_deaths']}, "
+        f"failovers {r0['summary']['failovers']} ({r0['moved']} requests moved), completed "
+        f"{r0['summary']['completed']}, token mismatches 0, goodput {r0['summary']['goodput_tokens']} "
+        f"tokens; a second run gives the same tokens for every request; flash fwd "
+        f"{r0['counts']['flash_fwd']} = 22 x {r0['prefills']} prefills (fresh and resumed), no "
+        f"plain call; {r0['seconds']:.1f} s a run")
+    say(f"phase 7c: fault-free on the wall clock: p50 {wall['p50_latency_s'] * 1e3:.1f} ms, p99 "
+        f"{wall['p99_latency_s'] * 1e3:.1f} ms, goodput {wall['goodput_tok_per_s']:.1f} tok/s "
+        f"({wall['goodput_tokens']} tokens in {wall['wall_s']:.3f} s, {wall['rounds']} rounds, "
+        f"of them {sum(snaps[3:]):.3f} s in {len(snaps) - 3} snapshot writes; the 3 taken as "
+        f"the replicas were built, before the run, {sum(snaps[:3]):.3f} s); flash fwd "
+        f"{counts['flash_fwd']} = 22 x {prefills} prefills")
+    out = {"runs": runs, "wall": wall, "wall_counts": counts, "wall_snapshots": snaps}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resilience(device) -> dict:
+    """Phase 7: 7a, 7b and 7c; the snapshots' directory removed at the end."""
+    t0 = time.perf_counter()
+    try:
+        out = {"7a": phase_resilient_tinyllama(device),
+               "7b": phase_resilient_recurrentgemma(device),
+               "7c": phase_fleet(device)}
+    finally:
+        shutil.rmtree(SNAP_ROOT, ignore_errors=True)
+    reset_all_counts()
+    say(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def demangle(names: list[str]) -> list[str]:
     """Kernel names as ``name<template arguments>`` (c++filt, where the
     machine has it; else as ptxas gave them)."""
@@ -2832,6 +3236,7 @@ def main() -> None:
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     serve_errs, serve_timings, serve_cells = phase_serve(device)
+    p7 = phase_resilience(device)
     say(f"all phases, the build included: {time.perf_counter() - t_start:.1f} s")
 
     main_cfg = timings["float32"]  # the main path's wire
@@ -2971,6 +3376,40 @@ def main() -> None:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     })
+    # phase 7 (resilient serving and the fleet): B3 in every prefill, fresh, re-admitted
+    # after a restore or resumed after a failover; B6 in 7b's prefills and decode steps.
+    # Times as phase 6's rows (the same kernels at the same shapes)
+    p7a, p7b, p7c = p7["7a"], p7["7b"]["cell"], p7["7c"]
+    for name, key, launches, extra in (
+            ("flash_attention.fwd[resilient tinyllama]", "flash[tinyllama]",
+             p7a["greedy"]["counts"]["flash_fwd"] + p7a["sampled"]["counts"]["flash_fwd"]
+             + sum(r["counts"]["flash_fwd"] for r in p7c["runs"])
+             + p7c["wall_counts"]["flash_fwd"], {}),
+            ("flash_attention.fwd[resilient recurrentgemma]", "flash[recurrentgemma]",
+             p7b["counts"]["flash_fwd"], {})):
+        t = serve_timings[key]
+        kernels.append({
+            "name": name, "kernel": "flash_fwd_sm90", "route": "cuda", "source": FLASH_SM90_SRC,
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:40", "launches": launches,
+            "max_abs_err": serve_errs["flash"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **extra,
+        })
+    # B6 inside 7b's prefills (read around each) and in its decode steps run in Python
+    for name, kern, key, launches, err, extra in (
+            ("rglru.fwd[resilient prefill]", "rglru_fwd_kernel", "prefill",
+             p7b["prefill_launches"], rglru_errs["prefill"], {}),
+            ("rglru.fwd[resilient serve]", "rglru_step_kernel", "decode",
+             p7b["counts"]["rglru_fwd"] - p7b["prefill_launches"], serve_errs["rglru"],
+             {"graph_replays": p7b["graph_replays"],
+              "launches_per_replay": int(p7["7b"]["prof"]["named"]["rglru_step"])})):
+        t = rglru_timings[key]
+        kernels.append({
+            "name": name, "kernel": kern, "route": "cuda", "source": RGLRU_SRC,
+            "replaces": "src/repro/kernels/rglru/kernel.py:31", "launches": launches,
+            **extra, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

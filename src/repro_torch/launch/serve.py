@@ -19,17 +19,34 @@ throughput and predicted against observed step time.  Prompts are drawn
 from seed 0, ``--prompt-len`` tokens each or, with ``--prompt-lens``, the
 listed lengths in turn.
 
+Any of ``--chaos-kill-every``, ``--chaos-seed``, ``--chaos-slow-factor``,
+``--chaos-slow-after``, ``--deadline-ms``, ``--snapshot-every``,
+``--snapshot-dir`` and ``--max-restarts`` routes the run through
+``serving.resilient_serve_loop`` (the JAX launcher's comment says so; its
+code looks at four of them, and would drop the others silently): snapshots
+every ``--snapshot-every`` steps (into a temporary directory unless
+``--snapshot-dir``), seeded chaos, deadlines, a straggler monitor when the
+fabric is slowed, and a first SIGINT that snapshots and stops cleanly.
+Under kills without deadlines an uninterrupted run of the same requests on
+the same weights comes first, and the ``[serve] resilience: ...`` line says
+whether the resilient run's tokens match it.  From Python, ``run(argv,
+chaos=ChaosConfig(...))`` gives the whole chaos schedule (``kill_at``,
+``max_kills``, snapshot corruption, partial writes).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --reduced --device cpu --chaos-kill-every 3
+
 Not ported yet, and raising ``NotImplementedError`` when given:
-``--sharded`` and ``--measure-comm`` (sharded serving, ROADMAP A.3.1);
-``--chaos-*``, ``--deadline-ms``, ``--snapshot-*`` and ``--max-restarts``
-(the resilient serve loop, ROADMAP A.3.2); the embeds-input archs
-``musicgen-large`` and ``qwen2-vl-2b`` (ROADMAP A.2.1).
+``--sharded`` and ``--measure-comm`` (sharded serving, ROADMAP A.3.1); the
+embeds-input archs ``musicgen-large`` and ``qwen2-vl-2b`` (ROADMAP A.2.1).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import signal
+import tempfile
 import time
 
 import numpy as np
@@ -41,11 +58,24 @@ from ..fabric import available_fabrics
 from ..models import Transformer, param_shapes
 from ..planning import ServePlan, available_policies, build_serve_plan
 from ..planning.serve import SHARDED_SERVING
-from ..serving import Request, ServeTimer, ServingEngine, gumbel_sampler
-from ..serving.engine import EMBEDS, RESILIENCE
+from ..runtime import StragglerMonitor
+from ..serving import (
+    ChaosConfig,
+    ChaosInjector,
+    Request,
+    ServeReport,
+    ServeTimer,
+    ServingEngine,
+    gumbel_sampler,
+    resilient_serve_loop,
+)
+from ..serving.engine import EMBEDS
 
-RESILIENT_FLAGS = ("chaos_kill_every", "chaos_seed", "chaos_slow_factor", "chaos_slow_after",
-                   "deadline_ms", "snapshot_every", "snapshot_dir", "max_restarts")
+#: The resilience flags and the values they take when another one is given
+#: (the JAX launcher's defaults).
+RESILIENT_DEFAULTS = {"chaos_kill_every": 0, "chaos_seed": 0, "chaos_slow_factor": 1.0,
+                      "chaos_slow_after": None, "deadline_ms": None, "snapshot_every": 8,
+                      "snapshot_dir": None, "max_restarts": 5}
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -77,12 +107,22 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="not ported yet (ROADMAP A.3.1): sharded TP decode")
     ap.add_argument("--measure-comm", action="store_true",
                     help="not ported yet (ROADMAP A.3.1): timed serve collectives")
-    for flag, kind in (("--chaos-kill-every", int), ("--chaos-seed", int),
-                       ("--chaos-slow-factor", float), ("--chaos-slow-after", int),
-                       ("--deadline-ms", float), ("--snapshot-every", int),
-                       ("--snapshot-dir", str), ("--max-restarts", int)):
+    # resilience: any of these routes the run through resilient_serve_loop
+    for flag, kind, what in (
+            ("--chaos-kill-every", int, "inject a kill every N serve steps (0 = off); the "
+                                        "loop must recover token-identically"),
+            ("--chaos-seed", int, "seed of the chaos fault schedule"),
+            ("--chaos-slow-factor", float, "multiply observed step / collective times by this "
+                                           "from --chaos-slow-after on (a degraded wire)"),
+            ("--chaos-slow-after", int, "serve step after which the slowdown starts"),
+            ("--deadline-ms", float, "per-request SLO: deadline = now + this; expired requests "
+                                     "retire with partial output, unmeetable ones are shed"),
+            ("--snapshot-every", int, "serve snapshot cadence in steps"),
+            ("--snapshot-dir", str, "serve snapshot directory (a temporary one when unset)"),
+            ("--max-restarts", int, "restart budget of the resilient serve loop")):
+        default = RESILIENT_DEFAULTS[flag[2:].replace("-", "_")]
         ap.add_argument(flag, type=kind, default=None,
-                        help="not ported yet (ROADMAP A.3.2): the resilient serve loop")
+                        help=f"{what} (default when another resilience flag is given: {default})")
     return ap.parse_args(argv)
 
 
@@ -90,7 +130,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 class ServeResult:
     """What a serving run gives back: the completed requests, the
     (calibrated) plan, the engine, the run's wall seconds and generated
-    tokens, and the timer's prefill and decode-step samples."""
+    tokens, and the timer's prefill and decode-step samples.  A resilient
+    run adds its ``ServeReport``, and under kills the uninterrupted run's
+    engine (``reference``) and whether the tokens matched it."""
 
     completed: list[Request]
     plan: ServePlan
@@ -98,6 +140,9 @@ class ServeResult:
     seconds: float
     n_tokens: int
     timer: ServeTimer
+    report: ServeReport | None = None
+    reference: ServingEngine | None = None
+    tokens_match: bool | None = None
 
 
 def _prompt_lens(args: argparse.Namespace) -> list[int]:
@@ -106,28 +151,34 @@ def _prompt_lens(args: argparse.Namespace) -> list[int]:
     return [args.prompt_len]
 
 
-def make_requests(args: argparse.Namespace, vocab: int) -> list[Request]:
+def make_requests(args: argparse.Namespace, vocab: int,
+                  deadline_s: float | None = None) -> list[Request]:
     """``--requests`` requests, prompts drawn from seed 0 (the JAX
     launcher's draw at a single ``--prompt-len``)."""
     rng = np.random.default_rng(0)
     lens = _prompt_lens(args)
     return [Request(rid=rid, prompt=rng.integers(0, vocab, size=lens[rid % len(lens)],
                                                  dtype=np.int32),
-                    max_new_tokens=args.tokens)
+                    max_new_tokens=args.tokens, deadline_s=deadline_s)
             for rid in range(args.requests)]
 
 
 def run(argv: list[str] | None = None, *, model: Transformer | None = None,
-        cuda_graph: bool | None = None, quiet: bool = False) -> ServeResult:
+        cuda_graph: bool | None = None, chaos: ChaosConfig | None = None,
+        quiet: bool = False) -> ServeResult:
     """Parse ``argv``, build (or take) the model, plan, engine and
     requests, and serve them to completion.  ``model`` reuses built
-    weights; ``cuda_graph`` is the engine's (None: a graph on the card)."""
+    weights; ``cuda_graph`` is the engine's (None: a graph on the card);
+    ``chaos`` replaces the schedule the ``--chaos-*`` flags would build and
+    routes the run through the resilient loop."""
     args = parse_args(argv)
     if args.sharded or args.measure_comm:
         raise NotImplementedError(SHARDED_SERVING)
-    given = [f"--{n.replace('_', '-')}" for n in RESILIENT_FLAGS if getattr(args, n) is not None]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: {RESILIENCE}")
+    resilient = chaos is not None or any(getattr(args, n) is not None
+                                         for n in RESILIENT_DEFAULTS)
+    for name, default in RESILIENT_DEFAULTS.items():
+        if getattr(args, name) is None:
+            setattr(args, name, default)
     if args.arch not in PORTED_ARCHS:
         raise NotImplementedError(f"{args.arch}: {EMBEDS}")
     say = (lambda msg: None) if quiet else (lambda msg: print(f"[serve] {msg}", flush=True))
@@ -154,13 +205,68 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
         wire = plan.schedule.result.t_iter
         say(f"calibrated step: fixed={plan.t_step_fixed * 1e6:.1f}us + wire={wire * 1e6:.1f}us"
             f" = {(plan.t_step_fixed + wire) * 1e6:.1f}us")
-    for req in make_requests(args, cfg.vocab):
-        engine.submit(req)
-    t0 = time.perf_counter()
-    completed = engine.run_to_completion()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
+    report = reference = tokens_match = None
+    if resilient:
+        chaos = chaos or ChaosConfig(seed=args.chaos_seed, kill_every=args.chaos_kill_every,
+                                     slow_factor=args.chaos_slow_factor,
+                                     slow_after=args.chaos_slow_after)
+        baseline = None
+        kills = chaos.kill_every > 0 or bool(chaos.kill_at) or chaos.kill_prob > 0
+        if kills and args.deadline_ms is None:
+            # the uninterrupted run: the chaos run must reproduce its tokens
+            reference = ServingEngine(cfg, model, slots=args.slots, max_seq=max_seq,
+                                      sample=sample, sample_seed=2, plan=plan,
+                                      cuda_graph=cuda_graph)
+            for req in make_requests(args, cfg.vocab):
+                reference.submit(req)
+            baseline = {r.rid: r.generated for r in reference.run_to_completion()}
+        straggler = (StragglerMonitor(window=16, factor=2.0, patience=2)
+                     if chaos.slow_factor != 1.0 else None)
+        snap_dir = args.snapshot_dir or tempfile.mkdtemp(prefix="serve_snap_")
+        deadline_s = (time.monotonic() + args.deadline_ms / 1e3
+                      if args.deadline_ms is not None else None)
+        for req in make_requests(args, cfg.vocab, deadline_s=deadline_s):
+            engine.submit(req)
+
+        # graceful SIGINT: the first ^C snapshots and stops the loop cleanly
+        stop = {"flag": False}
+
+        def _sigint(signum, frame):
+            say("SIGINT: snapshotting before exit...")
+            stop["flag"] = True
+
+        prev_handler = signal.signal(signal.SIGINT, _sigint)
+        t0 = time.perf_counter()
+        try:
+            report = resilient_serve_loop(
+                engine, snapshot_dir=snap_dir, snapshot_every=args.snapshot_every,
+                max_restarts=args.max_restarts, chaos=ChaosInjector(chaos),
+                straggler=straggler, stop_flag=lambda: stop["flag"])
+        finally:
+            signal.signal(signal.SIGINT, prev_handler)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        completed = report.completed
+        rec = report.recovery_times_s
+        mean_rec = sum(rec) / len(rec) if rec else 0.0
+        match = ""
+        if baseline is not None:
+            tokens_match = {r.rid: r.generated for r in completed} == baseline
+            match = f" tokens_match={tokens_match}"
+        say(f"resilience: restarts={report.restarts} recovery_mean_s={mean_rec:.3f} "
+            f"snapshots={report.snapshots} fallbacks={report.snapshot_fallbacks} "
+            f"shed={report.shed} expired={report.expired} replans={report.replans} "
+            f"interrupted={report.interrupted} goodput_tok_s={report.goodput_tok_per_s:.1f}"
+            f"{match} (snapshots in {snap_dir})")
+    else:
+        for req in make_requests(args, cfg.vocab):
+            engine.submit(req)
+        t0 = time.perf_counter()
+        completed = engine.run_to_completion()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
     n_tok = sum(len(r.generated) for r in completed)
     step = "CUDA graph" if engine.cuda_graph else "eager step"
     say(f"{len(completed)} requests, {n_tok} tokens in {dt:.2f}s "
@@ -175,7 +281,8 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
     if args.plan_out:
         say(f"serve plan written to {plan.save(args.plan_out)}")
     return ServeResult(completed=completed, plan=plan, engine=engine, seconds=dt,
-                       n_tokens=n_tok, timer=timer)
+                       n_tokens=n_tok, timer=timer, report=report, reference=reference,
+                       tokens_match=tokens_match)
 
 
 def main() -> None:

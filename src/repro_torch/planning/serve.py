@@ -25,8 +25,10 @@ parallel group, and come with sharded serving (ROADMAP A.3.1); until then
 each raises ``NotImplementedError``.  ``serve_fabric_fits`` times through
 ``measure_serve_comm`` and raises with it.
 
-Consumers: ``serving.engine.ServingEngine`` carries the plan and
-``launch/serve.py`` builds and saves it (``--fabric`` / ``--plan-out``).
+Consumers: ``serving.engine.ServingEngine`` carries the plan,
+``launch/serve.py`` builds and saves it (``--fabric`` / ``--plan-out``),
+``serving.resilience`` re-plans it on a degraded fabric and
+``serving.fleet`` prices admission and scaling with it.
 """
 
 from __future__ import annotations
@@ -421,7 +423,7 @@ def rebuild_serve_plan(
     — MG-WFBP's merge decision is a function of (α, β), so when the wire
     slows down (a flaky link, congestion, a failed NIC renegotiating
     speed) the *merge set itself* must be allowed to change, not just the
-    predicted times (pinned by ``tests/test_resilience.py``).  The
+    predicted times (pinned by ``tests/test_torch_resilience.py``).  The
     measured ``t_step_fixed`` carries over — degradation is modeled on
     the wire, the compute+dispatch term is untouched.  Provenance records
     the trigger and the model it replaced so a ``--plan-out`` artifact
@@ -429,9 +431,10 @@ def rebuild_serve_plan(
 
     ``serving.resilience.resilient_serve_loop`` calls this when its
     ``StragglerMonitor`` flags sustained step-time degradation, with
-    ``model`` coming from ``refit_serve_fit`` (live probes through
-    ``serve_collective_time_fn`` on a real mesh, or the chaos-wrapped
-    analytic pricing in tests)."""
+    ``model`` coming from ``refit_serve_fit`` over the loop's
+    ``refit_time_fn`` (by default the loop-entry plan's pricing, scaled by
+    the chaos injector on a degraded fabric; live probes of a real group
+    come with sharded serving, ROADMAP A.3.1)."""
     pol = resolve_policy_name(policy or plan.policy)
     schedule = build_schedule(pol, list(plan.costs), model, hw=plan.hw, t_f=0.0)
     prov = dict(plan.provenance)

@@ -51,9 +51,11 @@ or ``sample(logits, generator)``, the second drawing from an explicit
 registers with the graph; a run repeats on the same seed (it is not held
 to JAX's draws, which come from another generator).
 
-Snapshots (``snapshot`` / ``restore_snapshot``) come with
-``serving/resilience.py`` (ROADMAP A.3.2), and a sharded engine (``mesh``)
-with sharded serving (ROADMAP A.3.1); both raise until then.
+Snapshots (``snapshot`` / ``restore_snapshot``, ``serving/resilience.py``)
+copy the state to the host and back into the engine's own buffers, so a
+restore captures nothing new.  ``prefills`` counts the prefills the engine
+ran, fresh and resumed.  A sharded engine (``mesh``) comes with sharded
+serving (ROADMAP A.3.1) and raises until then.
 """
 
 from __future__ import annotations
@@ -75,7 +77,6 @@ from ..runtime.timeline import StepTimer
 if TYPE_CHECKING:
     from ..planning.serve import ServePlan
 
-RESILIENCE = "serving snapshots are not ported yet: ROADMAP A.3.2 (serving/resilience.py)"
 EMBEDS = "input_mode='embeds' (musicgen-large, qwen2-vl-2b) is not ported yet: ROADMAP A.2.1"
 
 
@@ -86,11 +87,13 @@ class Request:
     appends to ``generated`` every step and sets ``done`` when the budget
     (or the engine's ``max_seq``) is reached.
 
-    ``deadline_s``, ``expired`` and ``shed`` belong to the resilient serve
-    loop, ``replica_id`` and ``retries`` to the fleet (ROADMAP A.3.2 and
-    A.3.3); the engine carries them unread.  A request submitted with a
-    non-empty ``generated`` list *resumes*: admission re-prefills ``prompt
-    + generated[:-1]`` and continues decoding from ``generated[-1]``."""
+    ``deadline_s`` (absolute, on the serving loop's clock), ``expired`` and
+    ``shed`` belong to the resilient serve loop
+    (``serving.resilience.resilient_serve_loop``), ``replica_id`` and
+    ``retries`` to the fleet (``serving.fleet.FleetController``); the engine
+    carries them unread.  A request submitted with a non-empty ``generated``
+    list *resumes*: admission re-prefills ``prompt + generated[:-1]`` and
+    continues decoding from ``generated[-1]``."""
 
     rid: int
     prompt: np.ndarray  # (prompt_len,) int32 token ids
@@ -224,6 +227,7 @@ class ServingEngine:
         self._eager_built = False
         self._admit_buckets: set[int] = set()
         self._prefill_lengths: set[int] = set()
+        self.prefills = 0  # prefills run, fresh and resumed
         self.active: dict[int, Request] = {}  # slot -> request
         self.row_pos = np.zeros((slots,), np.int32)  # host mirrors (bookkeeping)
         self.next_token = np.zeros((slots,), np.int32)
@@ -402,13 +406,39 @@ class ServingEngine:
     # -- snapshot / restore -------------------------------------------------
 
     def snapshot(self, step: int = 0) -> Any:
-        """A host-side copy of the decode state and the request queues: it
-        comes with ``serving/resilience.py``."""
-        raise NotImplementedError(RESILIENCE)
+        """A host-side ``EngineSnapshot`` of the decode state (the cache
+        tree, row positions, next tokens, mask, budgets), both sampling
+        generators' states, the host mirrors and the request queues
+        (``serving.resilience.snapshot_engine``).  Persist it with
+        ``serving.resilience.write_snapshot``; ``restore_snapshot`` resumes
+        decoding token for token."""
+        from .resilience import snapshot_engine
 
+        return snapshot_engine(self, step)
+
+    @torch.inference_mode()
     def restore_snapshot(self, snap: Any) -> None:
-        """Install a snapshot: it comes with ``serving/resilience.py``."""
-        raise NotImplementedError(RESILIENCE)
+        """Install an ``EngineSnapshot`` taken from an engine of the same
+        arch, slots and max_seq (checked, with every tensor's shape and
+        dtype, before anything is written): the state is copied into the
+        engine's own tensors, never rebound, so a captured graph replays
+        over the restored values and nothing is captured anew; both
+        generators take their saved states; the request queues and host
+        mirrors are rebuilt.  The next ``step()`` continues where the
+        snapshot left off."""
+        from .resilience import requests_from_snapshot
+
+        snap.validate_against(self)
+        dst, src = tree_leaves(self._state), tree_leaves(snap.state)
+        if [(d.shape, d.dtype) for d in dst] != [(s.shape, s.dtype) for s in src]:
+            raise ValueError("snapshot state does not have the engine's shapes and dtypes")
+        for d, s in zip(dst, src):
+            d.copy_(s)
+        self._gen.set_state(snap.gen_state)
+        self._admit_gen.set_state(snap.admit_gen_state)
+        self.active, self.waiting, self.completed = requests_from_snapshot(snap)
+        self.row_pos = np.asarray(snap.row_pos, np.int32).copy()
+        self.next_token = np.asarray(snap.next_token, np.int32).copy()
 
     def compile_stats(self) -> dict[str, Any]:
         """Programs built per entry point, as the JAX engine counts
@@ -438,6 +468,7 @@ class ServingEngine:
 
     def _prefill_ids(self, ids: np.ndarray):
         self._prefill_lengths.add(len(ids))
+        self.prefills += 1
         tokens = torch.as_tensor(np.asarray(ids)[None, :], dtype=torch.long, device=self.device)
         if self.timer is None:
             return self._prefill(self.model, {"tokens": tokens})

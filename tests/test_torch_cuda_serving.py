@@ -10,6 +10,9 @@
   recurrent layer and no flash forward (B3); no plain version runs.
 * ``probe_step_time`` replays the graph on the engine's own buffers and
   puts them back.
+* A resilient run killed and restored into the captured engine (greedy
+  and seeded ``gumbel_sampler``) repeats the unbroken run with one graph
+  captured and every state tensor's storage kept.
 
 These tests need an NVIDIA GPU: they carry the ``cuda`` marker and skip
 elsewhere.  The file imports no JAX:
@@ -26,7 +29,14 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru as rg
 from repro_torch.models import Transformer
 from repro_torch.models.transformer import ATTN_KINDS, tree_leaves
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import (
+    ChaosConfig,
+    ChaosInjector,
+    Request,
+    ServingEngine,
+    gumbel_sampler,
+    resilient_serve_loop,
+)
 
 
 def _stream(vocab, seed=0):
@@ -105,3 +115,32 @@ def test_cuda_probe_restores_the_engine_state():
     assert eng.probe_step_time(repeats=3) > 0
     assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(eng._state)))
     assert eng.compile_stats()["graph_captures"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "gumbel"])
+def test_cuda_restore_into_the_captured_graph(sampled, tmp_path):
+    """Snapshots restored into a captured engine: the graph replays over the
+    restored buffers and the step's generator, registered with the graph,
+    draws what the unbroken run drew."""
+    device = require_cuda()
+    cfg = get_reduced("recurrentgemma-9b", param_dtype=torch.float32)
+    model = Transformer(cfg, device=device, seed=0)
+    kw = dict(sample=gumbel_sampler(1.0), sample_seed=2) if sampled else {}
+
+    def engine():
+        eng = ServingEngine(cfg, model, slots=2, max_seq=64, **kw)
+        for rid, prompt, n in _stream(cfg.vocab):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n + 4))
+        return eng
+
+    want = {r.rid: r.generated for r in engine().run_to_completion()}
+    eng = engine()
+    eng.warmup()
+    ptrs = [t.data_ptr() for t in tree_leaves(eng._state)]
+    report = resilient_serve_loop(eng, snapshot_dir=str(tmp_path), snapshot_every=3,
+                                  backoff_base_s=0.0,
+                                  chaos=ChaosInjector(ChaosConfig(kill_at=(4, 8))))
+    assert report.restarts == 2 and eng.graph_captures == 1
+    assert [t.data_ptr() for t in tree_leaves(eng._state)] == ptrs
+    assert {r.rid: r.generated for r in report.completed} == want

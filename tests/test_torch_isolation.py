@@ -56,7 +56,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.checkpoint.checkpoint", "repro_torch.runtime.fault_tolerance",
                 "repro_torch.runtime.compression", "repro_torch.launch.steps",
                 "repro_torch.launch.serve", "repro_torch.planning.serve",
-                "repro_torch.serving", "repro_torch.serving.engine"):
+                "repro_torch.serving", "repro_torch.serving.engine",
+                "repro_torch.serving.resilience", "repro_torch.serving.fleet",
+                "repro_torch.launch.serve_fleet"):
         assert mod in rec["modules"]
 
 

@@ -22,11 +22,16 @@ JAX package's, on reduced configs with f32 weights bridged by
   decode leaves its full forward by more than 10x the aligned baseline,
   while the port's decode equals the port's full forward.
 * ``python -m repro_torch.launch.serve --device cpu --reduced`` runs
-  without JAX, and each unported flag raises.
+  without JAX, with and without ``--chaos-kill-every``; each resilience
+  flag routes the run through the resilient serve loop, and each unported
+  flag raises.
+* ``snapshot`` / ``restore_snapshot`` round-trip the engine's state (the
+  resilience tests hold them against the JAX package).
 """
 
 import dataclasses
 import subprocess
+import tempfile
 import sys
 import textwrap
 
@@ -50,7 +55,7 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import Transformer, from_jax_params, load_arrays
 from repro_torch.models.transformer import tree_leaves
-from repro_torch.serving import Request, ServingEngine, gumbel_sampler
+from repro_torch.serving import Request, ServingEngine, gumbel_sampler, latest_snapshot
 
 LOGIT_REL = 1e-4
 PROMPT = 64  # the reduced windows' length: the JAX ring aligns
@@ -334,22 +339,63 @@ def test_serve_cli_runs_on_cpu(arch, tmp_path):
     assert "observed step" in out.stdout and plan.exists()
 
 
+def test_serve_cli_resilient_on_cpu(tmp_path):
+    """Kills every 3 steps through the CLI, with no JAX in the process: the
+    loop restarts and its tokens match the uninterrupted run's."""
+    out = subprocess.run(
+        [sys.executable, "-c", SERVE_WITHOUT_JAX, "--arch", "tinyllama-1.1b", "--reduced",
+         "--device", "cpu", "--slots", "2", "--requests", "3", "--prompt-len", "8",
+         "--tokens", "6", "--fabric", "gpu_nccl", "--chaos-kill-every", "3",
+         "--snapshot-dir", str(tmp_path)],
+        capture_output=True, text=True, timeout=300, cwd=REPO_ROOT,
+        env=dict(SUBPROC_ENV, OMP_NUM_THREADS="2"),
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[serve] resilience: restarts=3" in out.stdout
+    assert "tokens_match=True" in out.stdout and "3 requests, 18 tokens" in out.stdout
+
+
 @pytest.mark.parametrize("flags, item", [
     (["--sharded"], "A.3.1"),
     (["--measure-comm"], "A.3.1"),
-    (["--chaos-kill-every", "3"], "A.3.2"),
-    (["--chaos-seed", "1"], "A.3.2"),
-    (["--chaos-slow-factor", "2"], "A.3.2"),
-    (["--chaos-slow-after", "4"], "A.3.2"),
-    (["--deadline-ms", "50"], "A.3.2"),
-    (["--snapshot-every", "4"], "A.3.2"),
-    (["--snapshot-dir", "/nonexistent"], "A.3.2"),
-    (["--max-restarts", "2"], "A.3.2"),
 ])
 def test_unported_serve_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         serve_cli.run(["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu", *flags],
                       quiet=True)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--chaos-kill-every", "3"],
+    ["--chaos-seed", "1"],
+    ["--chaos-slow-factor", "2"],
+    ["--chaos-slow-after", "4"],
+    ["--deadline-ms", "600000"],
+    ["--snapshot-every", "4"],
+    ["--snapshot-dir", "DIR"],
+    ["--max-restarts", "2"],
+], ids=lambda f: f[0][2:])
+def test_resilience_flags_run_the_loop(flag, tmp_path, monkeypatch):
+    """Each resilience flag alone routes the run through
+    ``resilient_serve_loop`` and completes every request."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))  # the default snapshot directory
+    snap_dir = tmp_path / "snapshots"
+    flag = [str(snap_dir) if f == "DIR" else f for f in flag]
+    res = serve_cli.run(["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
+                         "--slots", "2", "--requests", "3", "--prompt-len", "8", "--tokens", "6",
+                         *flag], quiet=True)
+    rep = res.report
+    assert rep is not None and not rep.interrupted
+    assert len(res.completed) == 3 and res.n_tokens == 18
+    assert rep.shed == rep.expired == rep.replans == 0
+    kills = flag[0] == "--chaos-kill-every"
+    assert rep.restarts == len(rep.recovery_times_s) and (rep.restarts > 0) == kills
+    assert (res.tokens_match is True) if kills else (res.tokens_match is None)
+    every = 4 if flag[0] == "--snapshot-every" else 8
+    if not kills:
+        assert rep.snapshots == 1 + rep.steps // every
+    if flag[0] == "--snapshot-dir":
+        assert latest_snapshot(str(snap_dir)) is not None
 
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-2b"])
@@ -365,10 +411,23 @@ def test_embeds_archs_raise(arch):
 
 
 def test_snapshot_and_mesh_raise():
-    eng = _engine(slots=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3.2"):
-        eng.snapshot()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3.2"):
-        eng.restore_snapshot(None)
+    """``snapshot`` / ``restore_snapshot`` round-trip the state into another
+    engine, which then finishes with the unbroken tokens; ``mesh=`` raises
+    (sharded serving, ROADMAP A.3.1)."""
+    ref = _engine(slots=2)
+    eng = _engine(slots=2)
+    for e in (ref, eng):
+        for rid in range(3):
+            e.submit(Request(rid=rid, prompt=np.arange(rid, rid + 8, dtype=np.int32),
+                             max_new_tokens=5))
+    want = {r.rid: r.generated for r in ref.run_to_completion()}
+    eng.step()
+    eng.step()
+    snap = eng.snapshot(step=2)
+    other = _engine(slots=2)
+    other.restore_snapshot(snap)
+    for a, b in zip(tree_leaves(other._state), tree_leaves(eng._state)):
+        assert torch.equal(a, b)
+    assert {r.rid: r.generated for r in other.run_to_completion()} == want
     with pytest.raises(NotImplementedError, match="ROADMAP A.3.1"):
         _engine(slots=1, mesh=object())
