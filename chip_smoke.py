@@ -8,7 +8,7 @@ the hand-written kernels from ``src/repro_torch/kernels/*/csrc`` (one
 nvcc per source, sm_90a, all started together) and runs the phases below;
 any failure exits non-zero.  Every training run of phases 3-5 gets a fresh
 ``--ckpt-dir`` under ``build/chip_smoke_ckpt`` (removed at the end), and
-phases 3-3h and 4 fail if any run restarted (``restarts`` > 0): a retried
+phases 3-3j and 4 fail if any run restarted (``restarts`` > 0): a retried
 step could hide a kernel fault.
 
 1. Kernels.  The comm_pack pack (B1) and unpack (B2) kernels against their
@@ -104,11 +104,13 @@ step could hide a kernel fault.
    tensor cores, the path their products take (the f32 CUDA cores' figure
    is printed beside it).
 1e. Flash at the new cells' attention.  The flash kernels (bf16) at each
-   attention shape of phases 3d-3h (``NEW_ATTN``): StarCoder2-3B (B 1,
+   attention shape of phases 3d-3j (``NEW_ATTN``): StarCoder2-3B (B 1,
    S 4096, 24 query / 2 KV heads: G 12, hd 128), StarCoder2-7B (36 / 4:
    G 9), Gemma2-2B's local and global layers (S 8192, 8 / 4 heads, hd 256,
    softcap 50, window 4096 and none), Mixtral (S 8192, 32 / 8, hd 128,
-   window 4096) and DBRX (S 4096, 48 / 8, hd 128), causal: against their
+   window 4096), DBRX (S 4096, 48 / 8, hd 128), MusicGen-large (S 4096,
+   32 / 32: MHA, G 1, hd 64) and Qwen2-VL-2B (S 4096, 12 / 2: G 6, hd 128),
+   causal: against their
    plain versions with phase 1b's tolerances, a second run bitwise equal,
    forward -> backward through the kernels' own (o, lse) as in 1b, then
    timed as in 1b beside their bounds and SDPA (with the window as a
@@ -123,10 +125,13 @@ step could hide a kernel fault.
    RG-LRU and flash launch counts checked on both sides.
 2c. Reduced RWKV6 in fp32, the same comparison and tolerances, with the WKV
    launch counts checked on the card and the plain calls on the CPU.
-2d. Reduced Gemma2, Mixtral and DBRX in fp32 at seq 128 (past their
-   64-key windows), the same comparison and tolerances; the MoE archs'
-   loss holds the load-balance aux.  (Reduced StarCoder2 has head dim 24,
-   which the flash kernels do not take.)
+2d. Reduced Gemma2, Mixtral, DBRX, MusicGen and Qwen2-VL in fp32 at seq
+   128 (past the 64-key windows), the same comparison and tolerances; the
+   MoE archs' loss holds the load-balance aux; MusicGen and Qwen2-VL train
+   on embeds batches (their tables get no gradient on either side), with
+   Qwen2-VL's head dim 24 raised to 32 and its M-RoPE sections to (4, 6, 6)
+   on both sides (``kernel_head_dim``).  (Reduced StarCoder2 has head dim
+   24, which the flash kernels do not take.)
 3. Full-width training.  TinyLlama-1.1B, 22 layers, bf16 params,
    batch 4 x seq 512, ``--fuse arena --policy mg_wfbp --fabric gpu_nccl``
    on an NCCL world of 1, through ``repro_torch.launch.train.run``:
@@ -156,18 +161,24 @@ step could hide a kernel fault.
    steps, and per step 16 ``wkv_fwd`` (8 layers, each forward run twice
    under checkpointing) and 8 ``wkv_bwd``, with no plain call.  Then one
    probe pass as in 3b (the stage probe runs B7).
-3d-3h. The full-width cells of ``NEW_CELLS``, each through the launcher
+3d-3j. The full-width cells of ``NEW_CELLS``, each through the launcher
    with phase 3b's flags, ``post`` and ``dag`` with f32 wire, 3 steps each
    from the same weights, each freed before the next: StarCoder2-3B (30
    layers, every one; B 1 x S 4096), StarCoder2-7B cut to 12 of 32 layers
    (S 4096), Gemma2-2B (26 layers; S 8192, so the 4096 window masks),
    Mixtral-8x7B cut to 2 of 32 layers (S 8192) and DBRX-132B cut to 1 of
    40 layers (S 4096, ``--optimizer sgd``: AdamW's state does not fit one
-   card beside a 3.26 B-parameter layer).  Held as in 3b: finite losses,
+   card beside a 3.26 B-parameter layer), MusicGen-large (48 layers, every
+   one; S 4096) and Qwen2-VL-2B (28 layers, every one; S 4096), the last two
+   on (1, 4096, d) f32 embeds batches from the stream.  Held as in 3b:
+   finite losses,
    ``dag`` bitwise equal to ``post``, pack / unpack / ``issue()`` = groups
    x steps, per step flash fwd / dQ / dK-dV = 2 / 1 / 1 per attention layer
-   and no RG-LRU or WKV launch, no plain call.  Printed: step time, peak
-   memory beside the static bytes reckoned from the parameters, groups.
+   and no RG-LRU or WKV launch, no plain call; at 3i and 3j the embedding
+   table, which the loss never reads, ends each run with an exactly zero
+   gradient (reduced through its group's all-reduce, as ``jax.grad`` gives
+   it).  Printed: step time, peak memory beside the static bytes reckoned
+   from the parameters, groups.
 4. The measured-cost loop.  TinyLlama-1.1B as in phase 3, through
    ``run`` with ``--measure-comm --autotune --replan-every 4
    --replan-threshold 0.25 --comm-refit-every 4 --issue-order dag --steps
@@ -209,16 +220,19 @@ step could hide a kernel fault.
    serving mode: ``rglru_fwd`` at (4, 1 and 2, 4096) with a nonzero h0
    (1e-5, hT == h[:, -1]), ``wkv_fwd`` at (4, 1, 64, 64) bf16 and f32 r/k/v
    with a nonzero s0 (2e-4 + 2e-4 relative), the flash kernels at prefill
-   lengths of 6a and 6b (phase 1b's checks), B7 and B3 timed in that mode
-   beside their bounds (the flash forward beside SDPA; B6 is timed in
-   phase 1c).  Then three cells
+   lengths of 6a, 6b, 6d and 6e (phase 1b's checks), B7 and B3 (at each of
+   those cells' longest prompt) timed in that mode beside their bounds (the
+   flash forward beside SDPA; B6 is timed in phase 1c).  Then five cells
    (``SERVE_CELLS``), each served twice on the same weights, once with the
    decode step captured in a CUDA graph and once eager: 6a TinyLlama-1.1B,
    22 layers, 8 slots / max_seq 1024, 16 requests of 64-512 prompt tokens
    x 128 new; 6b RecurrentGemma-9B, all 38 layers, 4 / 4096, 8 requests of
    256-2304 (the last exactly 2304: past the 2048 window, not a multiple
    of it) x 64; 6c RWKV6-7B, all 32 layers, 4 / 4096, 8 requests of
-   256-2048 x 64.  Held: every request completes with its tokens, in the
+   256-2048 x 64; 6d MusicGen-large, all 48 layers, and 6e Qwen2-VL-2B, all
+   28, each 8 / 1024 with 6a's 16 requests x 128, through the stub frontend
+   (token ids become rows of the model's table, gathered inside the graph).
+   Held: every request completes with its tokens, in the
    vocabulary; the captured step's tokens equal the eager step's for
    every request; the two equal-length requests batched give what each
    gives alone; one graph captured per engine, none after a join or a
@@ -239,18 +253,23 @@ step could hide a kernel fault.
    x max|logit| of the full forward; then the same steps from the prefill
    caches rewritten to the JAX prefill's ring layout, which must lack
    window positions at the first step (their logits' readings printed
-   beside the aligned ones).  Printed: prefill ms a request (median), decode step ms
+   beside the aligned ones); in 6e the same 16 steps of the longest
+   request against the full forward (no ring) on an f32 copy of the
+   weights, with f32 caches, at the same gate, the bf16 model's readings
+   printed beside it (bf16 rounding puts them near 2e-2, as reduced
+   TinyLlama's and StarCoder2's in bf16); 6d's are not held to it: its
+   decode step adds position 0's sinusoid, as the JAX engine's does.  Printed: prefill ms a request (median), decode step ms
    captured and eager, tokens/s, peak GB, the calibrated plan's predicted
    step against the observed one, each step's bound (weight bytes, the
    embedding table only when tied, plus the cache arena, at 3.35 TB/s),
-   and at 6a and 6b a torch.profiler breakdown of a captured and of an
-   eager step (wall, device busy, idle share, ms by kernel class, the
+   and at 6a, 6b, 6d and 6e a torch.profiler breakdown of a captured and of
+   an eager step (wall, device busy, idle share, ms by kernel class, the
    port's kernels by name), at 6c of a captured step.  Then
-   the eight ported archs' reduced configs through the engine in f32 on
-   the card (graph) and on the CPU (eager): greedy tokens equal over 8
-   steps, first logits within 1e-4 x max|logit| (reduced StarCoder2's head
-   dim raised from 24 to 32 on both sides); and seeded sampling inside the
-   graph repeats on its seed.
+   the ten archs' reduced configs through the engine in f32 on the card
+   (graph) and on the CPU (eager): greedy tokens equal over 8 steps, first
+   logits within 1e-4 x max|logit| (reduced StarCoder2's and Qwen2-VL's head
+   dim raised from 24 to 32 on both sides, ``kernel_head_dim``); and seeded
+   sampling inside the graph repeats on its seed.
 
 7. Resilient serving and the fleet at full width (random bf16 weights from
    seed 0, ``gpu_nccl``'s plan, the decode step one CUDA graph; snapshots
@@ -293,10 +312,11 @@ step could hide a kernel fault.
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
-launches add up phases 3-3h and phases 4's and 5's training steps; it holds
+launches add up phases 3-3j and phases 4's and 5's training steps; it holds
 the flash kernels once per configuration (TinyLlama, RecurrentGemma and
 each ``NEW_ATTN`` shape, whose launches are its cell's: Gemma2's local and
-global shapes share phase 3f's), and the serving path's B3 (6a, 6b), B6
+global shapes share phase 3f's), and the serving path's B3 (6a, 6b, 6d,
+6e), B6
 (6b: its decode steps, and its prefills, counted around each, in a row of
 their own) and B7 (6c)
 launches of the CUDA-graph runs in rows of their own, timed in serving
@@ -372,8 +392,10 @@ NEW_ATTN = [
     ("gemma2-2b global", (1, 8192, 8, 4, 256, True, None, 50.0)),
     ("mixtral-8x7b", (1, 8192, 32, 8, 128, True, 4096, None)),
     ("dbrx-132b", (1, 4096, 48, 8, 128, True, None, None)),
+    ("musicgen-large", (1, 4096, 32, 32, 64, True, None, None)),
+    ("qwen2-vl-2b", (1, 4096, 12, 2, 128, True, None, None)),
 ]
-#: Phases 3d-3h: tag, arch, depth override, launcher flags past the common
+#: Phases 3d-3j: tag, arch, depth override, launcher flags past the common
 #: ones.  Every width is the published one; the depth cuts keep the static
 #: bytes under the card's 80 GB (PERF.md section 4 reckons them).
 NEW_CELLS = [
@@ -383,6 +405,9 @@ NEW_CELLS = [
     ("phase 3g", "mixtral-8x7b", {"n_layers": 2}, ["--batch", "1", "--seq", "8192"]),
     ("phase 3h", "dbrx-132b", {"n_layers": 1},
      ["--batch", "1", "--seq", "4096", "--optimizer", "sgd"]),
+    # the embeds-input archs: batches of (1, 4096, d) f32 embeds, the table's zero gradient
+    ("phase 3i", "musicgen-large", {}, ["--batch", "1", "--seq", "4096"]),
+    ("phase 3j", "qwen2-vl-2b", {}, ["--batch", "1", "--seq", "4096"]),
 ]
 #: The JAX package's flash-attention test shapes (tests/test_kernels.py):
 #: B, S, Hq, Hkv, hd, causal, window, softcap.
@@ -1524,6 +1549,20 @@ def phase_new_flash(device):
 # ---------------------------------------------------------------------------
 
 
+def kernel_head_dim(cfg):
+    """``cfg`` with a head dim the flash kernels take (32, 64, 128, 256): the
+    reduced StarCoder2 and Qwen2-VL configs' 24 is raised to 32 (Qwen2-VL's
+    M-RoPE sections, which sum to half of it, to (4, 6, 6))."""
+    import dataclasses
+
+    att = cfg.attention
+    if att is None or att.head_dim != 24:
+        return cfg
+    sections = (4, 6, 6) if att.rope == "mrope" else att.mrope_sections
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        att, head_dim=32, mrope_sections=sections))
+
+
 def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") -> None:
     import torch
     from repro_torch.configs import get_reduced
@@ -1537,8 +1576,9 @@ def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") ->
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_reduced(arch, param_dtype=torch.float32, attn_impl="flash")
-    batch = make_stream(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=2)).batch_at(0)
+    cfg = kernel_head_dim(get_reduced(arch, param_dtype=torch.float32, attn_impl="flash"))
+    batch = make_stream(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=2,
+                                   input_mode=cfg.input_mode, d_model=cfg.d_model)).batch_at(0)
     results = []
     cpu_model = Transformer(cfg, device="cpu", seed=0)
     fa.reset_counts()
@@ -1550,8 +1590,9 @@ def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") ->
             model.load_state_dict(cpu_model.state_dict())
         loss = model.loss(batch_to_device(batch, dev))
         loss.backward()
-        results.append((float(loss.detach()),
-                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+        results.append((float(loss.detach()),  # an unread table has no gradient
+                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                         if p.grad is not None}))
     (l_cpu, g_cpu), (l_gpu, g_gpu) = results
     # each side once per layer (the forward twice: checkpointing reruns it):
     # the card through the kernels, the CPU through the plain versions
@@ -1571,6 +1612,9 @@ def phase_reduced_model(device, arch="tinyllama-1.1b", seq=64, tag="phase 2") ->
     if not math.isfinite(l_gpu) or abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu):
         fail(f"{tag}: reduced loss on the card {l_gpu} vs CPU {l_cpu}")
     worst = 0.0
+    if set(g_gpu) != set(g_cpu):
+        fail(f"{tag}: gradients on the card {sorted(set(g_gpu) ^ set(g_cpu))} differ from the "
+             f"CPU's set")
     for n, g in g_cpu.items():
         if g_gpu[n].shape != g.shape or not torch.isfinite(g_gpu[n]).all():
             fail(f"{tag}: gradient {n} has the wrong shape or is not finite")
@@ -1689,12 +1733,15 @@ def train_cell(tag, label, args, overrides, per_step):
     each from the same weights.  Held: finite losses, ``dag`` bitwise equal
     to ``post``, pack / unpack / ``issue()`` = groups x steps, and each
     kernel wrapper of ``per_step`` ({name: (wrapper, launches a step)})
-    launched that many times a step, with no plain call.  Prints each run's
+    launched that many times a step, with no plain call; a parameter the loss
+    does not read (``unread_params``: an embeds arch's table) ends each run
+    with an exactly zero gradient.  Prints each run's
     step time, peak memory (``torch.cuda.max_memory_allocated``) beside the
     reckoned static bytes, and groups.  Returns the counts
     (``pack_launches``, ..., ``<name>_launches``) and the ``dag`` run's
     result."""
     import torch
+    from repro_torch.core.trainer import unread_params
     from repro_torch.fabric.ops import issue
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru as rg
@@ -1727,6 +1774,15 @@ def train_cell(tag, label, args, overrides, per_step):
             f"{(res.peak_memory_bytes or 0) / 2**30:.2f} GiB (static + arenas reckoned "
             f"{reckon_bytes(res.model, optimizer) / 1e9:.1f} GB over {n_params / 1e9:.3f} B "
             f"parameters), {n_groups} groups")
+        for n in unread_params(res.model.cfg):
+            # the table the loss does not read: its reduced gradient (unpacked into .grad)
+            # is an exact zero, as jax.grad gives it
+            g = res.model.get_parameter(n).grad
+            if g is None or int(torch.count_nonzero(g)):
+                fail(f"{tag} {name}: {n}'s gradient is "
+                     f"{'missing' if g is None else 'not exactly zero'}")
+            say(f"{tag} {name}: {n}'s gradient exactly zero ({g.numel():,} elements), reduced "
+                f"through its group's all-reduce")
         params = {n: p.detach().cpu() for n, p in res.model.named_parameters()}
         if name == "post":
             post_params, post_losses = params, res.losses
@@ -1794,7 +1850,7 @@ def phase_rwkv_full_width(device):
 
 
 def phase_new_full_width(device):
-    """Phases 3d-3h: the full-width cells of ``NEW_CELLS``, one after the
+    """Phases 3d-3j: the full-width cells of ``NEW_CELLS``, one after the
     other, each freed before the next; every layer attends (flash fwd
     twice a layer and step under checkpointing, dQ and dK/dV once), and the
     layers with a window (``window_for``) make the windowed share of those
@@ -2178,11 +2234,21 @@ SERVE_CELLS = [
     ("phase 6a", "tinyllama-1.1b", 8, 1024, serve_lens(16, 64, 512), 128),
     ("phase 6b", "recurrentgemma-9b", 4, 4096, serve_lens(8, 256, 2304, exact=2304), 64),
     ("phase 6c", "rwkv6-7b", 4, 4096, serve_lens(8, 256, 2048), 64),
+    ("phase 6d", "musicgen-large", 8, 1024, serve_lens(16, 64, 512), 128),
+    ("phase 6e", "qwen2-vl-2b", 8, 1024, serve_lens(16, 64, 512), 128),
 ]
 SERVE_SOLO_TOKENS = 16  # the batched == solo pair's tokens
 SERVE_REDUCED_STEPS = 8
 RG_SERVE_ATTN = (1, 2304, 16, 1, 256, True, 2048, None)  # 6b's longest prefill, one layer
 TL_SERVE_ATTN = (1, 512, 32, 4, 64, True, None, None)  # 6a's longest prefill, one layer
+MG_SERVE_ATTN = (1, 512, 32, 32, 64, True, None, None)  # 6d's, MHA
+QW_SERVE_ATTN = (1, 512, 12, 2, 128, True, None, None)  # 6e's, GQA 6:1
+#: Each serving cell with attention: its tag, the key of its B3 timing, one prefill layer's
+#: attention at the longest prompt
+SERVE_ATTN = [("phase 6a", "flash[tinyllama]", TL_SERVE_ATTN),
+              ("phase 6b", "flash[recurrentgemma]", RG_SERVE_ATTN),
+              ("phase 6d", "flash[musicgen-large]", MG_SERVE_ATTN),
+              ("phase 6e", "flash[qwen2-vl-2b]", QW_SERVE_ATTN)]
 DECODE_RGLRU = (4, 1, 4096)  # 6b's decode step, one RG-LRU layer
 DECODE_WKV = (4, 1, 64, 64)  # 6c's decode step, one RWKV6 layer
 
@@ -2226,12 +2292,14 @@ def serve_kernel_checks(device):
                 fail(f"phase 6: wkv_fwd {name} at {DECODE_WKV} {dtype} with s0 differs from "
                      f"its plain version: max |diff| {d:.3e}")
             errs["wkv"] = max(errs["wkv"], d)
-    # B3 at the prefill lengths of 6a and 6b (forward and backward kernels, 1b's checks)
+    # B3 at the prefill lengths of the cells with attention (forward and backward kernels,
+    # 1b's checks)
     flash_errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     rel: dict = {}
     n = 0
-    for (_, arch, _, _, lens, _), shape in ((SERVE_CELLS[0], TL_SERVE_ATTN),
-                                           (SERVE_CELLS[1], RG_SERVE_ATTN)):
+    lens_of = {cell[0]: cell[4] for cell in SERVE_CELLS}
+    for tag, _, shape in SERVE_ATTN:
+        lens = lens_of[tag]
         for S in sorted(set(lens))[::max(1, len(set(lens)) // 4)] + [max(lens)]:
             check_flash_case((1, S) + shape[2:], torch.bfloat16, device, 80 + S, flash_errs,
                              rel=rel)
@@ -2239,7 +2307,7 @@ def serve_kernel_checks(device):
     errs["flash"] = flash_errs["fwd"]
     say(f"phase 6: rglru_fwd at T 1 and 2 with h0 (max |diff| {errs['rglru']:.3e}, hT == "
         f"h[:, -1]); wkv_fwd at {DECODE_WKV} with s0, bf16 and f32 r/k/v (max |diff| "
-        f"{errs['wkv']:.3e}); flash fwd/dQ/dK-dV at {n} prefill lengths of 6a and 6b (bf16: "
+        f"{errs['wkv']:.3e}); flash fwd/dQ/dK-dV at {n} prefill lengths of 6a, 6b, 6d and 6e (bf16: "
         f"{fmt_rel(rel)}): all within phases 1c / 1d / 1b's tolerances")
 
     timings = {}  # B6 in this mode is timed in phase 1c
@@ -2250,7 +2318,7 @@ def serve_kernel_checks(device):
     timings["wkv"] = kernel_timing(lambda: wk.wkv_fwd(r, k, v, w, u, s0),
                                    lambda: wk.wkv_ref(r, k, v, w, u, s0), None, nbytes,
                                    5 * elems * K, PEAK_FLOPS["tf32"] / 3)
-    for key, shape in (("flash[tinyllama]", TL_SERVE_ATTN), ("flash[recurrentgemma]", RG_SERVE_ATTN)):
+    for _, key, shape in SERVE_ATTN:
         B, S, Hq, Hkv, hd, _, window, _ = shape
         q, kk, vv, _ = flash_inputs(B, S, S, Hq, Hkv, hd, torch.bfloat16, device, 90)
         if window is None:
@@ -2267,10 +2335,9 @@ def serve_kernel_checks(device):
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
                                                                      **sdpa_opts),
             nbytes, flops, PEAK_FLOPS["bfloat16"])
-    for key, where, lib_name in (
-            ("wkv", f"wkv_fwd {DECODE_WKV} bf16 r/k/v with s0", None),
-            ("flash[tinyllama]", f"flash fwd {TL_SERVE_ATTN[:5]} bf16", "SDPA"),
-            ("flash[recurrentgemma]", f"flash fwd {RG_SERVE_ATTN[:5]} window 2048 bf16", "SDPA")):
+    for key, where, lib_name in [("wkv", f"wkv_fwd {DECODE_WKV} bf16 r/k/v with s0", None)] + [
+            (key, f"{tag}'s flash fwd {shape[:5]}" + (f" window {shape[6]}" if shape[6] else "")
+             + " bf16", "SDPA") for tag, key, shape in SERVE_ATTN]:
         t = timings[key]
         lib = "none" if t["library_ms"] is None else f"{lib_name} {t['library_ms']:.4f} ms"
         say(f"phase 6: {where}, one launch: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
@@ -2449,7 +2516,7 @@ def prefill_trace(cfg, model, max_seq, prompt, device) -> dict:
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=once) as prof:
         for _ in range(2):
-            prefill(model, {"tokens": tokens})
+            prefill(model, model_inputs(model, tokens))
             torch.cuda.synchronize()
             prof.step()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2458,6 +2525,13 @@ def prefill_trace(cfg, model, max_seq, prompt, device) -> dict:
 
 
 RING_STEPS = 16  # decode steps of the ring check; the JAX ring loses one more key a step
+#: The serving cells whose decode steps are held to the full forward, and the parameter dtype
+#: held at ``RING_GATE``.  Qwen2-VL's bf16 steps read 1.5e-2 - 2e-2 on an H100: the bf16
+#: decode path's own rounding (reduced TinyLlama and StarCoder2 in bf16 read 1e-2 on the CPU, and
+#: M-RoPE there reads exactly RoPE's), so its bf16 readings are printed and an f32 copy of the
+#: model is held.  MusicGen's are not held: its decode step adds position 0's sinusoid, as the
+#: JAX engine's does (ROADMAP C)
+FULL_FORWARD_ARCHS = {"recurrentgemma-9b": "bf16", "qwen2-vl-2b": "f32"}
 RING_GATE = 3e-3  # max |diff| / max|logit| a step of the aligned ring (PERF.md)
 
 
@@ -2501,16 +2575,27 @@ def window_keys_missing(caches, S: int, q: int) -> int:
     return missing
 
 
-def ring_check(tag, cfg, model, max_seq, prompt, device) -> dict:
+def model_inputs(model, ids):
+    """The forward's input for token ids: the ids, or for an embeds-input arch
+    the rows of the model's own table in f32 (the serving engine's stub
+    frontend)."""
+    if model.cfg.input_mode == "embeds":
+        return {"embeds": model.embed[ids].float()}
+    return {"tokens": ids}
+
+
+def ring_check(tag, cfg, model, max_seq, prompt, device, gated=True) -> dict:
     """``prompt``'s prefill (``make_prefill_step``) and ``RING_STEPS``
     greedy decode steps (``make_decode_step``): after each step every
     windowed ring holds a key for each position of its window, and the
     step's logits lie within ``RING_GATE`` x max|logit| of the full forward
-    over the prompt and the tokens fed.  Then the same steps, fed the same
-    tokens, from the prefill caches rewritten to the JAX ring layout: the
-    first step must find window positions without a key (the fault the
-    aligned ring repairs); its logits' readings are reported beside the
-    aligned ones."""
+    over the prompt and the tokens fed (with ``gated``; else the readings
+    are only returned).  Then, where a ring is shorter than
+    the prompt, the same steps, fed the same tokens, from the prefill caches
+    rewritten to the JAX ring layout: the first step must find window
+    positions without a key (the fault the aligned ring repairs); its
+    logits' readings are reported beside the aligned ones ("jax" is None
+    without such a ring)."""
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.transformer import tree_map
@@ -2518,41 +2603,55 @@ def ring_check(tag, cfg, model, max_seq, prompt, device) -> dict:
     S = len(prompt)
     tokens = torch.as_tensor(prompt, dtype=torch.long, device=device)[None]
     decode = make_decode_step(cfg)
-    logits0, caches = make_prefill_step(cfg, max_seq)(model, {"tokens": tokens})
-    jax_caches = tree_map(torch.clone, caches)
+    with torch.inference_mode():
+        # the prefill's caches in the weights' dtype: bf16 as the engine's, f32 for an f32 copy
+        logits0, caches = make_prefill_step(cfg, max_seq, cfg.param_dtype)(
+            model, model_inputs(model, tokens))
+    ringed = any(isinstance(leaf, tuple) and leaf[2].shape[-1] < S  # a ring shorter than S
+                 for part in caches.values() for leaf in part.values())
+    jax_caches = tree_map(torch.clone, caches) if ringed else None
     fed = [logits0.argmax(-1)]
     aligned, missing = [], 0
     for i in range(RING_STEPS):
-        lg, caches = decode(model, caches, {"tokens": fed[-1][:, None]},
+        with torch.inference_mode():
+            step_in = model_inputs(model, fed[-1][:, None])
+        lg, caches = decode(model, caches, step_in,
                             torch.tensor(S + i, dtype=torch.int32, device=device))
         missing += window_keys_missing(caches, S, S + i)
         aligned.append(lg)
         fed.append(lg.argmax(-1))
     del caches
     with torch.inference_mode():
-        full = model(torch.cat([tokens] + [t[:, None] for t in fed[:RING_STEPS]], 1))[0]
+        ids = torch.cat([tokens] + [t[:, None] for t in fed[:RING_STEPS]], 1)
+        full = model(**model_inputs(model, ids))[0]
     want = full[0, S:]
     del full
-    jax_ring_layout(jax_caches, S)
-    jax, jax_missing = [], []
-    for i in range(RING_STEPS):
-        lg, jax_caches = decode(model, jax_caches, {"tokens": fed[i][:, None]},
-                                torch.tensor(S + i, dtype=torch.int32, device=device))
-        jax_missing.append(window_keys_missing(jax_caches, S, S + i))
-        jax.append(lg)
-    del jax_caches
 
     def readings(steps):
         return [float((lg[0] - want[i]).abs().max() / want[i].abs().max())
                 for i, lg in enumerate(steps)]
 
-    out = {"S": S, "aligned": readings(aligned), "jax": readings(jax), "jax_missing": jax_missing,
+    out = {"S": S, "aligned": readings(aligned), "jax": None, "jax_missing": None,
            "argmax_equal": bool(aligned[0].argmax() == want[0].argmax())}
     if missing:
         fail(f"{tag}: the aligned ring lacks {missing} window positions over {RING_STEPS} steps")
-    if not all(torch.isfinite(lg).all() for lg in aligned) or max(out["aligned"]) > RING_GATE:
+    if not all(torch.isfinite(lg).all() for lg in aligned) or (
+            gated and max(out["aligned"]) > RING_GATE):
         fail(f"{tag}: the {S}-token prompt's decode logits differ from the full forward past "
              f"{RING_GATE:g} x max|logit|: {fmt_steps(out['aligned'])}")
+    if not ringed:
+        return out
+    jax_ring_layout(jax_caches, S)
+    jax, jax_missing = [], []
+    for i in range(RING_STEPS):
+        with torch.inference_mode():
+            step_in = model_inputs(model, fed[i][:, None])
+        lg, jax_caches = decode(model, jax_caches, step_in,
+                                torch.tensor(S + i, dtype=torch.int32, device=device))
+        jax_missing.append(window_keys_missing(jax_caches, S, S + i))
+        jax.append(lg)
+    del jax_caches
+    out["jax"], out["jax_missing"] = readings(jax), jax_missing
     if not jax_missing[0]:
         fail(f"{tag}: the JAX prefill's ring holds every window position at the first decode: "
              f"the check cannot tell the misaligned ring")
@@ -2648,10 +2747,20 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
 
     # the longest prompt's decode steps against the full forward, with the ring as the port
     # writes it and as the JAX prefill writes it
-    fwd = None
-    if arch == "recurrentgemma-9b":
+    fwd = fwd32 = None
+    if arch in FULL_FORWARD_ARCHS:
         req = serve.make_requests(serve.parse_args(args), cfg.vocab)[-1]
-        fwd = ring_check(tag, cfg, model, max_seq, req.prompt, device)
+        f32 = FULL_FORWARD_ARCHS[arch] == "f32"
+        fwd = ring_check(tag, cfg, model, max_seq, req.prompt, device, gated=not f32)
+        if f32:
+            import dataclasses
+
+            cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+            model32 = Transformer(cfg32, device=device, seed=None)
+            model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+            fwd32 = ring_check(f"{tag} f32", cfg32, model32, max_seq, req.prompt, device)
+            del model32
+            torch.cuda.empty_cache()
     plan = g["res"].plan
     bound_ms = decode_bytes(model, g["res"].engine) / HBM_BYTES_PER_S * 1e3
     res = {
@@ -2661,6 +2770,7 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
         "eager_tok_s": e["res"].n_tokens / e["res"].seconds,
         "peak_gb": max(g["peak_gb"], e["peak_gb"]),
         "predicted_ms": plan.predicted_step_time() * 1e3, "bound_ms": bound_ms, "fwd": fwd,
+        "fwd32": fwd32,
         "prof": prof, "steps": g["steps"], "replays": g["replays"],
         "prefill_launches": g["prefill_counts"]["rglru_fwd"],
     }
@@ -2687,7 +2797,13 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
         say(f"{tag}: {mode} decode step under torch.profiler: {p['wall_ms']:.3f} ms wall, "
             f"{p['busy_ms']:.3f} ms device busy, idle share {idle}, {p['kernels']:.0f} kernels "
             f"a step, of them by name {named}; device ms a step by class {p['classes']}")
-    if fwd:
+    if fwd32:
+        say(f"{tag}: the {fwd['S']}-token request's {RING_STEPS} decode steps against the full "
+            f"forward at positions {fwd['S']}-{fwd['S'] + RING_STEPS - 1}, max |diff| / "
+            f"max|logit| a step: the f32 copy of the weights {fmt_steps(fwd32['aligned'])} (gate "
+            f"{RING_GATE:g}; first argmax equal {fwd32['argmax_equal']}); the bf16 model "
+            f"{fmt_steps(fwd['aligned'])} (printed, not gated: bf16 rounding)")
+    elif fwd:
         say(f"{tag}: the {fwd['S']}-token request's {RING_STEPS} decode steps against the full "
             f"forward at positions {fwd['S']}-{fwd['S'] + RING_STEPS - 1}, max |diff| / "
             f"max|logit| a step: aligned ring {fmt_steps(fwd['aligned'])} (gate {RING_GATE:g}; "
@@ -2702,11 +2818,11 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
 
 
 def serve_reduced(device):
-    """The eight ported archs' reduced configs through the engine in f32, on
-    the card (CUDA graph) and on the CPU (eager): the same greedy tokens over
+    """The ten archs' reduced configs through the engine in f32, on the card
+    (CUDA graph) and on the CPU (eager): the same greedy tokens over
     ``SERVE_REDUCED_STEPS`` steps, and the first request's prefill logits
-    within 1e-4 x max|logit|.  Reduced StarCoder2's head dim 24 is raised to
-    32 on both sides (the kernels take 32, 64, 128 and 256)."""
+    within 1e-4 x max|logit|.  Reduced StarCoder2's and Qwen2-VL's head dim
+    24 is raised to 32 on both sides (``kernel_head_dim``)."""
     import numpy as np
     import torch
     from repro_torch.configs import PORTED_ARCHS, get_reduced
@@ -2716,11 +2832,7 @@ def serve_reduced(device):
 
     worst = 0.0
     for arch in PORTED_ARCHS:
-        cfg = get_reduced(arch, param_dtype=torch.float32)
-        if cfg.attention is not None and cfg.attention.head_dim == 24:
-            import dataclasses
-
-            cfg = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, head_dim=32))
+        cfg = kernel_head_dim(get_reduced(arch, param_dtype=torch.float32))
         cpu = Transformer(cfg, device="cpu", seed=0)
         gpu = Transformer(cfg, device=device, seed=None)
         gpu.load_state_dict(cpu.state_dict())
@@ -2734,9 +2846,10 @@ def serve_reduced(device):
             done.append({r.rid: r.generated for r in eng.run_to_completion()})
         if done[0] != done[1]:
             fail(f"phase 6: reduced {arch} through the engine: card {done[0]} != CPU {done[1]}")
-        first = [make_prefill_step(cfg, 64)(m, {"tokens": torch.as_tensor(
-            prompts[0][None], dtype=torch.long, device=m.embed.device)})[0].cpu()
-            for m in (gpu, cpu)]
+        with torch.inference_mode():
+            first = [make_prefill_step(cfg, 64)(m, model_inputs(m, torch.as_tensor(
+                prompts[0][None], dtype=torch.long, device=m.embed.device)))[0].cpu()
+                for m in (gpu, cpu)]
         d, top = float((first[0] - first[1]).abs().max()), float(first[1].abs().max())
         if not d <= 1e-4 * top:
             fail(f"phase 6: reduced {arch} prefill logits on the card differ from the CPU: "
@@ -2756,7 +2869,7 @@ def serve_reduced(device):
             sampled_differs = drawn[0] != drawn[2]
     say(f"phase 6: seeded sampling (Gumbel-max, T 1) inside the CUDA graph: seed 2 twice gives "
         f"the same tokens; seed 3 gives {'others' if sampled_differs else 'the same'}")
-    say(f"phase 6: the {len(PORTED_ARCHS)} ported archs' reduced configs through the engine in "
+    say(f"phase 6: the {len(PORTED_ARCHS)} archs' reduced configs through the engine in "
         f"f32, card (CUDA graph) against CPU (eager): greedy tokens equal over "
         f"{SERVE_REDUCED_STEPS} steps for 3 requests each; first logits within "
         f"{worst:.3e} x max|logit| (gate 1e-4)")
@@ -2764,7 +2877,7 @@ def serve_reduced(device):
 
 
 def phase_serve(device):
-    """Phase 6: the kernels in serving mode, the three full-depth cells, the
+    """Phase 6: the kernels in serving mode, the five full-depth cells, the
     reduced archs card against CPU."""
     t0 = time.perf_counter()
     errs, timings = serve_kernel_checks(device)
@@ -3219,7 +3332,7 @@ def main() -> None:
     phase_reduced_model(device)
     phase_reduced_model(device, "recurrentgemma-9b", seq=128, tag="phase 2b")
     phase_reduced_model(device, "rwkv6-7b", seq=64, tag="phase 2c")
-    for arch in ("gemma2-2b", "mixtral-8x7b", "dbrx-132b"):
+    for arch in ("gemma2-2b", "mixtral-8x7b", "dbrx-132b", "musicgen-large", "qwen2-vl-2b"):
         phase_reduced_model(device, arch, seq=128, tag=f"phase 2d {arch}")
     took("phases 2-2d")
     try:
@@ -3229,7 +3342,7 @@ def main() -> None:
         rwkv_counts = phase_rwkv_full_width(device)
         took("phases 3b-3c")
         new_counts = phase_new_full_width(device)
-        took("phases 3d-3h")
+        took("phases 3d-3j")
         p4_counts = phase_autotune(device, dag)
         p5_counts = phase_restart(device)
         took("phases 4-5")
@@ -3346,6 +3459,12 @@ def main() -> None:
             ("flash_attention.fwd[serve recurrentgemma]", FLASH_SM90_SRC,
              "src/repro/kernels/flash_attention/kernel.py:40", "flash[recurrentgemma]",
              ("phase 6b", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
+            ("flash_attention.fwd[serve musicgen-large]", FLASH_SM90_SRC,
+             "src/repro/kernels/flash_attention/kernel.py:40", "flash[musicgen-large]",
+             ("phase 6d", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
+            ("flash_attention.fwd[serve qwen2-vl-2b]", FLASH_SM90_SRC,
+             "src/repro/kernels/flash_attention/kernel.py:40", "flash[qwen2-vl-2b]",
+             ("phase 6e", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
             ("rglru.fwd[serve]", RGLRU_SRC, "src/repro/kernels/rglru/kernel.py:31", "decode",
              ("phase 6b", "rglru_fwd"), "rglru", {"kernel": "rglru_step_kernel"}),
             ("rwkv6_wkv.fwd[serve]", WKV_SRC, "src/repro/kernels/rwkv6_wkv/kernel.py:31", "wkv",

@@ -2,10 +2,8 @@
 
 ``get_config(name)`` returns the full ArchConfig, ``get_reduced(name)`` a
 small same-family variant for CPU tests; keyword overrides replace fields
-of either, as the JAX registry's do.  The names are the JAX package's; the
-eight token-input archs are ported, and ``musicgen-large`` and
-``qwen2-vl-2b`` (embeds input, sinusoidal positions, M-RoPE) raise
-``NotImplementedError`` until they are.  The JAX configs' MoE knobs
+of either, as the JAX registry's do.  The names are the JAX package's, and
+all ten archs are ported.  The JAX configs' MoE knobs
 ``moe_groups`` (dispatch groups per token shard, set by its launcher under
 expert parallelism) and ``moe_token_chunk`` (a legacy field nothing reads)
 are left out: the port routes every token as one group.
@@ -27,10 +25,11 @@ _MODULES = {
     "dbrx-132b": "dbrx_132b",
     "rwkv6-7b": "rwkv6_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "musicgen-large": "musicgen_large",
+    "qwen2-vl-2b": "qwen2_vl_2b",
 }
 
-#: Every arch the JAX package registers; the ones outside ``_MODULES`` are
-#: still to port.
+#: Every arch the JAX package registers, in its order.
 ARCH_NAMES = (
     "musicgen-large",
     "tinyllama-1.1b",
@@ -43,16 +42,12 @@ ARCH_NAMES = (
     "recurrentgemma-9b",
     "qwen2-vl-2b",
 )
-PORTED_ARCHS = tuple(_MODULES)
+PORTED_ARCHS = ARCH_NAMES
 
 
 def _module(name: str):
-    if name not in ARCH_NAMES:
-        raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
     if name not in _MODULES:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet; ported: {PORTED_ARCHS}"
-        )
+        raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
     return import_module(f".{_MODULES[name]}", __package__)
 
 

@@ -21,6 +21,16 @@ Two issue orders:
     issue order, unpacks, and runs the optimizer.  The arithmetic is the
     same as ``'post'``, so the two give bitwise-equal parameters.
 
+A parameter that the loss does not read gets an exact zero gradient, as
+``jax.grad`` gives it: the embedding table of an untied embeds-input arch
+(MusicGen, Qwen2-VL), whose batches bring their own embeddings.  Autograd
+leaves its ``.grad`` None, so after backward the step fills a zero there and
+counts it in, exactly as a gradient that landed would be (its ``dag`` group
+and unit hooks fire then); the zero rides its group's all-reduce, and
+AdamW's weight decay still moves the table, as in JAX.  Which parameters
+those are is read from the config (``unread_params``), so a token arch's
+step does no extra work.
+
 The error-feedback residual (``compression='bf16_ef'``) is per-rank state
 with no leading DP axis; the step keeps it and updates it in place, as it
 updates ``param.grad`` (the reduced gradient is unpacked into it) and the
@@ -53,6 +63,12 @@ from .comm_model import AllReduceModel
 from .cost_model import Hardware, LayerCost, TPU_V5E
 from .schedule import Schedule
 from .sync import GradientSync, PendingGroup, SyncConfig, make_gradient_sync
+
+
+def unread_params(cfg: ArchConfig) -> tuple[str, ...]:
+    """The parameters the training loss never reads: ``embed`` for an untied
+    embeds-input arch, else none."""
+    return ("embed",) if cfg.input_mode == "embeds" and not cfg.tie_embeddings else ()
 
 
 def lm_unit_costs(
@@ -242,6 +258,8 @@ class TrainStep:
         if sorted(names) != sorted(self.params):
             raise ValueError("the plan's wire entries do not cover the model's parameters")
         self.opt_state = optimizer.init(self.params) if opt_state is None else opt_state
+        self._unread = unread_params(model.cfg)
+        self._group_of = {n: gi for gi, g in enumerate(sync.group_names) for n in g}
         self._hooks = []
         self._pending: list[PendingGroup] = []
         self._remaining: list[int] = []
@@ -256,18 +274,26 @@ class TrainStep:
                         )
                     )
 
+    def _fill_unread(self) -> None:
+        """After backward: an exact zero gradient for each parameter the loss
+        does not read, counted in as a landed gradient (``dag``: its unit
+        span and its group's countdown, which then packs and issues)."""
+        for n in self._unread:
+            p = self.params[n]
+            if p.grad is not None:  # a token batch did read it: its hooks have fired
+                continue
+            p.grad = torch.zeros_like(p)
+            if self.issue == "dag":
+                if self.recorder is not None:
+                    self._unit_grad_landed(self._unit_of(n))
+                self._grad_landed(self._group_of[n])
+
     def _add_unit_span_hooks(self) -> None:
         """``dag`` under a recorder: one ``bwd_<unit>`` span per unit, in
         backward order, each ending when the unit's last gradient lands
         and the next one beginning there."""
         cfg = self.model.cfg
-
-        def unit_of(name: str) -> str:
-            head, *rest = name.split(".")
-            if head == "stages":
-                return f"stage{rest[0]}"
-            return {"final_norm": "head"}.get(head, head)
-
+        unit_of = self._unit_of
         order = ["head"] + (["tail"] if cfg.tail_pattern else []) \
             + [f"stage{i}" for i in range(cfg.n_stages - 1, -1, -1)] + ["embed"]
         self._unit_order = order
@@ -277,6 +303,13 @@ class TrainStep:
         for n, p in self.params.items():
             self._hooks.append(p.register_post_accumulate_grad_hook(
                 lambda _p, u=unit_of(n): self._unit_grad_landed(u)))
+
+    @staticmethod
+    def _unit_of(name: str) -> str:
+        head, *rest = name.split(".")
+        if head == "stages":
+            return f"stage{rest[0]}"
+        return {"final_norm": "head"}.get(head, head)
 
     def _unit_grad_landed(self, unit: str) -> None:
         self._unit_left[unit] -= 1
@@ -321,6 +354,7 @@ class TrainStep:
         try:
             loss = self.model.loss(batch)
             self._backward(loss)
+            self._fill_unread()
             grads = {n: p.grad for n, p in self.params.items()}
             if self.issue == "post":
                 for gi in range(sync.n_groups):
@@ -358,5 +392,7 @@ class TrainStep:
 
 
 def batch_to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    """numpy batch -> int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v, dtype=torch.int64).to(device) for k, v in batch.items()}
+    """numpy batch -> tensors on ``device``: token ids and targets int64,
+    ``embeds`` f32."""
+    return {k: torch.as_tensor(v, dtype=torch.float32 if k == "embeds" else torch.int64).to(device)
+            for k, v in batch.items()}

@@ -5,6 +5,14 @@ seed, step and rank give the same batch in both packages).
 Every batch is a pure function of ``(seed, step, rank)``; each
 data-parallel rank draws only its own rows.  The distribution mixes
 Zipfian unigrams with a repeated motif, so the loss falls.
+
+With ``input_mode='embeds'`` (the stub frontends of MusicGen and Qwen2-VL)
+a batch carries ``embeds = table[tokens]`` in place of the tokens, where
+``table`` is a (vocab, d_model) f32 array of standard normals from
+``default_rng(seed + 7)`` times 0.02.  The JAX stream draws the table
+again for every batch; it depends on ``seed`` alone, so this stream draws it
+once, at its first embeds batch, and keeps it: the same numbers, without
+redrawing vocab x d_model normals a step (0.93 GB at Qwen2-VL's width).
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ class DataConfig:
     seed: int = 0
     zipf_a: float = 1.2
     ngram_repeat: int = 8  # period of the repeated motif (learnable signal)
+    input_mode: str = "tokens"  # 'tokens' | 'embeds'
+    d_model: int = 0  # the embeds' width (embeds mode)
 
 
 class SyntheticLMStream:
@@ -39,9 +49,20 @@ class SyntheticLMStream:
         probs = ranks ** (-cfg.zipf_a)
         self._probs = probs / probs.sum()
         self._motif = rng.integers(0, cfg.vocab, size=cfg.ngram_repeat)
+        self._table: np.ndarray | None = None  # the embeds table, drawn at first use
+
+    def embed_table(self) -> np.ndarray:
+        """The (vocab, d_model) f32 table that embeds batches gather from."""
+        if self._table is None:
+            cfg = self.cfg
+            rng = np.random.default_rng(cfg.seed + 7)
+            self._table = rng.standard_normal((cfg.vocab, cfg.d_model)).astype(np.float32) * 0.02
+        return self._table
 
     def batch_at(self, step: int) -> dict[str, np.ndarray]:
-        """``{'tokens', 'targets'}`` int32 (host_batch, seq_len) for ``step``."""
+        """``{'tokens', 'targets'}`` int32 (host_batch, seq_len) for ``step``;
+        in embeds mode ``{'embeds' (host_batch, seq_len, d_model) f32,
+        'targets'}``."""
         cfg = self.cfg
         rng = np.random.default_rng((cfg.seed * 1_000_003 + step) * 65_537 + self.host_rank)
         B, S = self.host_batch, cfg.seq_len
@@ -49,10 +70,13 @@ class SyntheticLMStream:
         motif_rows = rng.random(B) < 0.5
         reps = int(np.ceil((S + 1) / cfg.ngram_repeat))
         base[motif_rows] = np.tile(self._motif, reps)[: S + 1]
-        return {
-            "tokens": base[:, :-1].astype(np.int32),
-            "targets": base[:, 1:].astype(np.int32),
-        }
+        tokens = base[:, :-1].astype(np.int32)
+        out = {"targets": base[:, 1:].astype(np.int32)}
+        if cfg.input_mode == "embeds":
+            out["embeds"] = self.embed_table()[tokens]
+        else:
+            out["tokens"] = tokens
+        return out
 
 
 def make_stream(cfg: DataConfig, host_rank: int = 0, host_count: int = 1) -> SyntheticLMStream:

@@ -37,8 +37,7 @@ chaos=ChaosConfig(...))`` gives the whole chaos schedule (``kill_at``,
         --reduced --device cpu --chaos-kill-every 3
 
 Not ported yet, and raising ``NotImplementedError`` when given:
-``--sharded`` and ``--measure-comm`` (sharded serving, ROADMAP A.3.1); the
-embeds-input archs ``musicgen-large`` and ``qwen2-vl-2b`` (ROADMAP A.2.1).
+``--sharded`` and ``--measure-comm`` (sharded serving, ROADMAP A.3.1).
 """
 
 from __future__ import annotations
@@ -52,7 +51,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import ARCH_NAMES, PORTED_ARCHS, get_config, get_reduced
+from ..configs import ARCH_NAMES, get_config, get_reduced
 from ..devices import resolve_device
 from ..fabric import available_fabrics
 from ..models import Transformer, param_shapes
@@ -69,7 +68,6 @@ from ..serving import (
     gumbel_sampler,
     resilient_serve_loop,
 )
-from ..serving.engine import EMBEDS
 
 #: The resilience flags and the values they take when another one is given
 #: (the JAX launcher's defaults).
@@ -179,8 +177,6 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
     for name, default in RESILIENT_DEFAULTS.items():
         if getattr(args, name) is None:
             setattr(args, name, default)
-    if args.arch not in PORTED_ARCHS:
-        raise NotImplementedError(f"{args.arch}: {EMBEDS}")
     say = (lambda msg: None) if quiet else (lambda msg: print(f"[serve] {msg}", flush=True))
     device = resolve_device(args.device)
     cfg = (get_reduced(args.arch, param_dtype=torch.float32) if args.reduced

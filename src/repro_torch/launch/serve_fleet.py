@@ -33,7 +33,7 @@ from typing import Callable
 
 import torch
 
-from ..configs import ARCH_NAMES, PORTED_ARCHS, get_config, get_reduced
+from ..configs import ARCH_NAMES, get_config, get_reduced
 from ..devices import resolve_device
 from ..fabric import available_fabrics
 from ..models import Transformer, param_shapes
@@ -47,7 +47,6 @@ from ..serving import (
     LoadSpec,
     ServingEngine,
 )
-from ..serving.engine import EMBEDS
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -125,8 +124,6 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
     ``time.monotonic`` (a deterministic clock makes a chaos run repeat).
     Raises ``SystemExit`` on a failover token mismatch."""
     args = parse_args(argv)
-    if args.arch not in PORTED_ARCHS:
-        raise NotImplementedError(f"{args.arch}: {EMBEDS}")
     say = (lambda msg: None) if quiet else (lambda msg: print(f"[fleet] {msg}", flush=True))
     device = resolve_device(args.device)
     cfg = (get_reduced(args.arch, param_dtype=torch.float32) if args.reduced

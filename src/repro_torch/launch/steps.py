@@ -16,27 +16,21 @@ from ..models.common import ArchConfig
 from ..models.transformer import init_caches
 
 
-def _tokens(batch: dict) -> torch.Tensor:
-    if "tokens" not in batch:
-        raise NotImplementedError(
-            "input_mode='embeds' (musicgen-large, qwen2-vl-2b) is not ported yet: ROADMAP A.2.1")
-    return batch["tokens"]
-
-
 def make_prefill_step(cfg: ArchConfig, max_seq: int, cache_dtype=torch.bfloat16):
     """``prefill(model, batch) -> (last_logits (B, vocab) f32, caches)``.
 
-    ``batch['tokens']`` (B, S) starts at position 0; the caches are a fresh
-    ``init_caches(cfg, B, max_seq)`` tree on the tokens' device, in
-    ``cache_dtype`` (bf16 by default, as the JAX step's), filled by the
-    forward.  The head runs on the last row only."""
+    ``batch['tokens']`` (B, S), or ``batch['embeds']`` (B, S, d) f32 (which
+    win when both are given, as in the JAX step), starts at position 0; the
+    caches are a fresh ``init_caches(cfg, B, max_seq)`` tree on the input's
+    device, in ``cache_dtype`` (bf16 by default, as the JAX step's), filled
+    by the forward.  The head runs on the last row only."""
 
     def prefill(model, batch: dict):
-        tokens = _tokens(batch)
+        b = batch.get("tokens", batch.get("embeds"))
         with torch.inference_mode():
-            caches = init_caches(cfg, tokens.shape[0], max_seq, dtype=cache_dtype,
-                                 device=tokens.device)
-            logits, caches, _ = model(tokens, caches, last_only=True)
+            caches = init_caches(cfg, b.shape[0], max_seq, dtype=cache_dtype, device=b.device)
+            logits, caches, _ = model(batch.get("tokens"), caches, last_only=True,
+                                      embeds=batch.get("embeds"))
         return logits[:, -1], caches
 
     return prefill
@@ -45,15 +39,17 @@ def make_prefill_step(cfg: ArchConfig, max_seq: int, cache_dtype=torch.bfloat16)
 def make_decode_step(cfg: ArchConfig):
     """``decode(model, caches, batch, pos) -> (logits (B, vocab) f32, caches)``.
 
-    ``batch['tokens']`` (B, 1) holds one token per row, all at the absolute
+    ``batch['tokens']`` (B, 1) holds one token per row, or
+    ``batch['embeds']`` (B, 1, d) one embedding, all at the absolute
     position ``pos`` (an int or a 0-d device tensor; per-row positions are
     the serving engine's, layered above this step).  The caches are
-    updated in place and returned."""
+    updated in place and returned.  Sinusoidal positions follow the JAX
+    forward's rule (``models.transformer``): at ``pos`` for an int, at 0 for
+    a tensor, as under the JAX step's ``jit``."""
 
     def decode(model, caches: dict, batch: dict, pos):
-        tokens = _tokens(batch)
         with torch.inference_mode():
-            logits, caches, _ = model(tokens, caches, pos)
+            logits, caches, _ = model(batch.get("tokens"), caches, pos, embeds=batch.get("embeds"))
         return logits[:, 0], caches
 
     return decode

@@ -336,7 +336,8 @@ def prepare(argv: list[str] | None = None, *, quiet: bool = False,
             f"attn={cfg.attn_impl if cfg.attention is not None else 'none'}")
         model = Transformer(cfg, device=device, seed=0)
         data = make_stream(
-            DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch),
+            DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+                       input_mode=cfg.input_mode, d_model=cfg.d_model),
             host_rank=rank, host_count=world,
         )
         optimizer = make_optimizer(args.optimizer)

@@ -1,10 +1,11 @@
 """Shared model configuration (counterpart of ``repro/models/common.py``),
 with torch dtypes.
 
-Only the options the port implements are fields: those of the eight
-token-input archs.  The JAX package's options for the embeds-input archs
-(``input_mode``, ``Attention.rope`` / ``mrope_sections`` / ``qk_norm``)
-come back with MusicGen and Qwen2-VL.
+Every option of the JAX package's ten archs is a field: the embeds-input
+archs (MusicGen, Qwen2-VL) bring ``input_mode``, ``Attention.rope`` /
+``mrope_sections`` and ``qk_norm``.  The JAX configs' implementation knobs
+that the port has no use for (``moe_groups``, ``moe_token_chunk``,
+``chunk_impl``) are left out.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Attention:
-    """Attention block options (causal, RoPE)."""
+    """Attention block options (causal; positions per ``rope``)."""
 
     n_heads: int
     n_kv_heads: int
@@ -25,6 +26,11 @@ class Attention:
     window: int | None = None  # sliding-window size of 'attn' / 'moe' layers (None = full causal)
     softcap: float | None = None  # attention-logit softcap (gemma2)
     rope_theta: float = 10000.0
+    # 'rope' | 'mrope' (qwen2-vl: (t, h, w) sections of the rotary half-dims) |
+    # 'sinusoidal' (musicgen: added to the embeddings) | 'none' (NoPE)
+    rope: str = "rope"
+    mrope_sections: tuple[int, int, int] | None = None  # qwen2-vl; they sum to head_dim / 2
+    qk_norm: bool = False  # RMS norm of q and k over head_dim before the positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +65,10 @@ class ArchConfig:
     RWKV6 layer, its channel mix included: ``mlp='rwkv_cmix'``,
     ``attention=None``) sublayers, with a
     tail, rmsnorm, gemma rmsnorm or layernorm, post-block norms, swiglu,
-    geglu or the plain GeLU MLP, attention and final-logit softcaps, and
-    tied or untied embeddings; ``models.transformer`` raises on any other
-    value rather than computing something else."""
+    geglu or the plain GeLU MLP, attention and final-logit softcaps, tied
+    or untied embeddings, RoPE, M-RoPE, additive sinusoidal positions or
+    none, ``qk_norm``, and token or embeds input; ``models.transformer``
+    raises on any other value rather than computing something else."""
 
     name: str
     family: str  # audio|dense|moe|ssm|hybrid|vlm
@@ -81,6 +88,7 @@ class ArchConfig:
     mlp: str = "swiglu"  # 'swiglu' | 'geglu' | 'gelu' | 'rwkv_cmix' (inside the 'rwkv' block)
     tie_embeddings: bool = False
     logit_softcap: float | None = None
+    input_mode: str = "tokens"  # 'tokens' | 'embeds' (audio / vlm stub frontends: (B, S, d) floats)
     param_dtype: Any = torch.bfloat16
     # local-attention window used by '*_local' pattern entries
     local_window: int = 4096

@@ -1,7 +1,16 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``):
-RMSNorm (plain and gemma), LayerNorm, RoPE, GQA attention (causal, optionally over a
-sliding window and under a logit softcap), the gated MLPs (SwiGLU, GeGLU), the
+RMSNorm (plain and gemma), LayerNorm, RoPE, M-RoPE, sinusoidal positions, GQA
+attention (causal, optionally over a sliding window and under a logit softcap,
+with an optional RMS norm of q and k), the gated MLPs (SwiGLU, GeGLU), the
 plain GeLU MLP and the logit softcap.
+
+``Attention.rope`` picks the positions: ``'rope'`` rotates q and k,
+``'mrope'`` (Qwen2-VL) rotates each rotary half-dim by one of three position
+streams (t, h, w: ``positions`` (3, B, S)), ``'sinusoidal'`` (MusicGen) is
+added to the embeddings by ``models.transformer`` and ``'none'`` uses no
+positions; the block rotates nothing for the last two.  ``qk_norm``
+normalises q and k over the head dim (f32, eps 1e-6, the factor cast back to
+their dtype, then the ``q_norm`` / ``k_norm`` scales) before the positions.
 
 ``ArchConfig.attn_impl`` picks the attention (the JAX package's
 ``attn_impl``, ``'pallas' | 'jnp'``):
@@ -43,6 +52,7 @@ from ..kernels.flash_attention import flash_attention, flash_attention_train
 from .common import ArchConfig, Attention
 
 ATTN_IMPLS = ("flash", "plain")
+ROPES = ("rope", "mrope", "sinusoidal", "none")
 NORMS = ("rmsnorm", "rmsnorm_gemma", "layernorm")
 MLPS = ("swiglu", "geglu", "gelu")
 
@@ -119,6 +129,62 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+@functools.cache
+def _mrope_freqs_on(head_dim: int, theta: float, sections: tuple[int, int, int],
+                    device: torch.device) -> torch.Tensor:
+    # (3, hd/2): row k holds the frequencies of the half-dims that stream k rotates, 0
+    # elsewhere (the JAX einsum operand); made once per device, as _rope_freqs_on
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to head_dim / 2 = {half}")
+    sec = np.concatenate([np.full((s,), i) for i, s in enumerate(sections)])
+    mask = (sec[None, :] == np.arange(3)[:, None]).astype(np.float32)
+    with torch.inference_mode(False):
+        return torch.as_tensor(mask * rope_freqs(head_dim, theta).astype(np.float32),
+                               device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: (..., S, H, hd); positions (3, ..., S),
+    the temporal / height / width streams.  The ``hd/2`` rotary frequencies
+    are split into ``sections`` and each section turns by its stream's
+    positions; for text the three streams are equal and this is
+    ``apply_rope``."""
+    sel = _mrope_freqs_on(x.shape[-1], theta, tuple(sections), x.device)
+    ang = torch.einsum("k...s,kf->...sf", positions.float(), sel)  # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+@functools.cache
+def sinusoidal_embedding(seq_len: int, dim: int, offset: int = 0,
+                         device: torch.device | str = "cpu") -> torch.Tensor:
+    """MusicGen's additive positions for ``offset .. offset + seq_len - 1``:
+    (seq_len, dim) f32, the ``sin`` half then the ``cos`` half, base 10000,
+    computed in f64 (the JAX ``sinusoidal_embedding``).  Made once per
+    (length, offset, device): a CUDA graph captured later copies nothing from
+    the host.  Made outside inference mode, so training may use it after
+    serving."""
+    pos = np.arange(offset, offset + seq_len, dtype=np.float64)[:, None]
+    freqs = np.exp(-np.log(10000.0) * np.arange(0, dim, 2, dtype=np.float64) / dim)
+    ang = pos * freqs[None, :]
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+    with torch.inference_mode(False):
+        return torch.as_tensor(table, device=device)
+
+
+def qk_rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The JAX block's ``qk_norm``: ``x * rsqrt(mean(x^2) + 1e-6)`` over the
+    head dim, the factor computed in f32 and cast to x's dtype, times
+    ``scale``."""
+    inv = torch.rsqrt(torch.mean(torch.square(x.float()), dim=-1, keepdim=True) + 1e-6)
+    return x * inv.to(x.dtype) * scale
+
+
 KPOS_EMPTY = 2**30  # the position of a cache slot that holds no key (masked by causality)
 
 
@@ -176,8 +242,11 @@ def gqa_attention(
 
 
 class AttentionBlock(nn.Module):
-    """``{'wq', 'wk', 'wv', 'wo'}``: project, RoPE, attend (causal, over the
-    last ``window`` keys when given, under ``att.softcap``), out-project.
+    """``{'wq', 'wk', 'wv', 'wo'}`` (and ``'q_norm'``, ``'k_norm'`` (hd,) with
+    ``att.qk_norm``): project, norm q and k (``qk_norm``), apply the
+    positions (``att.rope``: ``positions`` is (B, S), or (3, B, S) for
+    ``'mrope'``), attend (causal, over the last ``window`` keys when given,
+    under ``att.softcap``), out-project.
 
     ``forward(x, positions, kv_cache=None, q_offset=0)`` returns ``(out,
     new_cache)``.  Without a cache (training) new_cache is None.  With one,
@@ -197,7 +266,20 @@ class AttentionBlock(nn.Module):
         qd, kvd = att.n_heads * att.head_dim, att.n_kv_heads * att.head_dim
         mk = lambda *shape: nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
         self.wq, self.wk, self.wv, self.wo = mk(d, qd), mk(d, kvd), mk(d, kvd), mk(qd, d)
+        if att.qk_norm:
+            self.q_norm, self.k_norm = mk(att.head_dim), mk(att.head_dim)
         self.cfg, self.att, self.window = cfg, att, window
+
+    def _qk_positions(self, q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor):
+        att = self.att
+        if att.qk_norm:
+            q, k = qk_rms_norm(q, self.q_norm), qk_rms_norm(k, self.k_norm)
+        if att.rope == "rope":
+            return apply_rope(q, positions, att.rope_theta), apply_rope(k, positions, att.rope_theta)
+        if att.rope == "mrope":
+            return (apply_mrope(q, positions, att.rope_theta, att.mrope_sections),
+                    apply_mrope(k, positions, att.rope_theta, att.mrope_sections))
+        return q, k  # 'sinusoidal' is added to the embeddings; 'none' is NoPE
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, kv_cache=None,
                 q_offset: torch.Tensor | int = 0):
@@ -206,8 +288,7 @@ class AttentionBlock(nn.Module):
         q = (x @ self.wq).reshape(B, S, att.n_heads, att.head_dim)
         k = (x @ self.wk).reshape(B, S, att.n_kv_heads, att.head_dim)
         v = (x @ self.wv).reshape(B, S, att.n_kv_heads, att.head_dim)
-        q = apply_rope(q, positions, att.rope_theta)
-        k = apply_rope(k, positions, att.rope_theta)
+        q, k = self._qk_positions(q, k, positions)
         if kv_cache is not None:
             return self._cached(x, q, k, v, kv_cache, q_offset)
         if self.cfg.attn_impl == "flash":

@@ -9,7 +9,8 @@ Parameters are held per layer, so that a gradient hook fires per layer::
     embed                       (vocab, d)  f32
     stages.<i>.<kind>_<j>.norm{1,2}.scale         (.bias too for layernorm)
     stages.<i>.<kind>_<j>.post_norm{1,2}.scale    (post_norm archs: gemma2)
-    stages.<i>.attn_0.attn.{wq,wk,wv,wo}          ('attn*' / 'moe')
+    stages.<i>.attn_0.attn.{wq,wk,wv,wo}          ('attn*' / 'moe'; q_norm, k_norm
+                                                   (hd,) too with qk_norm)
     stages.<i>.rec_0.mix.{w_main,w_gate,conv_w,conv_b,wa,ba,wx,bx,lam,w_out}
     stages.<i>.<kind>_<j>.mlp.{w_gate,w_up,w_down}   (no w_gate for mlp='gelu')
     stages.<i>.moe_0.moe.{router,w_gate,w_up,w_down} ('moe': no mlp; router f32)
@@ -25,6 +26,19 @@ The JAX package stacks ``stages`` on a leading ``n_stages`` axis
 that stacked shape tree, which is what the planning layout is built over,
 and ``from_jax_params`` / ``to_jax_params`` convert numpy weights between
 the two forms.
+
+Input: token ids (``input_mode='tokens'``) are looked up in ``embed``;
+``embeds`` (B, S, d) floats (``input_mode='embeds'``: MusicGen, Qwen2-VL,
+whose frontends are stubs) are cast to ``param_dtype`` and ``embed`` is not
+read (untied, the training loss gives it no gradient; the trainer makes that
+an exact zero).  With ``Attention.rope == 'sinusoidal'`` the f32 sinusoid
+table is cast to the activations' dtype and added, at the rows of positions
+``q_offset ..`` when ``q_offset`` is an int and at positions ``0 ..`` when it
+is a tensor: the JAX forward's rule (``pos0 = q_offset if isinstance(q_offset,
+int) else 0``), under which its jitted decode step, whose offset is traced,
+adds position 0's row at every step.  The engine's decode step passes a
+device tensor, so it reproduces the JAX engine.  ``'mrope'`` positions are
+(3, B, S), the three streams equal (text).
 
 Tied embeddings (gemma): the head is ``embed.T`` cast to ``param_dtype``
 once per step, and the embedding output is scaled by ``sqrt(d)``.  At a
@@ -57,9 +71,11 @@ from .layers import (
     MLP,
     MLPS,
     NORMS,
+    ROPES,
     AttentionBlock,
     LayerNorm,
     make_norm,
+    sinusoidal_embedding,
     softcap_logits,
 )
 from .moe import MoEBlock
@@ -75,6 +91,7 @@ MOE_AUX_COEF = 0.01
 
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = set(cfg.pattern) | set(cfg.tail_pattern)
+    att = cfg.attention
     rec_kind = None if cfg.recurrent is None else cfg.recurrent.kind
     unsupported = {
         "pattern": not kinds <= set(KINDS),
@@ -86,6 +103,8 @@ def _check_supported(cfg: ArchConfig) -> None:
         "attention": bool(kinds & set(ATTN_KINDS)) and cfg.attention is None,
         "moe": "moe" in kinds and cfg.moe is None,
         "remat": cfg.remat not in ("full", "none"),
+        "input_mode": cfg.input_mode not in ("tokens", "embeds"),
+        "rope": att is not None and att.rope not in ROPES,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -247,6 +266,9 @@ class Transformer(nn.Module):
                 for w in (sub.attn.wq, sub.attn.wk, sub.attn.wv):
                     tn(w, d ** -0.5)
                 tn(sub.attn.wo, (att.n_heads * att.head_dim) ** -0.5)
+                if att.qk_norm:
+                    sub.attn.q_norm.fill_(1.0)
+                    sub.attn.k_norm.fill_(1.0)
             if sub.kind == "moe":  # the stds of the JAX package's init_moe
                 for w in (sub.moe.router, sub.moe.w_gate, sub.moe.w_up):
                     tn(w, d ** -0.5)
@@ -270,32 +292,40 @@ class Transformer(nn.Module):
             subs += list(self.tail.values())
         return subs
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor | None, embeds: torch.Tensor | None,
+               q_offset: torch.Tensor | int) -> torch.Tensor:
         cfg = self.cfg
-        if tokens.is_floating_point():
-            raise NotImplementedError(
-                "input_mode='embeds' (musicgen-large, qwen2-vl-2b) is not ported yet: ROADMAP A.2.1")
-        x = nn.functional.embedding(tokens, self.embed).to(cfg.param_dtype)
-        if cfg.tie_embeddings:  # gemma scaling
-            x = x * _constant(cfg.d_model ** 0.5, cfg.param_dtype, x.device)
+        if embeds is not None:  # embeds win over tokens, as in the JAX forward
+            x = embeds.to(cfg.param_dtype)
+        elif tokens is None:
+            raise ValueError("the forward needs token ids or embeds")
+        else:
+            x = nn.functional.embedding(tokens, self.embed).to(cfg.param_dtype)
+            if cfg.tie_embeddings:  # gemma scaling
+                x = x * _constant(cfg.d_model ** 0.5, cfg.param_dtype, x.device)
+        if cfg.attention is not None and cfg.attention.rope == "sinusoidal":
+            # the JAX rule: a traced (here: tensor) offset places the rows at 0
+            pos0 = q_offset if isinstance(q_offset, int) else 0
+            pe = sinusoidal_embedding(x.shape[1], cfg.d_model, pos0, x.device)
+            x = x + pe.to(x.dtype)[None]
         return x
 
-    def forward(self, tokens: torch.Tensor, caches: dict | None = None,
-                q_offset: torch.Tensor | int = 0, *, last_only: bool = False):
+    def forward(self, tokens: torch.Tensor | None = None, caches: dict | None = None,
+                q_offset: torch.Tensor | int = 0, *, last_only: bool = False,
+                embeds: torch.Tensor | None = None):
         """The serving forward (the JAX ``forward`` with ``caches``):
         ``(logits f32, new_caches, aux)``, ``hidden`` plus the head.
 
-        ``tokens`` (B, S) int start at absolute position ``q_offset`` (an int,
-        or a 0-d device tensor in a decode step); ``caches`` is an
-        ``init_caches`` tree, which every sublayer updates in place, so
-        ``new_caches`` is ``caches`` itself (None without caches).  A prefill
-        (S > 1) starts at 0; a decode step feeds one token per row.  With
-        ``last_only`` the head runs on the last row only (the prefill's
-        (B, 1, vocab) logits; the JAX prefill computes all rows and keeps
-        the last).  Float ``tokens`` (the JAX ``embeds`` input) raise
-        ``NotImplementedError``."""
+        ``tokens`` (B, S) int, or ``embeds`` (B, S, d) float, start at
+        absolute position ``q_offset`` (an int, or a 0-d device tensor in a
+        decode step); ``caches`` is an ``init_caches`` tree, which every
+        sublayer updates in place, so ``new_caches`` is ``caches`` itself
+        (None without caches).  A prefill (S > 1) starts at 0; a decode step
+        feeds one token per row.  With ``last_only`` the head runs on the
+        last row only (the prefill's (B, 1, vocab) logits; the JAX prefill
+        computes all rows and keeps the last)."""
         cfg = self.cfg
-        x, aux = self.hidden(tokens, caches, q_offset)
+        x, aux = self.hidden(tokens, caches, q_offset, embeds=embeds)
         if last_only:
             x = x[:, -1:]
         head = self.embed.T.to(cfg.param_dtype) if cfg.tie_embeddings else self.head
@@ -311,18 +341,21 @@ class Transformer(nn.Module):
             out += [(("tail", key), sub) for key, sub in self.tail.items()]
         return out
 
-    def hidden(self, tokens: torch.Tensor, caches: dict | None = None,
-               q_offset: torch.Tensor | int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-        """Final-norm hidden states (B, S, d) of the token batch, and the
-        MoE aux summed over the layers (an f32 scalar, 0 without MoE).
-        With ``caches`` (serving, see ``forward``) every sublayer reads and
-        updates its cache in place; without them (training) each runs under
-        activation checkpointing when ``cfg.remat == 'full'`` and gradients
-        are on."""
+    def hidden(self, tokens: torch.Tensor | None = None, caches: dict | None = None,
+               q_offset: torch.Tensor | int = 0, *,
+               embeds: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Final-norm hidden states (B, S, d) of the token (or embeds) batch,
+        and the MoE aux summed over the layers (an f32 scalar, 0 without
+        MoE).  With ``caches`` (serving, see ``forward``) every sublayer
+        reads and updates its cache in place; without them (training) each
+        runs under activation checkpointing when ``cfg.remat == 'full'`` and
+        gradients are on."""
         cfg = self.cfg
-        x = self._embed(tokens)
-        B, S = tokens.shape
-        positions = (torch.arange(S, device=tokens.device) + q_offset)[None, :].expand(B, S)
+        x = self._embed(tokens, embeds, q_offset)
+        B, S = x.shape[:2]
+        positions = (torch.arange(S, device=x.device) + q_offset)[None, :].expand(B, S)
+        if cfg.attention is not None and cfg.attention.rope == "mrope":
+            positions = positions[None].expand(3, B, S)  # (t, h, w), equal for text
         remat = caches is None and cfg.remat == "full" and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for where, sub in self.named_sublayers():
@@ -336,8 +369,9 @@ class Transformer(nn.Module):
 
     def loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross-entropy plus ``MOE_AUX_COEF`` x the MoE aux
-        (the JAX package's ``loss_fn``)."""
-        x, aux = self.hidden(batch["tokens"])
+        (the JAX package's ``loss_fn``), over ``batch['tokens']`` or, when
+        the batch has no tokens, ``batch['embeds']``."""
+        x, aux = self.hidden(batch.get("tokens"), embeds=batch.get("embeds"))
         # tied: cast once per step, outside the checkpointed loss chunks
         head = self.embed.T.to(self.cfg.param_dtype) if self.cfg.tie_embeddings else self.head
         return ce_from_hidden(self.cfg, head, x, batch["targets"]) + MOE_AUX_COEF * aux

@@ -85,22 +85,35 @@ def make_unit_probes(cfg, model, batch: dict) -> dict[str, tuple[Callable, tuple
     ``tail`` (when the arch has one) and ``head``; ``fn(*args)`` returns
     the unit's parameter (and input) gradients.
     """
-    tokens, targets = batch["tokens"], batch["targets"]
+    targets = batch["targets"]
     B, S = targets.shape
     device = model.embed.device
     x = torch.ones((B, S, cfg.d_model), dtype=cfg.param_dtype, device=device, requires_grad=True)
     positions = torch.arange(S, device=device)[None, :].expand(B, S)
+    if cfg.attention is not None and cfg.attention.rope == "mrope":
+        positions = positions[None].expand(3, B, S)
     remat = cfg.remat == "full"
     embed = _leaf(model.embed)  # the embed probe's, and the tied head's, copy
 
-    def embed_fn(e):
-        with torch.enable_grad():
-            y = F.embedding(tokens, e).to(cfg.param_dtype)
-            if cfg.tie_embeddings:
-                y = y * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.param_dtype, device=device)
-            return torch.autograd.grad(y.float().sum(), (e,))
+    if cfg.input_mode == "embeds":
+        # no lookup backward in this mode: the unit's cost is the input cast, as in JAX
+        def embed_fn(e):
+            with torch.enable_grad():
+                return torch.autograd.grad(e.float().sum(), (e,))
 
-    probes: dict[str, tuple[Callable, tuple]] = {"embed": (embed_fn, (embed,))}
+        probes: dict[str, tuple[Callable, tuple]] = {
+            "embed": (embed_fn, (_leaf(batch["embeds"]),))}
+    else:
+        tokens = batch["tokens"]
+
+        def embed_fn(e):
+            with torch.enable_grad():
+                y = F.embedding(tokens, e).to(cfg.param_dtype)
+                if cfg.tie_embeddings:
+                    y = y * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.param_dtype, device=device)
+                return torch.autograd.grad(y.float().sum(), (e,))
+
+        probes = {"embed": (embed_fn, (embed,))}
 
     def stage_probe(subs):
         subs = copy.deepcopy(subs)  # detached copies; gradient hooks are not copied

@@ -45,6 +45,13 @@ steps run on the device (replays, eager steps, warm-ups, probes) and
 ``graph_replays`` the replays among them; what a replay ran is read from
 the device's own trace (``torch.profiler``), not from the counters.
 
+An embeds-input arch (MusicGen, Qwen2-VL) is served through its stub
+frontend, as in the JAX engine: token ids become rows of the model's own
+embedding table in f32, at admission and inside the decode step (a gather
+in the graph).  Its decode step passes the engine's clock as a device
+tensor, so MusicGen's sinusoid is added at position 0 every step, as the JAX
+engine's jitted step adds it (``models.transformer``; ROADMAP C).
+
 Sampling is greedy (``argmax``) unless ``sample`` is given: ``sample(logits)``
 or ``sample(logits, generator)``, the second drawing from an explicit
 ``torch.Generator`` that the engine seeds with ``sample_seed`` and
@@ -76,9 +83,6 @@ from ..runtime.timeline import StepTimer
 
 if TYPE_CHECKING:
     from ..planning.serve import ServePlan
-
-EMBEDS = "input_mode='embeds' (musicgen-large, qwen2-vl-2b) is not ported yet: ROADMAP A.2.1"
-
 
 @dataclasses.dataclass
 class Request:
@@ -196,8 +200,6 @@ class ServingEngine:
                  timer: ServeTimer | None = None, cuda_graph: bool | None = None):
         if mesh is not None:
             raise NotImplementedError(SHARDED_SERVING)
-        if getattr(cfg, "input_mode", "tokens") == "embeds":
-            raise NotImplementedError(EMBEDS)
         self.cfg, self.model = cfg, model
         self.slots, self.max_seq = slots, max_seq
         self.plan, self.timer = plan, timer
@@ -217,6 +219,7 @@ class ServingEngine:
             "active": torch.zeros(slots, dtype=torch.bool, device=dev),
             "budget": torch.zeros(slots, dtype=torch.int32, device=dev),
         }
+        self._embeds = cfg.input_mode == "embeds"
         self._sampled = torch.zeros(slots, dtype=torch.int32, device=dev)
         self._gen = torch.Generator(device=dev).manual_seed(sample_seed)
         self._admit_gen = torch.Generator(device=dev).manual_seed(sample_seed + 1)
@@ -242,7 +245,7 @@ class ServingEngine:
         active, row_pos, budget = state["active"], state["row_pos"], state["budget"]
         pos = torch.where(active, row_pos, 0).max()
         logits, _ = self._decode(self.model, state["caches"],
-                                 {"tokens": state["next_token"][:, None]}, pos)
+                                 self._step_input(state["next_token"][:, None]), pos)
         if self._keyed_sample:
             sampled = self.sample(logits, self._gen)
         else:
@@ -466,15 +469,24 @@ class ServingEngine:
         m = 1 << max(0, k - 1).bit_length()
         return min(m, self.slots)
 
+    def _step_input(self, ids: torch.Tensor) -> dict:
+        """The forward's input for token ids (B, S): the ids, or for an
+        embeds-input arch the stub frontend's embeddings, the model's own
+        table rows in f32 (the JAX engine's ``params['embed'][ids]``),
+        gathered on the device (inside the graph, in a decode step)."""
+        if self._embeds:
+            return {"embeds": self.model.embed[ids.long()].float()}
+        return {"tokens": ids}
+
     def _prefill_ids(self, ids: np.ndarray):
         self._prefill_lengths.add(len(ids))
         self.prefills += 1
         tokens = torch.as_tensor(np.asarray(ids)[None, :], dtype=torch.long, device=self.device)
         if self.timer is None:
-            return self._prefill(self.model, {"tokens": tokens})
+            return self._prefill(self.model, self._step_input(tokens))
         self._sync()
         t0 = time.perf_counter()
-        out = self._prefill(self.model, {"tokens": tokens})
+        out = self._prefill(self.model, self._step_input(tokens))
         self._sync()
         self.timer.prefill_times.append(time.perf_counter() - t0)
         return out

@@ -38,7 +38,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import bucketing
 from repro_torch.core.comm_model import AllReduceModel
 from repro_torch.core.sync import SyncConfig
-from repro_torch.core.trainer import MGWFBPEngine, batch_to_device, lm_unit_costs
+from repro_torch.core.trainer import MGWFBPEngine, batch_to_device, lm_unit_costs, unread_params
 from repro_torch.data import DataConfig, make_stream
 from repro_torch.fabric.ops import issue
 from repro_torch.kernels import flash_attention as fa
@@ -56,12 +56,18 @@ TOKENS = 2048
 POLICIES = ("wfbp", "mg_wfbp", "synceasgd")
 
 
-def cfgs(arch, dtype="f32", attn_impl="flash", **kw):
+def cfgs(arch, dtype="f32", attn_impl="flash", att=(), **kw):
     """(reference config, port config); ``attn_impl`` is the port's (the
-    reference model runs its jnp attention)."""
+    reference model runs its jnp attention); ``att`` holds (field, value)
+    pairs that replace fields of both configs' ``Attention`` (e.g.
+    ``(('qk_norm', True),)``)."""
     jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    return (jax_get_reduced(arch, param_dtype=jdt, **kw),
-            get_reduced(arch, param_dtype=tdt, attn_impl=attn_impl, **kw))
+    jcfg = jax_get_reduced(arch, param_dtype=jdt, **kw)
+    tcfg = get_reduced(arch, param_dtype=tdt, attn_impl=attn_impl, **kw)
+    if att:
+        jcfg = dataclasses.replace(jcfg, attention=dataclasses.replace(jcfg.attention, **dict(att)))
+        tcfg = dataclasses.replace(tcfg, attention=dataclasses.replace(tcfg.attention, **dict(att)))
+    return jcfg, tcfg
 
 
 def full_cfgs(arch):
@@ -73,7 +79,10 @@ def weights(jcfg, seed=0):
 
 
 def batch(cfg, batch=B, seq=S, step=0):
-    return make_stream(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)).batch_at(step)
+    """Step ``step``'s batch of the shared stream: tokens, or embeds for an
+    embeds-input arch (``cfg`` of either package)."""
+    return make_stream(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                                  input_mode=cfg.input_mode, d_model=cfg.d_model)).batch_at(step)
 
 
 def port_model(tcfg, np_params):
@@ -82,10 +91,10 @@ def port_model(tcfg, np_params):
     return model
 
 
-def check_bridge_round_trip(arch, dtype):
+def check_bridge_round_trip(arch, dtype, att=()):
     """``to_jax_params(from_jax_params(w))`` is ``w``, bit for bit, in the
     reference's tree structure and dtypes."""
-    jcfg, tcfg = cfgs(arch, dtype)
+    jcfg, tcfg = cfgs(arch, dtype, att=att)
     ref = weights(jcfg)
     back = to_jax_params(port_model(tcfg, ref))
     jl, jt = jax.tree_util.tree_flatten_with_path(ref)
@@ -98,8 +107,8 @@ def check_bridge_round_trip(arch, dtype):
 
 
 @functools.cache
-def _jax_loss_and_grads(arch):
-    jcfg, tcfg = cfgs(arch)
+def _jax_loss_and_grads(arch, att=()):
+    jcfg, tcfg = cfgs(arch, att=att)
     params = weights(jcfg)
     jbatch = {k: jnp.asarray(v) for k, v in batch(tcfg).items()}
     (jloss, metrics), jgrads = jax.value_and_grad(
@@ -109,16 +118,23 @@ def _jax_loss_and_grads(arch):
             from_jax_params(jax.tree.map(np.asarray, jgrads), tcfg))
 
 
-def check_loss_and_grads(arch, attn_impl):
+def check_loss_and_grads(arch, attn_impl, att=()):
     """The loss and every gradient leaf against ``jax.value_and_grad`` of
-    the reference ``loss_fn``."""
-    params, jloss, _, want = _jax_loss_and_grads(arch)
-    _, tcfg = cfgs(arch, attn_impl=attn_impl)
+    the reference ``loss_fn``.  A parameter the loss does not read
+    (``unread_params``: an untied embeds arch's ``embed``) has no gradient
+    in autograd and an exactly zero one in JAX; it is held as that zero."""
+    params, jloss, _, want = _jax_loss_and_grads(arch, att)
+    _, tcfg = cfgs(arch, attn_impl=attn_impl, att=att)
     model = port_model(tcfg, params)
     loss = model.loss(batch_to_device(batch(tcfg), torch.device("cpu")))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), jloss, rtol=LOSS_RTOL)
-    got = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    unread = unread_params(tcfg)
+    for n in unread:
+        assert model.get_parameter(n).grad is None
+        assert not np.any(want[n]), n
+    got = {n: (np.zeros_like(want[n]) if n in unread else p.grad.numpy())
+           for n, p in model.named_parameters()}
     assert set(got) == set(want)
     for n in want:
         scale = float(np.max(np.abs(want[n])))
@@ -203,6 +219,9 @@ def port_run(arch, issue_order, policy="mg_wfbp", opt="sgd", steps=3, lr=1e-3):
     counts = {"issue": issue.calls, "flash_fwd": fa.flash_attention_fwd.ref_calls,
               "flash_dq": fa.flash_attention_dq.ref_calls,
               "flash_dkv": fa.flash_attention_dkv.ref_calls}
+    if unread_params(cfg):  # the reduced gradient unpacked into .grad: exactly zero
+        counts["unread_grads_zero"] = {
+            n: bool(torch.all(model.get_parameter(n).grad == 0)) for n in unread_params(cfg)}
     step.close()
     params = {n: p.detach().clone() for n, p in model.named_parameters()}
     return eng, losses, params, counts
@@ -244,9 +263,12 @@ def check_three_steps(arch, opt, lr):
     if opt == "adamw":
         assert errs.max() <= 2 * lr * 3
         assert (errs > 1e-6).mean() <= 1e-4
+    for n in unread_params(eng.cfg):  # the zero gradient moved it by weight decay alone
+        assert counts["unread_grads_zero"][n]
     n_attn, groups = attn_layers(eng.cfg), len(eng.schedule.groups)
     # the flash forward twice per layer and step (checkpointing reruns it),
     # dQ and dK/dV once, all through the plain versions on the CPU
+    counts.pop("unread_grads_zero", None)
     assert counts == {"issue": 3 * groups, "flash_fwd": 3 * 2 * n_attn,
                       "flash_dq": 3 * n_attn, "flash_dkv": 3 * n_attn}
 
@@ -261,6 +283,7 @@ def check_post_equals_dag(arch, policy="wfbp"):
         assert torch.equal(p_post[n], p_dag[n]), n
     assert c_post == c_dag
     assert c_post["issue"] == 2 * len(eng.schedule.groups)
+    assert all(c_post.get("unread_grads_zero", {}).values())
     return eng
 
 
@@ -275,3 +298,133 @@ def check_launcher(arch):
               quiet=True)
     assert len(res.losses) == 2 and all(np.isfinite(res.losses))
     return res
+
+
+# ---------------------------------------------------------------------------
+# Serving: the decode steps and the engine against the JAX package's
+# ---------------------------------------------------------------------------
+
+LOGIT_REL = 1e-4  # tests/test_torch_serving.py's tolerance
+
+
+def close_logits(got, want, rel=LOGIT_REL):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * np.abs(want).max())
+
+
+def rel_diff(got, want) -> float:
+    """max |got - want| / max |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def serving_setup(arch, att=()):
+    """(reference config, port config, reference params, port model), f32,
+    the port's weights bridged from the reference's."""
+    jcfg, tcfg = cfgs(arch, att=att)
+    params = jax.tree.map(jnp.asarray, weights(jcfg))
+    return jcfg, tcfg, params, port_model(tcfg, weights(jcfg))
+
+
+def serve_inputs(cfg, batch_rows, seq, seed=5):
+    """The forward's input for ``seq`` positions of ``batch_rows`` rows from
+    the shared stream: ``{'embeds': ...}`` for an embeds arch, else
+    ``{'tokens': ...}`` (numpy)."""
+    b = batch(cfg, batch=batch_rows, seq=seq, step=seed)
+    return {k: v for k, v in b.items() if k != "targets"}
+
+
+def _slice(inputs, lo, hi):
+    return {k: v[:, lo:hi] for k, v in inputs.items()}
+
+
+def to_port(inputs):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        torch.float32 if k == "embeds" else torch.int64) for k, v in inputs.items()}
+
+
+def to_jax(inputs):
+    return {k: jnp.asarray(v) for k, v in inputs.items()}
+
+
+def serving_steps(arch, prompt, steps, *, jit: bool, tensor_pos: bool, att=()):
+    """``prompt`` positions prefilled, then ``steps`` decode steps fed the
+    stream's next inputs (teacher forcing), in both packages: the JAX steps
+    jitted or not (a traced or a Python ``pos``), the port's fed ``pos`` as a
+    0-d tensor or an int.  The port runs twice: with the bf16 prefill cache
+    that the JAX step keeps (held to the JAX step), and with an f32 one
+    (held to the full forward, which rounds no key to bf16).  Returns per
+    step (0 = the prefill's last row) the port's logits with the bf16 cache,
+    the JAX step's, the port's with the f32 cache and the port's full
+    forward's row at that position, all (B, vocab) numpy."""
+    from repro.launch.steps import make_decode_step as jax_make_decode_step
+    from repro.launch.steps import make_prefill_step as jax_make_prefill_step
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    jcfg, tcfg, params, model = serving_setup(arch, att)
+    inputs = serve_inputs(tcfg, 2, prompt + steps)
+    max_seq = prompt + steps + 1
+    jprefill = jax_make_prefill_step(jcfg, None, max_seq)
+    jdecode = jax_make_decode_step(jcfg, None)
+    if jit:
+        jprefill, jdecode = jax.jit(jprefill), jax.jit(jdecode)
+    jl, jcaches = jprefill(params, to_jax(_slice(inputs, 0, prompt)))
+    out = [[np.asarray(jl)]]
+    for i in range(steps):
+        pos = prompt + i
+        jl, jcaches = jdecode(params, jcaches, to_jax(_slice(inputs, pos, pos + 1)), pos)
+        out.append([np.asarray(jl)])
+    tdecode = make_decode_step(tcfg)
+    for cache_dtype in (torch.bfloat16, torch.float32):
+        tl, tcaches = make_prefill_step(tcfg, max_seq, cache_dtype)(
+            model, to_port(_slice(inputs, 0, prompt)))
+        got = [tl.numpy()]
+        for i in range(steps):
+            pos = prompt + i
+            tpos = torch.tensor(pos, dtype=torch.int32) if tensor_pos else pos
+            tl, tcaches = tdecode(model, tcaches, to_port(_slice(inputs, pos, pos + 1)), tpos)
+            got.append(tl.numpy())
+        for row, g in zip(out, got):
+            row.insert(0 if cache_dtype == torch.bfloat16 else 2, g)
+    with torch.inference_mode():
+        full = model(**to_port(inputs))[0].numpy()
+    for i, row in enumerate(out):
+        row.append(full[:, prompt - 1 + i])
+    return [tuple(row) for row in out]
+
+
+def _stream_requests(vocab, n=6, seed=3):
+    rng = np.random.default_rng(seed)
+    return [(rid, rng.integers(0, vocab, size=int(rng.choice([6, 10]))).astype(np.int32),
+             int(rng.integers(2, 7))) for rid in range(n)]
+
+
+def check_engine(arch, att=()):
+    """One stream through the JAX engine and the port's (reduced, f32, the
+    same weights; an embeds arch through both engines' stub frontends):
+    three requests, two steps, three more joining mid-flight; the same
+    greedy tokens for every request, one decode step built."""
+    from repro.serving import Request as JaxRequest
+    from repro.serving import ServingEngine as JaxServingEngine
+    from repro_torch.serving import Request, ServingEngine
+
+    jcfg, tcfg, params, model = serving_setup(arch, att)
+    stream = _stream_requests(jcfg.vocab)
+    jeng = JaxServingEngine(jcfg, params, slots=2, max_seq=32)
+    teng = ServingEngine(tcfg, model, slots=2, max_seq=32)
+    for rid, prompt, n in stream[:3]:
+        jeng.submit(JaxRequest(rid=rid, prompt=prompt, max_new_tokens=n))
+        teng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+    for eng in (jeng, teng):
+        eng.step()
+        eng.step()
+    for rid, prompt, n in stream[3:]:
+        jeng.submit(JaxRequest(rid=rid, prompt=prompt, max_new_tokens=n))
+        teng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+    want = {r.rid: r.generated for r in jeng.run_to_completion()}
+    got = {r.rid: r.generated for r in teng.run_to_completion()}
+    assert got == want
+    assert len(got) == len(stream)
+    assert teng.compile_stats()["decode"] == 1
+    return got

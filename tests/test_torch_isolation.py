@@ -58,7 +58,8 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.launch.serve", "repro_torch.planning.serve",
                 "repro_torch.serving", "repro_torch.serving.engine",
                 "repro_torch.serving.resilience", "repro_torch.serving.fleet",
-                "repro_torch.launch.serve_fleet"):
+                "repro_torch.launch.serve_fleet", "repro_torch.configs.musicgen_large",
+                "repro_torch.configs.qwen2_vl_2b"):
         assert mod in rec["modules"]
 
 

@@ -170,10 +170,18 @@ def test_plan_json_round_trips_across_packages(size, tmp_path):
 
 
 def test_other_archs_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("musicgen-large")
-    with pytest.raises(KeyError):
-        get_reduced("no-such-arch")
+    """Every arch of the JAX package builds, full and reduced; an unknown
+    name still raises ``KeyError``.  (The name is kept from when the
+    embeds-input archs raised.)"""
+    from repro_torch.configs import ARCH_NAMES
+
+    assert len(ARCH_NAMES) == 10
+    for name in ARCH_NAMES:
+        assert get_config(name).name == name
+        assert get_reduced(name).name == f"{name}-reduced"
+    for get in (get_config, get_reduced):
+        with pytest.raises(KeyError):
+            get("no-such-arch")
 
 
 def test_param_shapes_are_meta():

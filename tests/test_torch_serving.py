@@ -3,7 +3,8 @@ JAX package's, on reduced configs with f32 weights bridged by
 ``from_jax_params``.
 
 * ``make_prefill_step``'s last logits and caches, then 4
-  ``make_decode_step`` logits, for each of the eight ported archs: logits
+  ``make_decode_step`` logits, for each of the ten archs (token ids in
+  both packages; the embeds archs read them through their tables): logits
   within 1e-4 x max|logit| (the model tests' gradient tolerance; XLA and
   ATen sum f32 in other orders), f32 cache leaves within 1e-4 x the
   leaf's max, and bf16 cache leaves (the prefill's k/v, as the JAX step
@@ -396,18 +397,6 @@ def test_resilience_flags_run_the_loop(flag, tmp_path, monkeypatch):
         assert rep.snapshots == 1 + rep.steps // every
     if flag[0] == "--snapshot-dir":
         assert latest_snapshot(str(snap_dir)) is not None
-
-
-@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-2b"])
-def test_embeds_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2.1"):
-        serve_cli.run(["--arch", arch, "--reduced", "--device", "cpu"], quiet=True)
-    tcfg = get_reduced("tinyllama-1.1b", param_dtype=torch.float32)
-    model = Transformer(tcfg, device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2.1"):
-        make_prefill_step(tcfg, 16)(model, {"embeds": torch.zeros(1, 4, tcfg.d_model)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2.1"):
-        model(torch.zeros(1, 4, tcfg.d_model))
 
 
 def test_snapshot_and_mesh_raise():
