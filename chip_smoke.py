@@ -309,6 +309,38 @@ step could hide a kernel fault.
    against a single engine's: the engine's shared ``kpos`` row makes a
    row's tokens depend on its batch (ROADMAP C).
 
+8. Sharded serving (``ServingEngine(mesh=...)``, ``serving/sharded.py``) on
+   one NCCL world of one card (a ``("model",)`` ``DeviceMesh``; its store
+   under ``build/chip_smoke_pg``, removed at the end), random bf16 weights
+   from seed 0, greedy, the f32 arena.  First B3 at Mixtral's serve shape
+   (1, S, 32/8, hd 128, window 4096) at 8b's prefill lengths against its
+   plain version (phase 1b's checks), and B3's forward timed at 6a's and
+   8b's longest prefill beside its plain version, SDPA and its bound.
+   8a: TinyLlama-1.1B x 22, 6a's 8 slots / 1024 and 16 prompts x 128, plans
+   ``mg_wfbp`` and ``wfbp`` on ``gpu_nccl`` priced at ``{"model": 8}``
+   (the deployment it would run) and executed on the one-rank group: the
+   unsharded engine, then the sharded one captured (both plans) and eager
+   (``mg_wfbp``).  Held: every request's tokens equal the unsharded
+   engine's; one capture per engine; ``issue()`` = the plan's groups in the
+   capture's warm-up run and again in its recording, none from the replays,
+   the groups every eager step; B3 = 22 x 16 prefills a run, no other
+   kernel and no plain call; by name in the device trace no B3 in a replay.
+   Printed: the sharded and unsharded captured step ms side by side (what
+   the mirror wire costs at world 1) and what each replay's collectives
+   left in the trace, by name.  Then one coalesced all-reduce (the
+   variadic wire) on the group: one ``issue()``.  8c: ``launch.serve.run(
+   ... --sharded --measure-comm)`` at full depth, 6a's prompts x 32 (TP
+   clamped from 8 to 1): the clamp, the ``sharded TP=1``, measured-fit,
+   measured-fabric plan and per-group lines, tokens equal the unsharded
+   launcher's; then ``install_plan`` of 8a's ``wfbp`` plan on its engine and
+   a second round of the requests: a second capture, ``issue()`` = 2 x 22,
+   tokens equal the unsharded engine's second round (the shared ``kpos``
+   row carries over between rounds, ROADMAP C).  8b: Mixtral-8x7B at full
+   width, 8 of 32 layers (23.7 GB in bf16; all 32 need 93 GB), 4 slots /
+   1024, 8 requests of 71-445 prompt tokens x 32, ``wfbp`` on ``tpu_v5e``
+   (its groups all-to-alls): the unsharded and the sharded engine, both
+   captured, held as 8a's; printed as 8a's.
+
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
@@ -328,6 +360,8 @@ device trace of profiled replays).  Phase 7 adds rows of its own: B3 over
 7a's, 7a's sampled run's and 7c's runs (TinyLlama) and over 7b's
 (RecurrentGemma), B6 inside 7b's prefills and in its decode steps run in
 Python (with its replays), each timed as phase 6's row for the same shapes.
+Phase 8 adds two B3 rows: its prefills at TinyLlama's serve shape (8a's
+engines and 8c's launcher runs) and at Mixtral's (8b's), timed in phase 8.
 """
 
 from __future__ import annotations
@@ -2319,22 +2353,7 @@ def serve_kernel_checks(device):
                                    lambda: wk.wkv_ref(r, k, v, w, u, s0), None, nbytes,
                                    5 * elems * K, PEAK_FLOPS["tf32"] / 3)
     for _, key, shape in SERVE_ATTN:
-        B, S, Hq, Hkv, hd, _, window, _ = shape
-        q, kk, vv, _ = flash_inputs(B, S, S, Hq, Hkv, hd, torch.bfloat16, device, 90)
-        if window is None:
-            sdpa_opts = dict(is_causal=True)
-        else:
-            pos = torch.arange(S, device=device)
-            sdpa_opts = dict(attn_mask=(pos[:, None] >= pos[None, :])
-                             & (pos[:, None] - pos[None, :] < window))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, kk, vv))
-        nbytes, flops = flash_work(B, S, Hq, Hkv, hd, 2, window=window)["fwd"]
-        timings[key] = kernel_timing(
-            lambda: fa.flash_attention_fwd(q, kk, vv, window=window, return_lse=True),
-            lambda: fa.flash_attention_fwd_ref(q, kk, vv, window=window),
-            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
-                                                                     **sdpa_opts),
-            nbytes, flops, PEAK_FLOPS["bfloat16"])
+        timings[key] = time_serve_flash(shape, device)
     for key, where, lib_name in [("wkv", f"wkv_fwd {DECODE_WKV} bf16 r/k/v with s0", None)] + [
             (key, f"{tag}'s flash fwd {shape[:5]}" + (f" window {shape[6]}" if shape[6] else "")
              + " bf16", "SDPA") for tag, key, shape in SERVE_ATTN]:
@@ -2346,6 +2365,31 @@ def serve_kernel_checks(device):
     reset_all_counts()
     torch.cuda.empty_cache()
     return errs, timings
+
+
+def time_serve_flash(shape, device) -> dict:
+    """B3's forward in serving mode (a prefill's, no autograd) at one
+    layer's ``shape``, timed beside its plain version, SDPA (masked for a
+    window) and its bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, Hq, Hkv, hd, _, window, _ = shape
+    q, kk, vv, _ = flash_inputs(B, S, S, Hq, Hkv, hd, torch.bfloat16, device, 90)
+    if window is None:
+        sdpa_opts = dict(is_causal=True)
+    else:
+        pos = torch.arange(S, device=device)
+        sdpa_opts = dict(attn_mask=(pos[:, None] >= pos[None, :])
+                         & (pos[:, None] - pos[None, :] < window))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kk, vv))
+    nbytes, flops = flash_work(B, S, Hq, Hkv, hd, 2, window=window)["fwd"]
+    return kernel_timing(
+        lambda: fa.flash_attention_fwd(q, kk, vv, window=window, return_lse=True),
+        lambda: fa.flash_attention_fwd_ref(q, kk, vv, window=window),
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                                 **sdpa_opts),
+        nbytes, flops, PEAK_FLOPS["bfloat16"])
 
 
 def kernel_timing(kern, plain, library, nbytes, flops, peak) -> dict:
@@ -2422,8 +2466,12 @@ def decode_profile(engine, steps: int = 10) -> dict:
         by_class[c] = by_class.get(c, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     named = {key: sum(any(n in e.name for n in names) for e in events) / steps
              for key, names in TRACE_NAMES.items()}
+    names: dict = {}  # every device record a step, by name (phase 8 compares two steps')
+    for e in events:
+        names[e.name] = names.get(e.name, 0) + 1
     return {"wall_ms": wall, "busy_ms": busy, "idle": 1.0 - busy / wall if events else None,
             "kernels": len(events) / steps, "named": named,
+            "names": {n: c / steps for n, c in names.items()},
             "classes": {c: round(ms / steps, 4)
                         for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1])}}
 
@@ -3251,6 +3299,343 @@ def phase_resilience(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: sharded serving on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+P8_STORE = ROOT / "build" / "chip_smoke_pg"  # the NCCL world's FileStore, removed at the end
+P8_AXES = {"model": 8}  # 8a prices its plans at the TP deployment it would run
+P8B_LAYERS = 8  # Mixtral-8x7B at full width: 8 of 32 layers (23.7 GB bf16; 32 need 93 GB)
+P8B_LENS = serve_lens(8, 64, 512)
+P8B_TOKENS = 32
+#: Mixtral's attention in 8b's longest prefill, one layer: (1, S, 32/8, hd 128), window 4096
+MX_SERVE_ATTN = (1, max(P8B_LENS), 32, 8, 128, True, 4096, None)
+P8C_TOKENS = 32
+
+
+def short_name(name: str) -> str:
+    """A device record's name without its return type, namespaces, template
+    arguments and parameters: ``indexSelectSmallIndex``, ``Memcpy DtoD``."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    cut = min((i for i in (name.find("<"), name.find("(")) if i > 0), default=len(name))
+    return name[:cut].rsplit("::", 1)[-1].strip()
+
+
+def wire_records(sharded: dict, unsharded: dict) -> dict:
+    """What the sharded step adds to a step's device trace: each record
+    (by ``short_name``) whose count a step differs from the unsharded
+    step's, with the difference (the wire's kernels and copies, whatever
+    NCCL names them)."""
+    diff: dict = {}
+    for names, sign in ((sharded["names"], 1), (unsharded["names"], -1)):
+        for n, c in names.items():
+            diff[short_name(n)] = diff.get(short_name(n), 0) + sign * c
+    return {n: round(d, 2) for n, d in sorted(diff.items()) if round(d, 2)}
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A one-rank NCCL world on a FileStore under ``build/`` and its
+    ``("model",)`` mesh, torn down after."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    shutil.rmtree(P8_STORE, ignore_errors=True)
+    P8_STORE.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(P8_STORE / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1,), ("model",), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(P8_STORE, ignore_errors=True)
+
+
+def serve_requests(arch, lens, tokens, vocab):
+    """The launcher's requests for these prompt lengths (seed 0)."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(["--arch", arch, "--requests", str(len(lens)),
+                             "--prompt-lens", ",".join(map(str, lens)), "--tokens", str(tokens)])
+    return serve.make_requests(args, vocab)
+
+
+def sharded_run(cfg, model, slots, max_seq, reqs, plan, mesh, graph) -> dict:
+    """One engine (sharded with ``mesh``, else unsharded) over ``reqs``: the
+    tokens, the ``issue()`` calls of its warm-up (with a graph: the capture's
+    warm-up run and its recording) and of its run, the kernel counts, the
+    decode step's median ms and the engine."""
+    import torch
+    from repro_torch.fabric.ops import issue
+    from repro_torch.serving import Request, ServeTimer, ServingEngine
+
+    timer = ServeTimer()
+    eng = ServingEngine(cfg, model, slots=slots, max_seq=max_seq, plan=plan, mesh=mesh,
+                        timer=timer, cuda_graph=graph)
+    reset_all_counts()
+    issue.calls = 0
+    eng.warmup()
+    warm = issue.calls
+    for r in reqs:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
+    t0 = time.perf_counter()
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {"engine": eng, "tokens": {r.rid: r.generated for r in done}, "warm_calls": warm,
+            "run_calls": issue.calls - warm, "counts": serve_counts(cfg),
+            "step_ms": timer.median() * 1e3, "tok_s": sum(len(r.generated) for r in done) / secs}
+
+
+def check_sharded(tag, cfg, run, base, groups, n_prefills, graph) -> None:
+    """The gates of a sharded run: the unsharded run's tokens; with a graph
+    one capture, the plan's groups through ``issue()`` in the capture's
+    warm-up and again in its recording, none from the replays; eager, the
+    groups every step; B3 = attention layers x prefills and no other
+    kernel or plain call."""
+    eng = run["engine"]
+    if run["tokens"] != base["tokens"]:
+        bad = [rid for rid in base["tokens"] if run["tokens"].get(rid) != base["tokens"][rid]]
+        fail(f"{tag}: sharded tokens differ from the unsharded engine's for requests {bad}")
+    if graph:
+        calls = (run["warm_calls"], run["run_calls"], eng.graph_captures)
+        if calls != (2 * groups, 0, 1):
+            fail(f"{tag}: issue() calls (warm-up + recording, replays) and captures {calls}, "
+                 f"want ({2 * groups}, 0, 1)")
+    else:
+        want = (groups, groups * (eng.decode_launches - 1))
+        if (run["warm_calls"], run["run_calls"]) != want:
+            fail(f"{tag}: eager issue() calls (warm-up, run) "
+                 f"{(run['warm_calls'], run['run_calls'])}, want {want}")
+    attn, _, _ = layer_counts(cfg)
+    want = {"flash_fwd": attn * n_prefills, "rglru_fwd": 0, "wkv_fwd": 0, "plain": 0, "other": 0}
+    if run["counts"] != want:
+        fail(f"{tag}: kernel counts {run['counts']}, want {want}")
+
+
+def phase_sharded_tinyllama(device, mesh) -> dict:
+    """8a: TinyLlama-1.1B x 22 under ``mg_wfbp`` and ``wfbp`` serve plans
+    (``gpu_nccl`` at ``{"model": 8}``), executed on the one-rank group,
+    captured and eager, against the unsharded engine on the same model."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fabric.ops import issue
+    from repro_torch.models import Transformer, param_shapes
+    from repro_torch.planning import build_serve_plan
+
+    t0 = time.perf_counter()
+    _, arch, slots, max_seq, lens, tokens = SERVE_CELLS[0]  # 6a's
+    cfg = get_config(arch)
+    model = Transformer(cfg, device=device, seed=0)
+    reqs = serve_requests(arch, lens, tokens, cfg.vocab)
+    plans = {pol: build_serve_plan(cfg, param_shapes(cfg), "gpu_nccl", P8_AXES, batch_rows=slots,
+                                   policy=pol, cache_dtype_bytes=4, act_dtype_bytes=4)
+             for pol in ("mg_wfbp", "wfbp")}
+    base = sharded_run(cfg, model, slots, max_seq, reqs, plans["mg_wfbp"], None, True)
+    b3 = base["counts"]["flash_fwd"]
+    runs = {}
+    for pol, graph in (("mg_wfbp", True), ("mg_wfbp", False), ("wfbp", True)):
+        run = sharded_run(cfg, model, slots, max_seq, reqs, plans[pol], mesh, graph)
+        check_sharded(f"phase 8a {pol} {'captured' if graph else 'eager'}", cfg, run, base,
+                      len(plans[pol].schedule.groups), len(reqs), graph)
+        b3 += run["counts"]["flash_fwd"]
+        runs[(pol, graph)] = run
+    prof = {key: decode_profile(runs[key]["engine"]) for key in (("mg_wfbp", True),
+                                                                 ("wfbp", True))}
+    prof["unsharded"] = decode_profile(base["engine"])
+    for key, p in prof.items():
+        check_step_kernels(f"phase 8a {key}", cfg, p)
+    # the variadic wire's coalesced all-reduce on the same NCCL group
+    a = torch.arange(7, dtype=torch.float32, device=device)
+    b = torch.ones(5, dtype=torch.float32, device=device)
+    before = issue.calls
+    issue("all_reduce", [a, b], mesh.get_group("model"))
+    torch.cuda.synchronize()
+    if issue.calls - before != 1 or not (torch.equal(a.cpu(), torch.arange(7.0))
+                                         and bool((b == 1).all())):
+        fail("phase 8a: the coalesced all-reduce on the one-rank NCCL group is not one issue() "
+             "leaving its tensors as they were")
+    say(f"phase 8a: {arch} x {cfg.n_layers} bf16, {slots} slots / max_seq {max_seq}, "
+        f"{len(reqs)} requests (6a's prompts) x {tokens} tokens, greedy, on a one-rank NCCL "
+        f"group: plans priced at {P8_AXES} on gpu_nccl, mg_wfbp {len(plans['mg_wfbp'].schedule.groups)} "
+        f"group(s), wfbp {len(plans['wfbp'].schedule.groups)}; sharded tokens (captured and "
+        f"eager) == the unsharded engine's for every request; one capture per engine; issue() "
+        f"= groups in the capture's warm-up and again in its recording, none in the replays, "
+        f"groups every eager step; B3 = 22 x 16 prefills a run, none in a replay (device trace), "
+        f"no plain call; the coalesced all-reduce one issue()")
+    say(f"phase 8a: decode step ms (median, captured): unsharded {base['step_ms']:.3f}, sharded "
+        f"mg_wfbp {runs[('mg_wfbp', True)]['step_ms']:.3f}, sharded wfbp "
+        f"{runs[('wfbp', True)]['step_ms']:.3f}; sharded mg_wfbp eager "
+        f"{runs[('mg_wfbp', False)]['step_ms']:.3f}; tokens/s unsharded {base['tok_s']:.1f}, "
+        f"mg_wfbp {runs[('mg_wfbp', True)]['tok_s']:.1f}, wfbp {runs[('wfbp', True)]['tok_s']:.1f}")
+    for key, p in prof.items():
+        name = key if isinstance(key, str) else f"sharded {key[0]}"
+        added = "" if isinstance(key, str) else (
+            f"; records a step beyond the unsharded step's, by name: "
+            f"{wire_records(p, prof['unsharded'])}")
+        say(f"phase 8a: {name} captured step under torch.profiler: {p['wall_ms']:.3f} ms wall, "
+            f"{p['busy_ms']:.3f} ms device busy, {p['kernels']:.0f} device records a step"
+            f"{added}; device ms by class {p['classes']}")
+    out = {"b3": b3, "base_tokens": base["tokens"], "model": model, "cfg": cfg, "reqs": reqs,
+           "plans": plans, "step_ms": {"unsharded": base["step_ms"],
+                                       **{f"{k[0]}|{k[1]}": r["step_ms"] for k, r in runs.items()}}}
+    del base, runs
+    say(f"phase 8a: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_sharded_mixtral(device, mesh) -> dict:
+    """8b: Mixtral-8x7B at full width, 8 of 32 layers, under a ``wfbp`` /
+    ``tpu_v5e`` serve plan (its groups all-to-alls), captured, against the
+    unsharded engine on the same model."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, param_shapes
+    from repro_torch.planning import build_serve_plan
+
+    t0 = time.perf_counter()
+    arch, slots, max_seq = "mixtral-8x7b", 4, 1024
+    cfg = get_config(arch, n_layers=P8B_LAYERS)
+    model = Transformer(cfg, device=device, seed=0)
+    reqs = serve_requests(arch, P8B_LENS, P8B_TOKENS, cfg.vocab)
+    plan = build_serve_plan(cfg, param_shapes(cfg), "tpu_v5e", P8_AXES, batch_rows=slots,
+                            policy="wfbp", cache_dtype_bytes=4, act_dtype_bytes=4)
+    if plan.op != "all_to_all":
+        fail(f"phase 8b: Mixtral's serve plan issues {plan.op}, want all_to_all")
+    base = sharded_run(cfg, model, slots, max_seq, reqs, plan, None, True)
+    run = sharded_run(cfg, model, slots, max_seq, reqs, plan, mesh, True)
+    groups = len(plan.schedule.groups)
+    check_sharded("phase 8b", cfg, run, base, groups, len(reqs), True)
+    prof = decode_profile(run["engine"], steps=5)
+    base_prof = decode_profile(base["engine"], steps=5)
+    for p in (prof, base_prof):
+        check_step_kernels("phase 8b", cfg, p)
+    params = sum(p.numel() for p in model.parameters())
+    say(f"phase 8b: {arch} x {cfg.n_layers} of 32 at full width ({params / 1e9:.2f} B params "
+        f"bf16), {slots} slots / max_seq {max_seq}, {len(reqs)} requests (prompts "
+        f"{min(P8B_LENS)}-{max(P8B_LENS)}) x {P8B_TOKENS}, wfbp on tpu_v5e at {P8_AXES}: "
+        f"{groups} all_to_all groups; sharded captured tokens == unsharded for every request; "
+        f"one capture; issue() = {groups} in the capture's warm-up and again in its recording, "
+        f"none in the replays; B3 = {cfg.n_layers} x {len(reqs)} prefills, no plain call")
+    say(f"phase 8b: decode step ms (median, captured): unsharded {base['step_ms']:.3f}, sharded "
+        f"{run['step_ms']:.3f}; under torch.profiler sharded {prof['wall_ms']:.3f} ms wall, "
+        f"{prof['busy_ms']:.3f} device busy ({prof['kernels']:.0f} records), unsharded "
+        f"{base_prof['wall_ms']:.3f} / {base_prof['busy_ms']:.3f} ({base_prof['kernels']:.0f}); "
+        f"records a step beyond the unsharded step's, by name: "
+        f"{wire_records(prof, base_prof)}; device ms by class (sharded) {prof['classes']}")
+    b3 = base["counts"]["flash_fwd"] + run["counts"]["flash_fwd"]
+    del base, run, model
+    torch.cuda.empty_cache()
+    say(f"phase 8b: {time.perf_counter() - t0:.1f} s")
+    return {"b3": b3}
+
+
+def phase_sharded_launcher(device, p8a) -> dict:
+    """8c: ``launch.serve.run(... --sharded --measure-comm)`` on the group
+    (TP clamped to 1), then one ``install_plan`` to the ``wfbp`` plan on its
+    engine: a second capture, the same tokens."""
+    import contextlib as ctx
+    import io
+
+    from repro_torch.fabric.ops import issue
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request
+
+    t0 = time.perf_counter()
+    _, arch, slots, max_seq, lens, _ = SERVE_CELLS[0]
+    cfg, model = p8a["cfg"], p8a["model"]
+    args = ["--arch", arch, "--slots", str(slots), "--requests", str(len(lens)),
+            "--prompt-lens", ",".join(map(str, lens)), "--tokens", str(P8C_TOKENS),
+            "--max-seq", str(max_seq), "--fabric", "gpu_nccl", "--device", str(device)]
+    # the unsharded launcher first, then a second round of the same requests on its engine:
+    # the engine's shared kpos row carries over (ROADMAP C), so the sharded engine's second
+    # round after install_plan is held to this engine's second round
+    reset_all_counts()
+    plain = serve.run(args, model=model, quiet=True)
+    plain_eng = plain.engine
+    for r in p8a["reqs"]:
+        plain_eng.submit(Request(rid=1000 + r.rid, prompt=r.prompt, max_new_tokens=P8C_TOKENS))
+    plain_eng.run_to_completion()
+    want = {r.rid: r.generated for r in plain.completed if r.rid < 1000}
+    want2 = {r.rid - 1000: r.generated for r in plain_eng.completed if r.rid >= 1000}
+    del plain, plain_eng
+    buf = io.StringIO()
+    with ctx.redirect_stdout(buf):
+        res = serve.run(args + ["--sharded", "--measure-comm"], model=model)
+    out = buf.getvalue()
+    got = {r.rid: r.generated for r in res.completed}
+    groups = len(res.plan.schedule.groups)
+    for line in ("only 1 devices visible; clamping TP 8 -> 1", "sharded TP=1",
+                 "measured fit all_gather@model: a=", "measured-fabric plan:",
+                 "per-group predicted vs measured:"):
+        if line not in out:
+            fail(f"phase 8c: the launcher printed no '{line}' line:\n{out}")
+    if out.count(" meas=") != groups or got != want or res.engine.graph_captures != 1:
+        fail(f"phase 8c: {out.count(' meas=')} measured groups of {groups}, tokens equal "
+             f"{got == want}, {res.engine.graph_captures} captures")
+    eng = res.engine
+    wfbp = p8a["plans"]["wfbp"]
+    eng.install_plan(wfbp)
+    issue.calls = 0
+    for r in p8a["reqs"]:
+        eng.submit(Request(rid=1000 + r.rid, prompt=r.prompt, max_new_tokens=P8C_TOKENS))
+    eng.run_to_completion()
+    again = {r.rid - 1000: r.generated for r in eng.completed if r.rid >= 1000}
+    b3 = serve_counts(cfg)["flash_fwd"]
+    if again != want2 or eng.graph_captures != 2 \
+            or issue.calls != 2 * len(wfbp.schedule.groups):
+        fail(f"phase 8c: after install_plan(wfbp): tokens equal {again == want2}, "
+             f"{eng.graph_captures} captures (want 2), {issue.calls} issue() calls (want "
+             f"{2 * len(wfbp.schedule.groups)}: the new capture's warm-up and recording)")
+    fit = [ln for ln in out.splitlines() if "measured fit" in ln][0]
+    table = [ln.strip() for ln in out.splitlines() if " meas=" in ln or "step: fixed" in ln]
+    mplan = [ln for ln in out.splitlines() if "measured-fabric plan" in ln][0]
+    say(f"phase 8c: launch.serve.run --sharded --measure-comm at TP 1 (clamped from 8): "
+        f"{fit.split('[serve] ')[-1]}; {mplan.split('[serve] ')[-1]}; per group: {table}")
+    say(f"phase 8c: {len(got)} requests x {P8C_TOKENS} tokens equal the unsharded launcher's; "
+        f"install_plan(wfbp, {len(wfbp.schedule.groups)} groups) captured once more (2 "
+        f"captures), {issue.calls} issue() calls (warm-up + recording); a second round of the "
+        f"requests equals the unsharded engine's second round")
+    say(f"phase 8c: {time.perf_counter() - t0:.1f} s")
+    return {"b3": b3}
+
+
+def phase_sharded(device):
+    """Phase 8: 8a, 8b, 8c on one NCCL world of one card; B3 at 8a's and
+    8b's prefill shapes against its plain version and timed."""
+    import torch
+
+    t0 = time.perf_counter()
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    rel: dict = {}
+    for S in sorted(set(P8B_LENS)):
+        check_flash_case((1, S) + MX_SERVE_ATTN[2:], torch.bfloat16, device, 80 + S, errs, rel=rel)
+    timing = {"tinyllama": time_serve_flash(TL_SERVE_ATTN, device),
+              "mixtral": time_serve_flash(MX_SERVE_ATTN, device)}
+    say(f"phase 8: flash fwd/dQ/dK-dV at Mixtral's serve shape {MX_SERVE_ATTN[2:7]} at 8b's "
+        f"{len(set(P8B_LENS))} prefill lengths (bf16: {fmt_rel(rel)}): within phase 1b's "
+        f"tolerances")
+    for key, shape in (("tinyllama", TL_SERVE_ATTN), ("mixtral", MX_SERVE_ATTN)):
+        t = timing[key]
+        say(f"phase 8: {key}'s flash fwd {shape[:5]}" + (f" window {shape[6]}" if shape[6] else "")
+            + f" bf16, one launch: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+            f"({t['bound_ms'] / t['ms'] * 100:.1f}% of bound)")
+    reset_all_counts()
+    with nccl_world() as mesh:
+        p8a = phase_sharded_tinyllama(device, mesh)
+        p8c = phase_sharded_launcher(device, p8a)
+        del p8a["model"]
+        torch.cuda.empty_cache()
+        p8b = phase_sharded_mixtral(device, mesh)
+    reset_all_counts()
+    say(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "timing": timing, "b3_tinyllama": p8a["b3"] + p8c["b3"],
+            "b3_mixtral": p8b["b3"], "step_ms": p8a["step_ms"]}
+
+
 def demangle(names: list[str]) -> list[str]:
     """Kernel names as ``name<template arguments>`` (c++filt, where the
     machine has it; else as ptxas gave them)."""
@@ -3350,6 +3735,8 @@ def main() -> None:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     serve_errs, serve_timings, serve_cells = phase_serve(device)
     p7 = phase_resilience(device)
+    took("phases 6-7")
+    p8 = phase_sharded(device)
     say(f"all phases, the build included: {time.perf_counter() - t_start:.1f} s")
 
     main_cfg = timings["float32"]  # the main path's wire
@@ -3527,6 +3914,21 @@ def main() -> None:
             "name": name, "kernel": kern, "route": "cuda", "source": RGLRU_SRC,
             "replaces": "src/repro/kernels/rglru/kernel.py:31", "launches": launches,
             **extra, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    # phase 8 (sharded serving on a one-rank NCCL group): B3 in every prefill of 8a's engines
+    # and 8c's launcher runs (TinyLlama's serve shape) and of 8b's (Mixtral's, window 4096),
+    # each checked and timed in phase 8 as phase 6's rows are
+    for name, key, launches, err in (
+            ("flash_attention.fwd[sharded serve tinyllama]", "tinyllama", p8["b3_tinyllama"],
+             serve_errs["flash"]),
+            ("flash_attention.fwd[sharded serve mixtral-8x7b]", "mixtral", p8["b3_mixtral"],
+             p8["errs"]["fwd"])):
+        t = p8["timing"][key]
+        kernels.append({
+            "name": name, "kernel": "flash_fwd_sm90", "route": "cuda", "source": FLASH_SM90_SRC,
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:40", "launches": launches,
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,8 +18,13 @@ DP axis).  Wire layouts:
                unpacked (decompress and ``1/world`` scale fused) straight
                into the gradient tensors.
 
-``variadic`` (one collective over a tuple of tensors) has no
-``torch.distributed`` counterpart yet and raises.
+  ``variadic`` — each group's leaves cast to the wire dtype (a view when
+               they have it already) and summed in **one coalesced
+               all-reduce** over the list (the JAX tuple ``psum``), which
+               counts as one ``issue()``; no arena and no concatenation,
+               then cast back and divided by the world size.  A coalesced
+               call runs on gloo and NCCL (``dist._coalescing_manager``,
+               the other way to batch collectives, does not run on gloo).
 
 A group's reduction is split in two, so that a caller that knows when
 the group's last gradient lands can start it then and finish it later:
@@ -64,7 +69,7 @@ class SyncConfig:
     comm_dtype  : dtype gradients are cast to on the wire.
     average     : divide by the DP world size after summing.
     compression : None | 'bf16' | 'bf16_ef' (arena only).
-    fuse        : 'concat' | 'arena' ('variadic' is not ported).
+    fuse        : 'concat' | 'variadic' | 'arena'.
     """
 
     comm_dtype: torch.dtype = torch.float32
@@ -84,7 +89,8 @@ class PendingGroup:
     """One group whose all-reduce has been issued but not unpacked."""
 
     gi: int
-    buffer: torch.Tensor  # the arena / concat buffer, reduced in place
+    buffer: torch.Tensor | list[torch.Tensor]  # the arena / concat buffer or the
+    # variadic list of wire tensors, reduced in place
     work: object | None  # async work handle, None when issued blocking
     grads: list[torch.Tensor]
 
@@ -99,9 +105,7 @@ class GradientSync:
         config: SyncConfig = SyncConfig(),
         group: dist.ProcessGroup | None = None,
     ):
-        if config.fuse == "variadic":
-            raise NotImplementedError("fuse='variadic' has no torch.distributed counterpart yet")
-        if config.fuse not in ("concat", "arena"):
+        if config.fuse not in ("concat", "variadic", "arena"):
             raise ValueError(f"unknown fuse mode {config.fuse!r}")
         if config.compression not in (None, "bf16", "bf16_ef"):
             raise ValueError(f"unknown compression {config.compression!r}")
@@ -150,6 +154,8 @@ class GradientSync:
                 parts, offsets, sum(p.numel() for p in parts), wire,
                 residuals=[residual[n] for n in names] if self.stateful else None,
             )
+        elif self.config.fuse == "variadic":
+            buf = [p.to(wire) for p in parts]
         else:
             buf = torch.cat([p.reshape(-1).to(wire) for p in parts])
         if recorder is not None:
@@ -171,13 +177,18 @@ class GradientSync:
             scale = (1.0 / world) if self.config.average else 1.0
             unpack_arena(red, _offsets(parts), parts, scale)
             return
-        off = 0
-        for p in parts:
-            r = red[off : off + p.numel()].view(p.shape).to(p.dtype)
+        if self.config.fuse == "variadic":
+            reduced = red
+        else:
+            reduced, off = [], 0
+            for p in parts:
+                reduced.append(red[off : off + p.numel()].view(p.shape))
+                off += p.numel()
+        for p, r in zip(parts, reduced):
+            r = r.to(p.dtype)
             if self.config.average:
                 r = (r.float() / world).to(p.dtype)
             p.copy_(r)
-            off += p.numel()
 
     def sync_group(self, gi: int, grads: Tensors, residual: Tensors | None = None, *,
                    recorder=None) -> None:
@@ -211,7 +222,7 @@ def make_gradient_sync(
 
 def count_expected_allreduces(schedule: Schedule, config: SyncConfig = SyncConfig()) -> int:
     """Gradient all-reduces one sync issues: one per schedule group for
-    both ported layouts."""
-    if config.fuse not in ("concat", "arena"):
-        raise NotImplementedError(f"fuse={config.fuse!r} is not ported")
+    every layout (``variadic``'s is one coalesced call)."""
+    if config.fuse not in ("concat", "variadic", "arena"):
+        raise ValueError(f"unknown fuse mode {config.fuse!r}")
     return len(schedule.groups)

@@ -36,8 +36,21 @@ chaos=ChaosConfig(...))`` gives the whole chaos schedule (``kill_at``,
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --reduced --device cpu --chaos-kill-every 3
 
-Not ported yet, and raising ``NotImplementedError`` when given:
-``--sharded`` and ``--measure-comm`` (sharded serving, ROADMAP A.3.1).
+``--sharded`` executes the plan: the engine's decode step runs on a
+``("model",)`` ``DeviceMesh`` of ``min(--virtual-tp, world size)`` ranks
+(``serving.sharded``: one collective per scheduled serve group), and the
+plan is priced at that TP size.  ``--measure-comm`` times the real
+collectives on the same mesh, fits an op-specific (α, β) into a
+``MeasuredFabric`` (``'all_gather@model'``-style keys), prints the plan it
+gives, times each scheduled group at its wire bytes and prints the
+predicted-against-measured table.  The process group is the torchrun
+world when its environment is set, else a world of one that the launcher
+makes (``gloo`` on the CPU, ``nccl`` on the card) and tears down at the
+end; a group the caller started is used and kept.  The mesh spans the
+world, and every rank serves the same requests (mirror-compute).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --reduced --device cpu --virtual-tp 4 --sharded --measure-comm
 """
 
 from __future__ import annotations
@@ -50,13 +63,20 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import ARCH_NAMES, get_config, get_reduced
 from ..devices import resolve_device
-from ..fabric import available_fabrics
+from ..fabric import MeasuredFabric, available_fabrics
 from ..models import Transformer, param_shapes
-from ..planning import ServePlan, available_policies, build_serve_plan
-from ..planning.serve import SHARDED_SERVING
+from ..planning import (
+    ServePlan,
+    available_policies,
+    build_serve_plan,
+    group_comparison_lines,
+    serve_fabric_fits,
+    time_serve_groups,
+)
 from ..runtime import StragglerMonitor
 from ..serving import (
     ChaosConfig,
@@ -68,6 +88,7 @@ from ..serving import (
     gumbel_sampler,
     resilient_serve_loop,
 )
+from .mesh import ProcessWorld, make_mesh
 
 #: The resilience flags and the values they take when another one is given
 #: (the JAX launcher's defaults).
@@ -99,12 +120,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--policy", default="mg_wfbp", choices=list(available_policies()),
                     help="scheduler policy for the serve plan")
     ap.add_argument("--virtual-tp", type=int, default=8,
-                    help="TP size of the serve-plan collective model")
+                    help="TP size of the serve-plan collective model (and of the mesh "
+                         "under --sharded / --measure-comm, clamped to the world size)")
     ap.add_argument("--plan-out", default=None, help="write the ServePlan JSON here")
     ap.add_argument("--sharded", action="store_true",
-                    help="not ported yet (ROADMAP A.3.1): sharded TP decode")
+                    help="execute the plan: sharded decode on a TP mesh, one collective "
+                         "per serve group")
     ap.add_argument("--measure-comm", action="store_true",
-                    help="not ported yet (ROADMAP A.3.1): timed serve collectives")
+                    help="time the real per-group collectives, fit a MeasuredFabric, and "
+                         "print predicted against measured (on --sharded's mesh)")
     # resilience: any of these routes the run through resilient_serve_loop
     for flag, kind, what in (
             ("--chaos-kill-every", int, "inject a kill every N serve steps (0 = off); the "
@@ -170,8 +194,6 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
     ``chaos`` replaces the schedule the ``--chaos-*`` flags would build and
     routes the run through the resilient loop."""
     args = parse_args(argv)
-    if args.sharded or args.measure_comm:
-        raise NotImplementedError(SHARDED_SERVING)
     resilient = chaos is not None or any(getattr(args, n) is not None
                                          for n in RESILIENT_DEFAULTS)
     for name, default in RESILIENT_DEFAULTS.items():
@@ -179,22 +201,52 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
             setattr(args, name, default)
     say = (lambda msg: None) if quiet else (lambda msg: print(f"[serve] {msg}", flush=True))
     device = resolve_device(args.device)
+    if not (args.sharded or args.measure_comm):
+        return _serve(args, device, say, resilient, model, cuda_graph, chaos)
+    world = ProcessWorld(device)
+    try:
+        return _serve(args, device, say, resilient, model, cuda_graph, chaos)
+    finally:
+        world.close()
+
+
+def _tp_mesh(args: argparse.Namespace, device: torch.device, say):
+    """The ``("model",)`` mesh of ``--sharded`` / ``--measure-comm`` over
+    the whole world and its TP size, ``min(--virtual-tp, world size)``."""
+    world = dist.get_world_size()
+    tp = min(args.virtual_tp, world)
+    if tp < args.virtual_tp:
+        say(f"only {world} devices visible; clamping TP {args.virtual_tp} -> {tp}")
+    if tp != world:
+        raise ValueError(f"--virtual-tp {tp} on a world of {world} ranks: the TP mesh spans "
+                         f"the world")
+    return make_mesh((tp,), ("model",), device_type=device.type), tp
+
+
+def _serve(args: argparse.Namespace, device: torch.device, say, resilient: bool,
+           model: Transformer | None, cuda_graph: bool | None,
+           chaos: ChaosConfig | None) -> ServeResult:
     cfg = (get_reduced(args.arch, param_dtype=torch.float32) if args.reduced
            else get_config(args.arch))
     if model is None:
         model = Transformer(cfg, device=device, seed=0)
     max_seq = args.max_seq or max(_prompt_lens(args)) + args.tokens + 1
+    mesh, tp = None, args.virtual_tp
+    if args.sharded or args.measure_comm:
+        mesh, tp = _tp_mesh(args, device, say)
 
     # the engine's decode caches are f32, so the wire would ship 4-byte
     # elements: price the plan at what the step ships
-    plan = build_serve_plan(cfg, param_shapes(cfg), args.fabric, {"model": args.virtual_tp},
+    plan = build_serve_plan(cfg, param_shapes(cfg), args.fabric, {"model": tp},
                             batch_rows=args.slots, policy=args.policy,
                             cache_dtype_bytes=4, act_dtype_bytes=4)
+    engine_mesh = mesh if args.sharded else None
     say(plan.describe())
     sample = gumbel_sampler(args.temperature) if args.temperature > 0 else None
     timer = ServeTimer()
     engine = ServingEngine(cfg, model, slots=args.slots, max_seq=max_seq, sample=sample,
-                           sample_seed=2, plan=plan, timer=timer, cuda_graph=cuda_graph)
+                           sample_seed=2, plan=plan, mesh=engine_mesh, timer=timer,
+                           cuda_graph=cuda_graph)
     engine.warmup()  # build (capture) the step before anything is timed
     if plan.schedule.result is not None:
         plan = engine.calibrate_plan()
@@ -212,7 +264,7 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
             # the uninterrupted run: the chaos run must reproduce its tokens
             reference = ServingEngine(cfg, model, slots=args.slots, max_seq=max_seq,
                                       sample=sample, sample_seed=2, plan=plan,
-                                      cuda_graph=cuda_graph)
+                                      mesh=engine_mesh, cuda_graph=cuda_graph)
             for req in make_requests(args, cfg.vocab):
                 reference.submit(req)
             baseline = {r.rid: r.generated for r in reference.run_to_completion()}
@@ -265,8 +317,9 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
         dt = time.perf_counter() - t0
     n_tok = sum(len(r.generated) for r in completed)
     step = "CUDA graph" if engine.cuda_graph else "eager step"
+    mode = f"sharded TP={tp}" if args.sharded else "unsharded"
     say(f"{len(completed)} requests, {n_tok} tokens in {dt:.2f}s "
-        f"({n_tok / max(dt, 1e-9):.1f} tok/s, {args.slots} slots, unsharded, {step} on {device})")
+        f"({n_tok / max(dt, 1e-9):.1f} tok/s, {args.slots} slots, {mode}, {step} on {device})")
     predicted, observed = engine.predicted_step_time(), engine.observed_step_time()
     if predicted is not None:
         say(f"plan predicted step: {predicted * 1e3:.3f}ms "
@@ -274,6 +327,19 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
     if observed is not None:
         say(f"observed step: {observed * 1e3:.3f}ms"
             + (f" (observed/predicted = {observed / predicted:.1f}x)" if predicted else ""))
+    if args.measure_comm:
+        fits = serve_fabric_fits(mesh, ops=(plan.op,), axes=("model",))
+        fab = MeasuredFabric(models=fits, name="measured_serve")
+        for key, fit in fits.items():
+            say(f"measured fit {key}: a={fit.a:.3e}s b={fit.b:.3e}s/B")
+        measured_plan = build_serve_plan(cfg, param_shapes(cfg), fab, {"model": tp},
+                                         batch_rows=args.slots, policy=args.policy, op=plan.op,
+                                         cache_dtype_bytes=4, act_dtype_bytes=4)
+        say(f"measured-fabric plan: {measured_plan.describe()}")
+        timer.group_times = time_serve_groups(plan, mesh)
+        say("per-group predicted vs measured:")
+        for line in group_comparison_lines(plan, timer.group_times):
+            say("  " + line)
     if args.plan_out:
         say(f"serve plan written to {plan.save(args.plan_out)}")
     return ServeResult(completed=completed, plan=plan, engine=engine, seconds=dt,

@@ -3,9 +3,9 @@
 
 The JAX package's third builder, ``make_train_step``, has its counterpart
 in ``core/trainer.py``.  Nothing here shards: the JAX builders' sharding
-rules come with sharded serving (ROADMAP A.3.1).  Both steps run under
-``torch.inference_mode()`` and take the model itself where the JAX steps
-take its parameter tree.
+rules are ``serving/sharded.py``'s placements, and its decode step wraps
+``make_decode_step``.  Both steps run under ``torch.inference_mode()`` and
+take the model itself where the JAX steps take its parameter tree.
 """
 
 from __future__ import annotations

@@ -53,7 +53,6 @@ import argparse
 import dataclasses
 import json
 import os
-import shutil
 import statistics
 import tempfile
 import time
@@ -101,6 +100,7 @@ from ..runtime import (
     probe_unit_times,
     resilient_loop,
 )
+from .mesh import ProcessWorld
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,8 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--compression", default=None, choices=["bf16", "bf16_ef"],
                     help="wire compression (default: follows --comm-dtype); bf16_ef "
                          "carries the error-feedback residual (requires --fuse arena)")
-    ap.add_argument("--fuse", default="concat", choices=["concat", "arena"],
-                    help="wire layout: concat (one flat buffer, copy each way) or arena "
+    ap.add_argument("--fuse", default="concat", choices=["concat", "variadic", "arena"],
+                    help="wire layout: concat (one flat buffer, copy each way), variadic "
+                         "(one coalesced all-reduce over the group's tensors) or arena "
                          "(the comm_pack pack/unpack kernels)")
     ap.add_argument("--virtual-dp", type=int, default=32,
                     help="DP size assumed by the α–β schedule model")
@@ -206,32 +207,6 @@ class TrainResult:
         return self.engine.plan
 
 
-class _ProcessGroup:
-    """Joins the torchrun world when its environment is set, else makes a
-    world of one on a ``FileStore`` in a temporary directory; tears down
-    only what it made."""
-
-    def __init__(self, device: torch.device):
-        self.made = False
-        self.tmp = None
-        if dist.is_initialized():
-            return
-        backend = "nccl" if device.type == "cuda" else "gloo"
-        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-            dist.init_process_group(backend, init_method="env://")
-        else:
-            self.tmp = tempfile.mkdtemp(prefix="repro_torch_pg_")
-            store = dist.FileStore(os.path.join(self.tmp, "store"), 1)
-            dist.init_process_group(backend, store=store, rank=0, world_size=1)
-        self.made = True
-
-    def close(self) -> None:
-        if self.made:
-            dist.destroy_process_group()
-        if self.tmp is not None:
-            shutil.rmtree(self.tmp, ignore_errors=True)
-
-
 @dataclasses.dataclass
 class TrainSetup:
     """Everything a run sets up before its first step (``prepare``);
@@ -247,7 +222,7 @@ class TrainSetup:
     device: torch.device
     rank: int
     world: int
-    pg: _ProcessGroup
+    pg: ProcessWorld
     comm_obs: MeasuredComm  # timed (--measure-comm) or the preset sampled on the sweep
 
     def batch(self, step: int) -> dict[str, torch.Tensor]:
@@ -305,7 +280,7 @@ def prepare(argv: list[str] | None = None, *, quiet: bool = False,
         fuse=args.fuse,
     )
 
-    pg = _ProcessGroup(device)
+    pg = ProcessWorld(device)
     try:
         rank, world = dist.get_rank(), dist.get_world_size()
         if args.measure_comm:

@@ -18,12 +18,15 @@ machinery end to end:
     ``ServePlan`` whose JSON either package reads;
   * ``rebuild_serve_plan`` / ``refit_serve_fit`` re-plan at a new (α, β).
 
-The executable leg needs a mesh: ``make_group_collective``,
-``serve_collective_time_fn``, ``measure_serve_comm`` and
-``time_serve_groups`` issue or time real serve collectives over a tensor-
-parallel group, and come with sharded serving (ROADMAP A.3.1); until then
-each raises ``NotImplementedError``.  ``serve_fabric_fits`` times through
-``measure_serve_comm`` and raises with it.
+The executable leg runs over a tensor-parallel process group:
+``make_group_collective`` issues one collective per scheduled group
+(``serving.sharded``'s decode step drives it), and
+``serve_collective_time_fn``, ``measure_serve_comm``,
+``serve_fabric_fits`` and ``time_serve_groups`` time real serve
+collectives.  Where the JAX functions take a ``Mesh`` and an axis name,
+these take a ``DeviceMesh`` (``launch.mesh``) and a dimension name, whose
+group is ``mesh.get_group(axis)``.  Every collective goes through the
+counted ``fabric.ops.issue``.
 
 Consumers: ``serving.engine.ServingEngine`` carries the plan,
 ``launch/serve.py`` builds and saves it (``--fabric`` / ``--plan-out``),
@@ -38,17 +41,27 @@ import json
 import pathlib
 from typing import Any
 
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+
 from ..core.comm_model import AllReduceModel, fit_affine
 from ..core.cost_model import TPU_V5E, Hardware, LayerCost
 from ..core.schedule import Schedule
 from ..core.timeline import GroupTrace, TimelineResult
 from ..fabric import Collective, Fabric, get_fabric
-from .costs import SLIM_COMM_SWEEP
+from ..fabric.ops import issue
+from .costs import (
+    DEFAULT_COMM_SWEEP,
+    SLIM_COMM_SWEEP,
+    MeasuredComm,
+    rank0_values,
+    time_collective_call,
+)
 from .registry import build_schedule, resolve_policy_name
 
 SERVE_PLAN_FORMAT = 1
-SHARDED_SERVING = ("sharded serving (a tensor-parallel decode over a process group) is not "
-                   "ported yet: ROADMAP A.3.1")
 
 
 def _tree_size(tree: Any) -> int:
@@ -433,8 +446,8 @@ def rebuild_serve_plan(
     ``StragglerMonitor`` flags sustained step-time degradation, with
     ``model`` coming from ``refit_serve_fit`` over the loop's
     ``refit_time_fn`` (by default the loop-entry plan's pricing, scaled by
-    the chaos injector on a degraded fabric; live probes of a real group
-    come with sharded serving, ROADMAP A.3.1)."""
+    the chaos injector on a degraded fabric; ``serve_collective_time_fn``
+    gives live probes of a real group)."""
     pol = resolve_policy_name(policy or plan.policy)
     schedule = build_schedule(pol, list(plan.costs), model, hw=plan.hw, t_f=0.0)
     prov = dict(plan.provenance)
@@ -468,25 +481,157 @@ def refit_serve_fit(
     )
 
 
-def make_group_collective(plan: ServePlan, axis: str | None = None):
-    """The executable serve wire, one collective per scheduled group: it
-    needs a tensor-parallel group and comes with sharded serving."""
-    raise NotImplementedError(SHARDED_SERVING)
+def axis_group(mesh: DeviceMesh, axis: str) -> dist.ProcessGroup:
+    """The process group behind ``mesh``'s dimension ``axis``."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"expected a DeviceMesh, got {type(mesh).__name__}")
+    return mesh.get_group(axis)
 
 
-def serve_collective_time_fn(mesh, op: Collective | str, axis: str = "model",
-                             repeats: int = 3):
-    """``time_fn(nbytes) -> seconds`` over real serve collectives: it needs
-    a tensor-parallel group and comes with sharded serving."""
-    raise NotImplementedError(SHARDED_SERVING)
+def _group_device(group: dist.ProcessGroup) -> torch.device:
+    """The device a group's collectives take tensors on: the current card
+    under NCCL, else the CPU."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
-def measure_serve_comm(mesh, op: Collective | str = Collective.ALL_GATHER,
-                       axes: tuple[str, ...] = ("model",), sizes_bytes=None, dtype=None,
-                       repeats: int = 3, name: str | None = None):
-    """Timed serve collectives over a size sweep: they need a
-    tensor-parallel group and come with sharded serving."""
-    raise NotImplementedError(SHARDED_SERVING)
+def make_group_collective(plan: ServePlan, group: dist.ProcessGroup | None = None):
+    """Executable serve wire: ``fn(stacked) -> list`` issuing exactly ONE
+    collective of ``plan.op`` per scheduled group over ``group`` (the
+    default group when None).
+
+    ``stacked`` is a per-stage payload with the stage axis leading
+    (``(n_stages, ...)``: the fresh KV rows of every stage).  Group
+    ``(lo, hi)`` (1-indexed) flattens ``stacked[lo-1:hi]`` into one
+    buffer and ships it: an ``all_gather`` returns ``(N, L)`` (every
+    rank's buffer, rank-major), an ``all_to_all`` pads the buffer with
+    zeros to a multiple of the group size N (a local pad, never a second
+    call) and returns ``(N, L/N)``, an ``all_reduce`` returns the summed
+    ``(L,)``.  Each group's output buffer is allocated once per payload
+    shape and reused by every later call (a CUDA graph replays over
+    static buffers), so an output is valid until the next call.
+    """
+    op = Collective(plan.op)
+    if op is Collective.REDUCE_SCATTER:
+        raise ValueError("serve groups issue all_gather, all_to_all or all_reduce")
+    groups = plan.schedule.groups
+    n = dist.get_world_size(group)
+    buffers: dict[tuple, list[torch.Tensor]] = {}
+
+    def out_shape(lo: int, hi: int, stacked: torch.Tensor) -> tuple[int, ...]:
+        length = (hi - lo + 1) * (stacked[0].numel() if stacked.shape[0] else 0)
+        if op is Collective.ALL_GATHER:
+            return (n * length,)  # flat, as gloo's all-gather wants it
+        if op is Collective.ALL_TO_ALL:
+            return (n, -(-length // n))
+        return (length,)
+
+    def run(stacked: torch.Tensor) -> list[torch.Tensor]:
+        if stacked.shape[0] != plan.num_stages:
+            raise ValueError(
+                f"payload has {stacked.shape[0]} stages, plan has {plan.num_stages}")
+        key = (tuple(stacked.shape), stacked.dtype, stacked.device)
+        if key not in buffers:
+            buffers[key] = [torch.empty(out_shape(lo, hi, stacked), dtype=stacked.dtype,
+                                        device=stacked.device) for lo, hi in groups]
+        outs = buffers[key]
+        for (lo, hi), out in zip(groups, outs):
+            flat = stacked[lo - 1 : hi].reshape(-1)
+            if op is Collective.ALL_TO_ALL:
+                pad = (-flat.numel()) % n
+                if pad:
+                    flat = F.pad(flat, (0, pad))
+                issue(op, flat.reshape(n, -1).contiguous(), group, out=out)
+            elif op is Collective.ALL_GATHER:
+                issue(op, flat.contiguous(), group, out=out)
+            else:
+                out.copy_(flat)
+                issue(op, out, group)
+        if op is Collective.ALL_GATHER:
+            return [out.view(n, -1) for out in outs]
+        return outs
+
+    return run
+
+
+def serve_collective_time_fn(mesh: DeviceMesh, op: Collective | str,
+                             axis: str = "model", repeats: int = 3):
+    """``time_fn(nbytes) -> seconds`` pricing one real serve collective
+    over ``mesh``'s ``axis``: the live probe behind ``refit_serve_fit``
+    (the serve-side ``psum_time_fn``)."""
+    op = Collective(op)
+
+    def fn(nbytes: int) -> float:
+        return measure_serve_comm(mesh, op, (axis,), sizes_bytes=(int(nbytes),),
+                                  repeats=repeats).times_s[0]
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Measured serve fabrics: time the real decode collectives
+# ---------------------------------------------------------------------------
+
+
+def measure_serve_comm(
+    mesh: DeviceMesh,
+    op: Collective | str = Collective.ALL_GATHER,
+    axes: tuple[str, ...] = ("model",),
+    sizes_bytes: tuple[int, ...] | None = None,
+    dtype: torch.dtype | None = None,
+    repeats: int = 3,
+    name: str | None = None,
+) -> MeasuredComm:
+    """Time real serve collectives over a size sweep on ``mesh``'s axis.
+
+    The serve-side analogue of ``MeasuredComm.time_psums``: one buffer per
+    size on the group's device, one discarded call, then the min of
+    ``repeats`` timed calls (``time_collective_call``), every sample rank
+    0's on every rank so that all ranks make the same calls.
+    ``sizes_bytes`` are the *message* bytes ``M`` the ``ServePlan``
+    timeline prices: for ``all_gather`` the gathered result (each rank
+    contributes ``M/N``), for ``all_to_all`` the full local volume.  So the
+    returned ``MeasuredComm``'s ``fit()`` is an (α, β) model directly
+    comparable to ``fabric.cost(op, axis_sizes)``.
+    """
+    if len(axes) != 1:
+        raise ValueError(f"serve collectives run over one axis, got {axes}")
+    op = Collective(op)
+    if op is Collective.REDUCE_SCATTER:
+        raise ValueError("serve collectives are all_gather, all_to_all or all_reduce")
+    sizes_bytes = DEFAULT_COMM_SWEEP if sizes_bytes is None else tuple(sizes_bytes)
+    dtype = torch.float32 if dtype is None else dtype
+    group = axis_group(mesh, axes[0])
+    n = dist.get_world_size(group)
+    device = _group_device(group)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+
+    def agree(t: float) -> float:
+        return rank0_values([t], group, device)[0]
+
+    times = []
+    for nb in sizes_bytes:
+        if op is Collective.ALL_GATHER:
+            x = torch.ones(max(1, int(nb) // (itemsize * n)), dtype=dtype, device=device)
+            out = torch.empty(n * x.numel(), dtype=dtype, device=device)
+        else:
+            elems = max(n, int(nb) // itemsize)
+            elems -= elems % n
+            shape = (n, elems // n) if op is Collective.ALL_TO_ALL else (elems,)
+            x = torch.ones(shape, dtype=dtype, device=device)
+            out = torch.empty_like(x) if op is Collective.ALL_TO_ALL else None
+
+        def call(v: torch.Tensor, out=out) -> None:
+            issue(op, v, group, out=out)
+
+        times.append(time_collective_call(call, x, repeats, agree=agree))
+    return MeasuredComm(
+        sizes_bytes=tuple(int(s) for s in sizes_bytes),
+        times_s=tuple(times),
+        axes=tuple(axes),
+        name=name or f"{op.value}@{'+'.join(axes)}",
+    )
 
 
 def serve_fabric_fits(
@@ -544,9 +689,16 @@ def group_comparison_lines(
     return lines
 
 
-def time_serve_groups(plan: ServePlan, mesh, *, axis: str | None = None, repeats: int = 3,
-                      dtype=None) -> tuple[float, ...]:
-    """Measured seconds per scheduled serve group: it times real
-    collectives over a tensor-parallel group and comes with sharded
-    serving."""
-    raise NotImplementedError(SHARDED_SERVING)
+def time_serve_groups(plan: ServePlan, mesh: DeviceMesh, *,
+                      axis: str | None = None, repeats: int = 3,
+                      dtype: torch.dtype | None = None) -> tuple[float, ...]:
+    """Measured seconds per scheduled serve group: one real collective of
+    the plan's op at each group's exact wire payload, in schedule order —
+    what ``ServeTimer.group_times`` holds and ``group_comparison_lines``
+    sets beside ``group_summaries()``'s predictions."""
+    if plan.schedule.result is None:
+        raise ValueError("plan has no evaluated timeline to read group bytes from")
+    sizes = tuple(max(1, tr.nbytes) for tr in plan.schedule.result.groups)
+    mc = measure_serve_comm(mesh, plan.op, (axis or plan.axis,), sizes_bytes=sizes,
+                            repeats=repeats, dtype=dtype, name="serve_groups")
+    return mc.times_s

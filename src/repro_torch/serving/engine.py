@@ -61,8 +61,16 @@ to JAX's draws, which come from another generator).
 Snapshots (``snapshot`` / ``restore_snapshot``, ``serving/resilience.py``)
 copy the state to the host and back into the engine's own buffers, so a
 restore captures nothing new.  ``prefills`` counts the prefills the engine
-ran, fresh and resumed.  A sharded engine (``mesh``) comes with sharded
-serving (ROADMAP A.3.1) and raises until then.
+ran, fresh and resumed.
+
+With ``mesh=`` (a ``DeviceMesh``, ``launch.mesh``) the engine *executes*
+its plan: the decode step is ``serving.sharded``'s, run on the process
+group of the mesh's ``tp_axis`` dimension, and issues exactly one
+collective per scheduled serve group (KV all-gathers for dense archs,
+expert all-to-alls for MoE), token for token the unsharded engine's.  On
+the card the collectives are captured in the step's one CUDA graph, and
+``install_plan`` rebuilds the step and captures it anew, once.  Every rank
+of the group runs its own engine on the same requests (mirror-compute).
 """
 
 from __future__ import annotations
@@ -78,7 +86,6 @@ import torch
 from ..launch.steps import make_decode_step, make_prefill_step
 from ..models.common import ArchConfig
 from ..models.transformer import init_caches, tree_leaves, tree_map
-from ..planning.serve import SHARDED_SERVING
 from ..runtime.timeline import StepTimer
 
 if TYPE_CHECKING:
@@ -120,8 +127,8 @@ class ServeTimer(StepTimer):
     """Decode-step wall-clock window (the JAX ``serving.sharded.ServeTimer``):
     the engine feeds ``observe(dt)`` per decode step (the first samples
     skipped), ``median()`` is the observed step time, and ``group_times``
-    holds measured per-group collective seconds (empty until sharded
-    serving measures them).  ``prefill_times`` holds each admission's
+    holds measured per-group collective seconds
+    (``planning.serve.time_serve_groups``).  ``prefill_times`` holds each admission's
     prefill seconds (device synchronized), beside the decode steps."""
 
     def __init__(self, window: int = 200, skip_first: int = 2):
@@ -175,9 +182,10 @@ class ServingEngine:
     """Synchronous-step continuous batching over fixed decode slots.
 
     ``model`` is a ``models.Transformer`` (its device is the engine's);
-    ``plan`` the decode-side ``planning.ServePlan`` the engine runs under,
-    advisory here (predictions; an unsharded engine executes no
-    collective).  ``cuda_graph`` defaults to True on the card and False on
+    ``plan`` the decode-side ``planning.ServePlan`` the engine runs under:
+    advisory without a mesh (predictions; an unsharded engine executes no
+    collective), executed with ``mesh=`` over the group of its ``tp_axis``
+    dimension (a plan is then required).  ``cuda_graph`` defaults to True on the card and False on
     the CPU.  A ``ServeTimer`` passed as ``timer=`` records each step's
     wall clock (device synchronized), closing the predicted-vs-observed
     loop; call ``warmup()`` first so the capture is never timed.
@@ -196,10 +204,10 @@ class ServingEngine:
     @torch.inference_mode()
     def __init__(self, cfg: ArchConfig, model, *, slots: int = 4, max_seq: int = 512,
                  sample: Callable | None = None, sample_seed: int = 0,
-                 plan: "ServePlan | None" = None, mesh=None,
+                 plan: "ServePlan | None" = None, mesh=None, tp_axis: str = "model",
                  timer: ServeTimer | None = None, cuda_graph: bool | None = None):
-        if mesh is not None:
-            raise NotImplementedError(SHARDED_SERVING)
+        if mesh is not None and plan is None:
+            raise ValueError("sharded serving (mesh=) requires a ServePlan")
         self.cfg, self.model = cfg, model
         self.slots, self.max_seq = slots, max_seq
         self.plan, self.timer = plan, timer
@@ -210,7 +218,10 @@ class ServingEngine:
         self.sample = sample or greedy
         self._keyed_sample = _takes_key(self.sample)
         self._prefill = make_prefill_step(cfg, max_seq)
-        self._decode = make_decode_step(cfg)
+        self.mesh, self.tp_axis = mesh, tp_axis
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the model on {self.device.type}")
+        self._decode = self._make_decode()
         dev = self.device
         self._state = {
             "caches": init_caches(cfg, slots, max_seq, dtype=torch.float32, device=dev),
@@ -239,13 +250,31 @@ class ServingEngine:
 
     # -- the one step ------------------------------------------------------
 
+    def _make_decode(self) -> Callable:
+        """``decode(model, caches, batch, pos) -> (logits, caches, wire)``:
+        the plan-driven sharded step with a mesh, else the plain decode
+        (``wire`` empty)."""
+        if self.mesh is not None:
+            from ..planning.serve import axis_group
+            from .sharded import make_sharded_decode_step
+
+            return make_sharded_decode_step(self.cfg, self.plan,
+                                            axis_group(self.mesh, self.tp_axis))
+        base = make_decode_step(self.cfg)
+
+        def decode(model, caches, batch, pos):
+            logits, caches = base(model, caches, batch, pos)
+            return logits, caches, ()
+
+        return decode
+
     def _body(self, state: dict, sampled_out: torch.Tensor) -> None:
         """Decode + sample + masked state updates, in place on ``state``
         (what the graph captures)."""
         active, row_pos, budget = state["active"], state["row_pos"], state["budget"]
         pos = torch.where(active, row_pos, 0).max()
-        logits, _ = self._decode(self.model, state["caches"],
-                                 self._step_input(state["next_token"][:, None]), pos)
+        logits, _, _ = self._decode(self.model, state["caches"],
+                                    self._step_input(state["next_token"][:, None]), pos)
         if self._keyed_sample:
             sampled = self.sample(logits, self._gen)
         else:
@@ -335,11 +364,16 @@ class ServingEngine:
     def probe_step_time(self, repeats: int = 5) -> float:
         """Min-of-``repeats`` wall seconds of the engine's step with every
         slot active (device synchronized around each), via the shared
-        outlier-retrying ``planning.costs.min_of_k``.  It runs on the
+        outlier-retrying ``planning.costs.min_of_k`` (rank 0's samples on
+        every rank of a sharded engine's group).  It runs on the
         engine's own buffers (the graph is bound to them), which are saved
         first and put back after, with the sampler's generator."""
-        from ..planning.costs import min_of_k
+        from ..planning.costs import min_of_k, rank0_values
+        from ..planning.serve import axis_group
 
+        # a sharded step issues collectives: every rank of the group takes
+        # rank 0's samples, so that all retry alike and make the same calls
+        group = None if self.mesh is None else axis_group(self.mesh, self.tp_axis)
         saved, gen_state = _copy_state(self._state), self._gen.get_state()
         try:
             self._state["active"].fill_(True)
@@ -350,7 +384,8 @@ class ServingEngine:
                 t0 = time.perf_counter()
                 self._launch_step()
                 self._sync()
-                return time.perf_counter() - t0
+                t = time.perf_counter() - t0
+                return t if group is None else rank0_values([t], group, self.device)[0]
 
             return min_of_k(sample, max(1, repeats))
         finally:
@@ -377,8 +412,14 @@ class ServingEngine:
 
     def install_plan(self, plan: "ServePlan") -> None:
         """Swap in a (re)built ``ServePlan``.  An unsharded engine executes
-        no collective, so the step is unchanged and nothing is captured."""
+        no collective, so the step is unchanged and nothing is captured.  A
+        sharded engine's step executes the plan's merge schedule, so it is
+        rebuilt, and on the card captured anew at the next step (once: the
+        only way the wire changes shape)."""
         self.plan = plan
+        if self.mesh is not None:
+            self._decode = self._make_decode()
+            self._graph = None
 
     @torch.inference_mode()
     def retire(self, slot: int, *, expired: bool = False, requeue: bool = False) -> Request:

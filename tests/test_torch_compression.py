@@ -24,8 +24,8 @@ the collectives it brings through the counted ``issue()`` seam.
   gloo result bitwise on the dyadic cases.
 * ``issue.calls`` rises by exactly 3 per call (reduce-scatter and two
   all-gathers), on every rank; at world 1 the call equals the plain
-  version bitwise; ``issue`` refuses a gather or scatter without an
-  output and ``all_to_all``.
+  version bitwise; ``issue`` refuses a gather, scatter or all-to-all
+  without an output, and a list of tensors for any op but ``all_reduce``.
 """
 
 import json
@@ -259,9 +259,9 @@ def test_issue_refuses_what_it_cannot_issue():
     world1()
     x = torch.zeros(4)
     before = issue.calls
-    for op in ("reduce_scatter", "all_gather"):
+    for op in ("reduce_scatter", "all_gather", "all_to_all"):
         with pytest.raises(ValueError, match="output tensor"):
             issue(op, x)
-    with pytest.raises(NotImplementedError, match="serving"):
-        issue("all_to_all", x, out=x.clone())
+        with pytest.raises(ValueError, match="takes one tensor"):
+            issue(op, [x], out=x.clone())
     assert issue.calls == before

@@ -7,8 +7,8 @@ each package reading the other's (and writing it back unchanged), and the
 floats within 1e-12 relative (they are the same Python on the same
 floats, so in practice equal).  Re-planning at a new (α, β), the slim
 re-fit, the calibrated fixed term and the printed tables match too; the
-functions that need a tensor-parallel group raise until sharded serving
-is ported.
+functions that need a tensor-parallel group raise without one (they run
+on gloo ranks in ``tests/test_torch_sharded_serving.py``).
 """
 
 import json
@@ -118,11 +118,15 @@ def test_rebuild_and_refit_match_reference():
 
 
 def test_mesh_functions_raise():
+    """Without a ``DeviceMesh`` the timed serve collectives refuse to run, and a serve wire of an op no serve group
+    issues is refused before any group is needed."""
     _, tplan = _plans("tinyllama-1.1b", "gpu_nccl")
-    for call in (lambda: make_group_collective(tplan),
-                 lambda: serve_collective_time_fn(None, "all_gather"),
+    for call in (lambda: serve_collective_time_fn(None, "all_gather")(4096),
                  lambda: measure_serve_comm(None),
                  lambda: serve_fabric_fits(None),
                  lambda: time_serve_groups(tplan, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.3.1"):
+        with pytest.raises(TypeError, match="expected a DeviceMesh"):
             call()
+    _, rs_plan = _plans("tinyllama-1.1b", "gpu_nccl", op="reduce_scatter")
+    with pytest.raises(ValueError, match="all_gather, all_to_all or all_reduce"):
+        make_group_collective(rs_plan)

@@ -112,8 +112,10 @@ def test_sync_options_that_do_not_exist_raise():
     _, tcfg = _cfgs("f32")
     layout = bucketing.stacked_lm_layout(param_shapes(tcfg), tcfg.n_stages)
     sched = Schedule(GROUPS, "manual")
-    with pytest.raises(NotImplementedError, match="variadic"):
-        make_gradient_sync(layout, sched, SyncConfig(fuse="variadic"))
+    with pytest.raises(ValueError, match="unknown fuse mode"):
+        make_gradient_sync(layout, sched, SyncConfig(fuse="scatter"))
+    with pytest.raises(ValueError, match="requires fuse='arena'"):
+        make_gradient_sync(layout, sched, SyncConfig(fuse="variadic", compression="bf16_ef"))
     with pytest.raises(ValueError, match="requires fuse='arena'"):
         make_gradient_sync(layout, sched, SyncConfig(fuse="concat", compression="bf16_ef"))
     world1()
