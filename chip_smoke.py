@@ -341,6 +341,40 @@ step could hide a kernel fault.
    (its groups all-to-alls): the unsharded and the sharded engine, both
    captured, held as 8a's; printed as 8a's.
 
+9. The what-if simulator on the card's measured costs (``repro_torch.sim``;
+   host-side, no new model: it reuses phase 4's and 6a's measurements), then
+   the simulate CLI and the examples.  9a: phase 4's startup probe (24 units
+   of full-width TinyLlama-1.1B, backward seconds and the forward as the
+   probe's remaining third) over ``lm_unit_costs``' bytes at 2048 tokens,
+   ``MeasuredCosts.from_unit_times``, with phase 4's (α, β) fit and adopted
+   plan: ``simulate_train_iteration`` equals ``core.timeline.evaluate`` bit
+   for bit (t_iter, every group's start and end); the simulated t_iter is
+   printed beside phase 4's predicted and observed.  9b: ``replay_train`` at
+   8, 64 and 512 hosts on ``paper_10gbe`` and ``gpu_nccl`` with
+   ``synceasgd``, ``wfbp``, ``mg_wfbp`` and ``dp_optimal`` on those costs:
+   ``mg_wfbp``'s t_iter <= ``wfbp``'s and ``synceasgd``'s and
+   ``dp_optimal``'s <= ``mg_wfbp``'s in every cell (ties within 1e-12 of
+   each other, float summation order, count as ties); the ``SimReport``
+   built twice byte-identical, its table printed and written to
+   ``build/phase9_whatif.json``; mg_wfbp's merge sets beside the world-1
+   fit's; stragglers at 64 hosts (spread 0 / 0.2 / 0.5, seed 3) monotone;
+   64 -> 32 -> 64 hosts then 8 killed: 3 re-plans, 8 kills.  All of it is
+   simulated from the card's unit costs and a fabric preset, not measured
+   on 8, 64 or 512 hosts.  9c: ``replay_serve`` of 6a's 16 requests x 128
+   tokens, 8 slots, at 6a's captured decode step: 16 completed, 0 lost,
+   2048 tokens; two replicas with replica 0 killed mid-run: failovers >= 1,
+   0 lost; the simulated decode tokens/s beside 6a's observed (the
+   simulator prices no prefill).  9d: ``python -m
+   repro_torch.launch.simulate --arch googlenet --sweep-hosts 8,64
+   --calibrate --report-out build/phase9_cli.json`` in a subprocess: exit 0,
+   both calibrations ok, the report read back; then, in this process,
+   ``examples/torch_train_lm.py --tiny --steps 40`` on the card (the loss
+   below 0.7x its start; every step pack = unpack = the plan's groups and
+   flash fwd / dQ / dK-dV 8 / 4 / 4, no plain call),
+   ``examples/torch_serve_decode.py`` (sharded tokens == unsharded) and
+   ``examples/torch_elastic_restart.py`` (one restart, resumed tokens ==
+   the unbroken run's), each one's seconds printed.
+
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
@@ -362,6 +396,8 @@ device trace of profiled replays).  Phase 7 adds rows of its own: B3 over
 Python (with its replays), each timed as phase 6's row for the same shapes.
 Phase 8 adds two B3 rows: its prefills at TinyLlama's serve shape (8a's
 engines and 8c's launcher runs) and at Mixtral's (8b's), timed in phase 8.
+B1 / B2 also count 9d's training example's launches; its flash launches, at
+the reduced shape, are printed on phase 9's line and are no row's.
 """
 
 from __future__ import annotations
@@ -1975,7 +2011,9 @@ def phase_autotune(device, dag):
     --autotune``, re-planning and (α, β) re-fits every 4 steps, 8 ``dag``
     steps, beside an 8-step ``dag`` run on phase 3's plan; then ``--dryrun
     3`` under the span recorder.  ``dag`` holds phase 3's ``dag`` run
-    (losses, step ms)."""
+    (losses, step ms).  Returns the launches of the tuned run's steps and
+    what phase 9 prices on: the startup probe, the (α, β) fit, the adopted
+    plan and the last tuner record's predicted and observed t_iter."""
     import torch
     from repro_torch.core.cost_model import TPU_V5E
     from repro_torch.core.profiler import overlap_report, parse_trace_spans, time_segment
@@ -2067,6 +2105,11 @@ def phase_autotune(device, dag):
     say(f"phase 4: probe seconds (backward, {BWD_FRACTION:.3f} of fwd+bwd): " + "; ".join(timed)
         + f"; nonuniformity {prof.nonuniformity(base, TPU_V5E):.4g}")
     last = hist[-1]
+    # what phase 9 prices the what-if on: the startup probe's unit seconds, the (α, β) fit,
+    # the adopted plan and the last tuner record's predicted and observed t_iter
+    sim_inputs = {"profile": prof, "fit": fit, "plan": res.plan, "cfg": res.model.cfg,
+                  "tokens": int(_arg(P4_ARGS, "--batch")) * int(_arg(P4_ARGS, "--seq")),
+                  "predicted": last.predicted_t_iter, "observed": last.observed_t_iter}
     tuned_ms = statistics.median(res.step_seconds[1:]) * 1e3
     say(f"phase 4: step ms, tuned run: {[round(t * 1e3, 1) for t in res.step_seconds]}; the "
         f"unbroken dag run on phase 3's plan: {[round(t, 1) for t in plain_ms]} (median of "
@@ -2098,7 +2141,7 @@ def phase_autotune(device, dag):
     del res
     torch.cuda.empty_cache()
     say(f"phase 4: {time.perf_counter() - t0:.1f} s")
-    return steps
+    return steps, sim_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -3636,6 +3679,303 @@ def phase_sharded(device):
             "b3_mixtral": p8b["b3"], "step_ms": p8a["step_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the what-if simulator on the card's measured costs, the examples
+# ---------------------------------------------------------------------------
+
+P9_HOSTS = (8, 64, 512)
+P9_FABRICS = ("paper_10gbe", "gpu_nccl")
+P9_POLICIES = ("synceasgd", "wfbp", "mg_wfbp", "dp_optimal")
+#: two partitions of equal cost may sum their floats in other orders: a t_iter
+#: within this share of another's is a tie
+P9_TIE = 1e-12
+P9_OUT = ROOT / "build" / "phase9_whatif.json"
+P9_CLI_OUT = ROOT / "build" / "phase9_cli.json"
+P9_EXAMPLES = ROOT / "build" / "phase9_examples"  # the examples' checkpoints and snapshots
+
+
+def measured_sim_costs(p4):
+    """Phase 4's startup probe as a cost vector: each unit's backward seconds
+    as the card gave them and its forward as the probe's remaining share
+    (``(1 - BWD_FRACTION) / BWD_FRACTION`` of it: the probes time forward +
+    backward), over the bytes of ``lm_unit_costs`` at phase 4's tokens a
+    device (the f32 wire)."""
+    from repro_torch.core.trainer import lm_unit_costs
+    from repro_torch.models import param_shapes
+    from repro_torch.planning import MeasuredCosts
+    from repro_torch.runtime import BWD_FRACTION
+
+    cfg = p4["cfg"]
+    base = lm_unit_costs(cfg, param_shapes(cfg), p4["tokens"])
+    secs = p4["profile"].unit_seconds
+    if sorted(secs) != sorted(c.name for c in base):
+        fail(f"phase 9: the probe's units {sorted(secs)} are not lm_unit_costs' "
+             f"{[c.name for c in base]}")
+    bwd = [secs[c.name] for c in base]
+    fwd = [b * (1.0 - BWD_FRACTION) / BWD_FRACTION for b in bwd]
+    return MeasuredCosts.from_unit_times(base, bwd, fwd, name="h100_probe").layer_costs()
+
+
+def sim_exactness(p4, costs) -> float:
+    """9a: the DES on phase 4's plan, costs and fit against ``evaluate``, bit
+    for bit."""
+    from repro_torch.core.timeline import evaluate
+    from repro_torch.planning import MEASURED_HW
+    from repro_torch.sim import simulate_train_iteration
+
+    groups, fit = p4["plan"].schedule.groups, p4["fit"]
+    sim = simulate_train_iteration(groups, costs, fit, hw=MEASURED_HW, multipliers=(1.0,))
+    ref = evaluate(list(groups), costs, fit, hw=MEASURED_HW)
+    if sim.t_iter != ref.t_iter or sim.groups != tuple(ref.groups):
+        bad = [i for i, (a, b) in enumerate(zip(sim.groups, ref.groups)) if a != b]
+        fail(f"phase 9a: the DES gives t_iter {sim.t_iter!r} against evaluate's {ref.t_iter!r}; "
+             f"groups {bad} differ")
+    pred, obs = p4["predicted"], p4["observed"]
+    say(f"phase 9a: the DES on phase 4's measured costs (24 units from its probe), its fit "
+        f"(α = {fit.a:.4e} s, β = {fit.b:.4e} s/B) and its adopted {len(groups)}-group plan "
+        f"equals core.timeline.evaluate bit for bit: t_iter and every group's start and end; "
+        f"simulated t_iter {sim.t_iter * 1e3:.3f} ms (compute {(sim.t_f + sim.t_b) * 1e3:.3f} ms "
+        f"from the probe) beside phase 4's tuner predicted {pred * 1e3:.3f} ms (probe backward, "
+        f"analytic forward) and observed "
+        + (f"{obs * 1e3:.3f} ms" if obs else "none"))
+    return sim.t_iter
+
+
+def sim_whatif(costs, p4, card) -> dict:
+    """9b: the paper's what-if on the measured costs: every policy at 8 / 64
+    / 512 hosts on two fabric presets, a straggler row and an elastic row."""
+    from repro_torch.planning import MEASURED_HW, build_schedule
+    from repro_torch.sim import ClusterEvent, ClusterSpec, SimReport, replay_train, \
+        row_from_replay
+
+    arch = p4["cfg"].name
+
+    def build() -> SimReport:
+        rows = []
+        for fabric in P9_FABRICS:
+            for n in P9_HOSTS:
+                cluster = ClusterSpec(n_hosts=n, fabric=fabric)
+                for policy in P9_POLICIES:
+                    res = replay_train(cluster, list(costs), policy, hw=MEASURED_HW)
+                    rows.append(row_from_replay(res, arch, fabric, n))
+        return SimReport(rows=tuple(rows), provenance={
+            "arch": arch, "costs": "chip_smoke.py phase 4 probe, measured on the card",
+            "card": card, "source": "chip_smoke.py phase 9"})
+
+    report, again = build(), build()
+    if report.to_json() != again.to_json():
+        fail("phase 9b: two builds of the what-if SimReport differ")
+    report.save(P9_OUT)
+    gaps = {}
+    for fabric in P9_FABRICS:
+        for n in P9_HOSTS:
+            t = {r.policy: r.t_iter_s for r in report.select(fabric=fabric, n_hosts=n)}
+            mg = t["mg_wfbp"]
+            for other in ("wfbp", "synceasgd"):
+                if mg > t[other] * (1 + P9_TIE):
+                    fail(f"phase 9b: {fabric} x {n}: mg_wfbp's t_iter {mg!r} > {other}'s "
+                         f"{t[other]!r}")
+            if t["dp_optimal"] > mg * (1 + P9_TIE):
+                fail(f"phase 9b: {fabric} x {n}: dp_optimal's t_iter {t['dp_optimal']!r} > "
+                     f"mg_wfbp's {mg!r}")
+            gaps[(fabric, n)] = (mg - t["dp_optimal"]) / mg
+    say(f"phase 9b: simulated from the H100-measured unit costs of phase 4 ({card}) and the "
+        f"fabric presets, not measured on 8, 64 or 512 hosts; the report (two builds "
+        f"byte-identical) in {P9_OUT.relative_to(ROOT)}:")
+    for line in report.efficiency_table():
+        say(f"phase 9b:   {line}")
+    say("phase 9b: mg_wfbp <= wfbp and <= synceasgd, dp_optimal <= mg_wfbp in every cell; "
+        "dp_optimal below mg_wfbp by: " + ", ".join(
+            f"{f} x {n} {g * 100:.3f}%" for (f, n), g in gaps.items()))
+    merge = {}
+    for fabric in P9_FABRICS:
+        for n in P9_HOSTS:
+            ar = ClusterSpec(n_hosts=n, fabric=fabric).ar_model()
+            merge[(fabric, n)] = build_schedule("mg_wfbp", list(costs), ar, hw=MEASURED_HW).groups
+    world1 = build_schedule("mg_wfbp", list(costs), p4["fit"], hw=MEASURED_HW).groups
+    say(f"phase 9b: mg_wfbp's merge set on the measured world-1 fit: {len(world1)} groups "
+        f"{list(world1)}; at paper_10gbe x 64: {len(merge[('paper_10gbe', 64)])} groups "
+        f"{list(merge[('paper_10gbe', 64)])}; groups by cell: "
+        + ", ".join(f"{f} x {n} {len(g)}" for (f, n), g in merge.items()))
+
+    strag = []
+    for spread in (0.0, 0.2, 0.5):
+        cluster = ClusterSpec(n_hosts=64, fabric="paper_10gbe", straggler_spread=spread, seed=3)
+        strag.append(replay_train(cluster, list(costs), "mg_wfbp", hw=MEASURED_HW).mean_t_iter)
+    if not strag[0] <= strag[1] <= strag[2]:
+        fail(f"phase 9b: t_iter not monotone in the straggler spread: {strag}")
+    elastic = ClusterSpec(n_hosts=64, fabric="paper_10gbe", events=(
+        ClusterEvent(at_iter=2, kind="shrink", count=32),
+        ClusterEvent(at_iter=4, kind="grow", count=32),
+        ClusterEvent(at_iter=6, kind="kill", count=8)))
+    el = replay_train(elastic, list(costs), "mg_wfbp", hw=MEASURED_HW, n_iters=8)
+    alive = [it["n_alive"] for it in el.iterations]
+    if (el.n_replans, el.n_kills) != (3, 8) or alive != [64, 64, 32, 32, 64, 64, 56, 56]:
+        fail(f"phase 9b: elastic replay: {el.n_replans} re-plans, {el.n_kills} kills, "
+             f"alive {alive}")
+    say(f"phase 9b: stragglers at paper_10gbe x 64 (seed 3), mg_wfbp t_iter at spread 0.0 / "
+        f"0.2 / 0.5: " + " / ".join(f"{t * 1e3:.3f}" for t in strag) + " ms, monotone; "
+        f"elastic 64 -> 32 -> 64, then 8 killed: {el.n_replans} re-plans, {el.n_kills} kills, "
+        f"alive {'/'.join(map(str, alive))}, groups "
+        f"{[it['n_groups'] for it in el.iterations]}, t_iter ms "
+        f"{[round(it['t_iter_s'] * 1e3, 3) for it in el.iterations]}")
+    return {"report": report, "gaps": gaps, "merge": merge, "world1": world1}
+
+
+def sim_serve(cell6a) -> dict:
+    """9c: 6a's workload replayed at 6a's captured decode step."""
+    from repro_torch.serving import LoadSpec
+    from repro_torch.sim import replay_serve
+
+    tag, arch, slots, _, lens, tokens = SERVE_CELLS[0]
+    step_s = cell6a["step_ms"] / 1e3
+    load = LoadSpec(n_requests=len(lens), prompt_len=1, max_new_tokens=tokens, kind="trace",
+                    trace_arrivals_s=(0.0,) * len(lens), seed=0)
+    one = replay_serve(load, step_s, n_replicas=1, slots=slots)
+    if (one.completed, one.lost, one.tokens_emitted) != (len(lens), 0, len(lens) * tokens):
+        fail(f"phase 9c: one replica: {one.to_json_dict()}")
+    kill = (tokens / 2 + 0.5) * step_s  # mid-step, half way through a run on two replicas
+    two = replay_serve(load, step_s, n_replicas=2, slots=slots, kill_at_s={0: kill})
+    if two.failovers < 1 or two.lost or two.completed != len(lens):
+        fail(f"phase 9c: two replicas, replica 0 killed at {kill} s: {two.to_json_dict()}")
+    say(f"phase 9c: {tag}'s {len(lens)} requests x {tokens} tokens, {slots} slots, at its "
+        f"captured decode step {cell6a['step_ms']:.3f} ms: one replica {one.completed} "
+        f"completed, {one.lost} lost, {one.tokens_emitted} tokens, {one.steps} steps, simulated "
+        f"decode {one.tokens_per_s:.1f} tokens/s (prefill and admission unpriced) beside 6a's "
+        f"observed {cell6a['tok_s']:.1f} tokens/s (prefills included); two replicas, replica 0 "
+        f"killed at {kill * 1e3:.1f} ms: {two.completed} completed, {two.failovers} failovers, "
+        f"{two.lost} lost, {two.tokens_per_s:.1f} tokens/s, p99 {two.latency_percentile(99):.3f} s")
+    return {"one": one, "two": two}
+
+
+def load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}", ROOT / "examples" /
+                                                  f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: list[str]):
+    """``examples/<name>.py``'s ``main(argv)`` in this process, its printout
+    kept and shown only if it raises; (result, seconds, printout)."""
+    import io
+
+    mod = load_example(name)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+    except BaseException:
+        print(buf.getvalue(), flush=True)
+        raise
+    return out, time.perf_counter() - t0, buf.getvalue()
+
+
+def sim_cli_and_examples(device) -> dict:
+    """9d: the simulate CLI in a subprocess, then the training, serving and
+    elastic examples on the card."""
+    import os
+
+    from repro_torch.kernels import comm_pack, launch_counts
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.sim import SimReport
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.simulate", "--arch", "googlenet",
+         "--sweep-hosts", "8,64", "--calibrate", "--report-out", str(P9_CLI_OUT)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+    cli_s = time.perf_counter() - t0
+    cal = [ln for ln in out.stdout.splitlines() if ln.startswith("[simulate] calibration/")]
+    if out.returncode != 0 or len(cal) != 2 or not all("ok=True" in ln for ln in cal):
+        fail(f"phase 9d: the simulate CLI: rc {out.returncode}, calibration lines {cal}; "
+             f"{out.stderr[-2000:]}")
+    rep = SimReport.load(P9_CLI_OUT)
+    if not (rep.calibration["train"]["ok"] and rep.calibration["serve"]["ok"]) \
+            or {r.n_hosts for r in rep.rows} != {8, 64}:
+        fail(f"phase 9d: the CLI's report {P9_CLI_OUT}: {rep.calibration}, {len(rep.rows)} rows")
+    say(f"phase 9d: python -m repro_torch.launch.simulate --arch googlenet --sweep-hosts 8,64 "
+        f"--calibrate: exit 0 in {cli_s:.1f} s, " + "; ".join(ln[11:] for ln in cal)
+        + f"; {len(rep.rows)} rows read back from {P9_CLI_OUT.relative_to(ROOT)}")
+
+    shutil.rmtree(P9_EXAMPLES, ignore_errors=True)
+    P9_EXAMPLES.mkdir(parents=True)
+    reset_all_counts()
+    train, train_s, printed = run_example("torch_train_lm", [
+        "--tiny", "--steps", "40", "--device", str(device),
+        "--ckpt-dir", str(P9_EXAMPLES / "train")])
+    plain = {fn.__name__: fn.ref_calls for fn in (
+        comm_pack.pack_arena, comm_pack.unpack_arena, fa.flash_attention_fwd,
+        fa.flash_attention_dq, fa.flash_attention_dkv)}
+    totals = launch_counts()
+    first, final, groups = train["first_loss"], train["final_loss"], train["groups"]
+    if not (final < 0.7 * first) or len(train["step_launches"]) != 40:
+        fail(f"phase 9d: torch_train_lm --tiny: loss {first} -> {final} over "
+             f"{len(train['step_launches'])} steps (must fall below 0.7x its start)")
+    layers = 4  # reduced TinyLlama
+    per = {"pack_arena": groups, "unpack_arena": groups, "flash_attention_fwd": 2 * layers,
+           "flash_attention_dq": layers, "flash_attention_dkv": layers}
+    for i, got in enumerate(train["step_launches"]):
+        if got != per:
+            fail(f"phase 9d: torch_train_lm step {i}: launches {got}, want {per}")
+    if any(plain.values()):
+        fail(f"phase 9d: torch_train_lm: plain calls {plain}")
+    say(f"phase 9d: examples/torch_train_lm.py --tiny --steps 40 --device cuda: "
+        f"{train_s:.1f} s, {printed.strip().splitlines()[-1]}; "
+        f"every step pack = unpack = {groups} (its plan's groups), flash fwd / dQ / dK-dV "
+        f"{2 * layers} / {layers} / {layers} at the reduced shape (not a row of the kernels "
+        f"table; over the run: {totals['flash_attention_fwd']} / {totals['flash_attention_dq']} "
+        f"/ {totals['flash_attention_dkv']}), 0 plain calls")
+    res = {"pack_launches": totals["pack_arena"], "unpack_launches": totals["unpack_arena"],
+           "cli_s": cli_s, "train_s": train_s}
+
+    reset_all_counts()
+    serve, res["serve_s"], printed = run_example("torch_serve_decode", ["--device", str(device)])
+    if not serve["match"] or serve["tp"] != 1:
+        fail(f"phase 9d: torch_serve_decode: sharded tokens equal unsharded: {serve['match']} "
+             f"(TP {serve['tp']})")
+    served = {k: v for k, v in launch_counts().items() if v}
+    say(f"phase 9d: examples/torch_serve_decode.py --device cuda: {res['serve_s']:.1f} s, "
+        f"sharded (TP 1) tokens == unsharded for all {len(serve['sharded'])} requests; "
+        f"launches {served}; "
+        + "; ".join(ln.strip() for ln in printed.splitlines() if ln.startswith("observed step")))
+
+    reset_all_counts()
+    elastic, res["elastic_s"], _ = run_example("torch_elastic_restart", [
+        "--device", str(device), "--ckpt-dir", str(P9_EXAMPLES / "elastic_ckpt"),
+        "--snapshot-dir", str(P9_EXAMPLES / "elastic_snap")])
+    if elastic["restarts"] != 1 or elastic["resumed"] != elastic["expected"]:
+        fail(f"phase 9d: torch_elastic_restart: {elastic['restarts']} restarts, resumed tokens "
+             f"equal: {elastic['resumed'] == elastic['expected']}")
+    say(f"phase 9d: examples/torch_elastic_restart.py --device cuda: {res['elastic_s']:.1f} s, "
+        f"1 restart (failure at step 25, restored from step 20), resumed under the N=64 "
+        f"schedule from step {elastic['resumed_step']}, the serving snapshot's resumed tokens "
+        f"== the unbroken run's for all {len(elastic['resumed'])} requests")
+    reset_all_counts()
+    return res
+
+
+def phase_sim(device, p4, cell6a, card) -> dict:
+    """Phase 9: 9a-9d (see the module docstring)."""
+    t0 = time.perf_counter()
+    costs = measured_sim_costs(p4)
+    t_iter = sim_exactness(p4, costs)
+    whatif = sim_whatif(costs, p4, card)
+    serve = sim_serve(cell6a)
+    say(f"phase 9a-9c: {time.perf_counter() - t0:.1f} s of host time")
+    try:
+        examples = sim_cli_and_examples(device)
+    finally:
+        shutil.rmtree(P9_EXAMPLES, ignore_errors=True)
+    say(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return {"t_iter": t_iter, "whatif": whatif, "serve": serve, **examples}
+
+
 def demangle(names: list[str]) -> list[str]:
     """Kernel names as ``name<template arguments>`` (c++filt, where the
     machine has it; else as ptxas gave them)."""
@@ -3728,7 +4068,7 @@ def main() -> None:
         took("phases 3b-3c")
         new_counts = phase_new_full_width(device)
         took("phases 3d-3j")
-        p4_counts = phase_autotune(device, dag)
+        p4_counts, p4_sim = phase_autotune(device, dag)
         p5_counts = phase_restart(device)
         took("phases 4-5")
     finally:
@@ -3737,6 +4077,8 @@ def main() -> None:
     p7 = phase_resilience(device)
     took("phases 6-7")
     p8 = phase_sharded(device)
+    p9 = phase_sim(device, p4_sim, serve_cells["phase 6a"], card)
+    took("phases 8-9")
     say(f"all phases, the build included: {time.perf_counter() - t_start:.1f} s")
 
     main_cfg = timings["float32"]  # the main path's wire
@@ -3748,12 +4090,13 @@ def main() -> None:
             "route": "cuda",
             "source": PACK_SRC,
             "replaces": f"src/repro/kernels/comm_pack/kernel.py:{src_line}",
-            # phases 3, 3b-3h, 4 and 5 (their training steps), each counted
-            # from 0 around its own runs
+            # phases 3, 3b-3j, 4 and 5 (their training steps) and 9d's training
+            # example, each counted from 0 around its own runs
             "launches": (counts[f"{name}_launches"] + rg_counts[f"{name}_launches"]
                          + rwkv_counts[f"{name}_launches"]
                          + sum(c[f"{name}_launches"] for c in new_counts.values())
-                         + p4_counts[f"{name}_arena"] + p5_counts[f"{name}_arena"]),
+                         + p4_counts[f"{name}_arena"] + p5_counts[f"{name}_arena"]
+                         + p9[f"{name}_launches"]),
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

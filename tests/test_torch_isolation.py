@@ -59,7 +59,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.serving", "repro_torch.serving.engine",
                 "repro_torch.serving.resilience", "repro_torch.serving.fleet",
                 "repro_torch.launch.serve_fleet", "repro_torch.configs.musicgen_large",
-                "repro_torch.configs.qwen2_vl_2b"):
+                "repro_torch.configs.qwen2_vl_2b", "repro_torch.sim", "repro_torch.sim.events",
+                "repro_torch.sim.cluster", "repro_torch.sim.replay", "repro_torch.sim.report",
+                "repro_torch.sim.calibrate", "repro_torch.configs.cnn_profiles",
+                "repro_torch.launch.simulate"):
         assert mod in rec["modules"]
 
 
@@ -144,7 +147,7 @@ def test_model_defaults_to_cuda(monkeypatch):
     "repro_torch.kernels.comm_pack", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.rglru", "repro_torch.kernels.rwkv6_wkv", "repro_torch.kernels",
     "repro_torch.models", "repro_torch.optim", "repro_torch.runtime", "repro_torch.checkpoint",
-    "repro_torch.serving",
+    "repro_torch.serving", "repro_torch.sim",
 ])
 def test_public_exports_have_docstrings(modname):
     """As the JAX package's docs-check: every exported class and function
