@@ -375,6 +375,28 @@ step could hide a kernel fault.
    ``examples/torch_elastic_restart.py`` (one restart, resumed tokens ==
    the unbroken run's), each one's seconds printed.
 
+10. The dry run (``repro_torch.launch.dryrun``; host time, plus one rank's
+   segment on the card).  10a: three cells through the CLI, each ``python
+   -m repro_torch.launch.dryrun ... --fabric gpu_nccl`` in a subprocess on a
+   fake process group, all three started together: TinyLlama-1.1B x
+   train_4k x 16x16 (FSDP / DP, the train plan), DBRX-132B x decode_32k x
+   16x16 (EP all-to-all, ``experts_only``, the serve plan) and
+   RecurrentGemma-9B x long_500k x 2x16x16 (batch 1, sequence-sharded
+   caches).  Gates: exit 0, each record read back with the JAX record's
+   keys, ``peak_per_device_gib`` printed; its dominant term, roofline
+   fraction and the plan's groups are printed.  10b, on the card meanwhile:
+   one rank's TinyLlama train_4k stage segment (batch 1 x 4096, full width,
+   plain attention, remat off) under ``FlopCounterMode`` must count exactly
+   10a's per-device stage flops, and its ``max_memory_allocated`` must lie
+   within 20% of ``MemTracker``'s peak for the same segment on fake CUDA
+   tensors (``DRYRUN_MEM_TOL``: ATen's own copies inside CUDA kernels are
+   not seen by a dispatch mode); with ``attn_impl='flash'`` and remat the segment launches B3 /
+   B4 / B5 2 / 1 / 1 times at (1, 4096, 32/4, hd 64) and takes no plain
+   call, and is timed beside its roofline term; the three kernels are held
+   against their plain versions at that shape (1b's tolerances) and timed
+   beside SDPA, a row of their own in the ``kernels`` line.  The records
+   and logs go to ``build/phase10``.
+
 The lines before the last are the card's name and power limit, the build
 time, one line per phase result, and one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
@@ -397,7 +419,9 @@ Python (with its replays), each timed as phase 6's row for the same shapes.
 Phase 8 adds two B3 rows: its prefills at TinyLlama's serve shape (8a's
 engines and 8c's launcher runs) and at Mixtral's (8b's), timed in phase 8.
 B1 / B2 also count 9d's training example's launches; its flash launches, at
-the reduced shape, are printed on phase 9's line and are no row's.
+the reduced shape, are printed on phase 9's line and are no row's.  Phase
+10b adds a B3-B5 row at (1, 4096, 32/4, hd 64), its launches those of one
+flash segment run.
 """
 
 from __future__ import annotations
@@ -465,6 +489,27 @@ NEW_ATTN = [
     ("musicgen-large", (1, 4096, 32, 32, 64, True, None, None)),
     ("qwen2-vl-2b", (1, 4096, 12, 2, 128, True, None, None)),
 ]
+#: Phase 10a: the dry run's cells, (arch, shape, extra CLI flags), each run in a
+#: subprocess on a fake world of 256 (16x16) or 512 (2x16x16) ranks.
+DRYRUN_CELLS = (
+    ("tinyllama-1.1b", "train_4k", ()),
+    ("dbrx-132b", "decode_32k", ()),
+    ("recurrentgemma-9b", "long_500k", ("--multi-pod",)),
+)
+#: The JAX dry-run record's keys (``repro/launch/dryrun.py``); a train cell
+#: adds ``plan``, a decode cell ``serve_plan``.
+DRYRUN_KEYS = {"arch", "shape", "mesh", "n_devices", "fsdp_data", "n_microbatches", "compile_s",
+               "memory", "whole_program", "segments", "totals"}
+DRYRUN_OUT = ROOT / "build" / "phase10"
+#: Phase 10b: one rank's TinyLlama train_4k stage (batch 1 of the 256-way
+#: batch, 4096 tokens) and its attention, B, S, Hq, Hkv, hd, causal, window,
+#: softcap.
+SHAPE_TRAIN_4K_SEQ = 4096
+DRYRUN_ATTN = (1, 4096, 32, 4, 64, True, None, None)
+#: Real max_memory_allocated against MemTracker's peak on fake tensors: ATen's
+#: CUDA kernels make copies of their own (a batched product's operands made
+#: contiguous) that no dispatch mode sees; +15.1% in the first reading.
+DRYRUN_MEM_TOL = 0.20
 #: Phases 3d-3j: tag, arch, depth override, launcher flags past the common
 #: ones.  Every width is the published one; the depth cuts keep the static
 #: bytes under the card's 80 GB (PERF.md section 4 reckons them).
@@ -3976,6 +4021,186 @@ def phase_sim(device, p4, cell6a, card) -> dict:
     return {"t_iter": t_iter, "whatif": whatif, "serve": serve, **examples}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the dry run (fake 256 / 512-rank worlds) and one rank's segment
+# ---------------------------------------------------------------------------
+
+
+def start_dryrun_cells() -> list:
+    """Phase 10a's three CLI runs, started together, each in its own process
+    (``--fabric gpu_nccl``, a record under ``build/phase10``), output to a
+    log file beside it."""
+    import os
+
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    cells = []
+    for arch, shape, extra in DRYRUN_CELLS:
+        tag = f"{arch}__{shape}"
+        out, log = DRYRUN_OUT / f"{tag}.json", DRYRUN_OUT / f"{tag}.log"
+        out.unlink(missing_ok=True)
+        with open(log, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                 *extra, "--fabric", "gpu_nccl", "--out", str(out)],
+                stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+        cells.append({"arch": arch, "shape": shape, "proc": proc, "out": out, "log": log,
+                      "t0": time.perf_counter()})
+    return cells
+
+
+def finish_dryrun_cells(cells, timeout: float = 300.0) -> dict:
+    """Wait for phase 10a's runs (killing any still running at the end) and
+    hold each record to the gates: exit 0, the JAX record's keys, the peak
+    printed.  Returns ``{arch: record}``."""
+    records = {}
+    try:
+        for c in cells:
+            rc = c["proc"].wait(timeout=max(1.0, timeout - (time.perf_counter() - c["t0"])))
+            secs = time.perf_counter() - c["t0"]
+            text = c["log"].read_text()
+            if rc != 0:
+                fail(f"phase 10a: {c['arch']} x {c['shape']}: exit {rc}\n{text[-3000:]}")
+            rec = json.loads(c["out"].read_text())
+            keys = DRYRUN_KEYS | ({"plan"} if rec["shape"] == "train_4k" else {"serve_plan"})
+            if set(rec) != keys:
+                fail(f"phase 10a: {c['arch']}: record keys {sorted(rec)} != the JAX record's "
+                     f"{sorted(keys)}")
+            if "peak_per_device_gib" not in text:
+                fail(f"phase 10a: {c['arch']}: no peak_per_device_gib printed")
+            mem, tot = rec["memory"], rec["totals"]
+            groups = (rec["plan"]["analytic"]["schedule"]["groups"] if "plan" in rec
+                      else rec["serve_plan"]["schedule"]["groups"])
+            say(f"phase 10a: {c['arch']} x {c['shape']} x {rec['mesh']} ({rec['n_devices']} fake "
+                f"ranks): {secs:.1f} s; peak_per_device_gib {mem['peak_per_device_gib']} "
+                f"({mem['peak_per_device_gib'] * 2**30 / 80e9:.1%} of 80 GB); whole step "
+                f"{rec['whole_program']['flops_per_device']:.6e} flops/device, collectives "
+                f"{rec['whole_program']['collectives']['counts']}; dominant {tot['dominant']}, "
+                f"roofline_fraction {tot['roofline_fraction']:.6f}, bound "
+                f"{tot['roofline_bound_s']:.6e} s; plan groups ({len(groups)}) {groups}")
+            records[c["arch"]] = rec
+    finally:
+        for c in cells:
+            if c["proc"].poll() is None:
+                c["proc"].kill()
+                c["proc"].wait()
+    return records
+
+
+def _mem_tracker_peak(tracker) -> int:
+    return int(sum(v["Total"] for dev, v in tracker.get_tracker_snapshot("peak").items()
+                   if str(dev) != "meta"))
+
+
+def dryrun_segment_on_card(device) -> dict:
+    """Phase 10b's work on the card: one rank's TinyLlama train_4k stage
+    segment (batch 1 x 4096, full width, plain attention, remat off, as the
+    dry run counts it) under ``FlopCounterMode``, its peak allocated memory
+    and ``MemTracker``'s peak for the same segment on fake CUDA tensors; then
+    with ``attn_impl='flash'`` and remat, B3 / B4 / B5 at (1, 4096, 32/4, hd
+    64): their launches in one segment, the segment's time, and the kernels
+    checked and timed at that shape."""
+    import dataclasses
+
+    import torch
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.segments import fake_tensors, stage_train_local
+    from repro_torch.launch.specs import arch_config_for_shape
+
+    cfg = arch_config_for_shape("tinyllama-1.1b", "train_4k", cost_mode=True)
+    B, S = 1, SHAPE_TRAIN_4K_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run = stage_train_local(cfg, B, S, device, seed=0)
+    with FlopCounterMode(display=False) as fc:
+        run()
+    torch.cuda.synchronize()
+    out = {"flops": int(fc.get_total_flops()),
+           "peak_bytes": int(torch.cuda.max_memory_allocated() - m0)}
+    say(f"phase 10b: the stage segment on the card: {out['flops']} flops, peak "
+        f"{out['peak_bytes']} B")
+    del run
+    torch.cuda.empty_cache()
+    with fake_tensors():
+        tracker = MemTracker()
+        with tracker:
+            stage_train_local(cfg, B, S, device, seed=None)()
+    out["fake_peak_bytes"] = _mem_tracker_peak(tracker)
+    say(f"phase 10b: MemTracker's peak of the same segment on fake tensors: "
+        f"{out['fake_peak_bytes']} B")
+
+    # the same segment with the flash kernels, under remat as the trainer runs it
+    run = stage_train_local(dataclasses.replace(cfg, attn_impl="flash"), B, S, device, remat=True,
+                            seed=1)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    run()
+    torch.cuda.synchronize()
+    out["launches"] = {name: fn.launches for name, fn in (
+        ("fwd", fa.flash_attention_fwd), ("dq", fa.flash_attention_dq),
+        ("dkv", fa.flash_attention_dkv))}
+    out["plain_calls"] = sum(fn.ref_calls for fn in (
+        fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv))
+    out["segment_ms"] = median_ms(run, reps=7, warmup=1)
+    say(f"phase 10b: the flash segment: launches {out['launches']}, {out['segment_ms']:.4f} ms")
+    del run
+    torch.cuda.empty_cache()
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    rel = {}
+    check_flash_case(DRYRUN_ATTN, torch.bfloat16, device, 90, errs, rel=rel)
+    torch.cuda.empty_cache()
+    fb = check_fwd_bwd(DRYRUN_ATTN, device, 91)
+    torch.cuda.empty_cache()
+    say(f"phase 10b: flash fwd/dQ/dK-dV at {DRYRUN_ATTN[:5]} bf16 within tolerance of the plain "
+        f"versions (max |diff| fwd {errs['fwd']:.3e}, dq {errs['dq']:.3e}, dkv {errs['dkv']:.3e}; "
+        f"max |diff| / max|want| {fmt_rel(rel)}); fwd -> bwd through the kernels' own (o, lse): "
+        f"{fmt_rel(fb)} (<= 1e-2)")
+    out["errs"] = errs
+    out["timings"] = time_flash(DRYRUN_ATTN, device, 92, "phase 10b", plain_reps=3)
+    fa.reset_counts()
+    return out
+
+
+def phase_dryrun(device) -> dict:
+    """Phase 10: the dry-run CLI's three cells on fake worlds (10a, on the
+    host, in subprocesses started first) while one rank's stage segment runs
+    for real on the card (10b); then 10b's gates against 10a's record."""
+    cells = start_dryrun_cells()
+    try:
+        seg = dryrun_segment_on_card(device)
+    finally:
+        records = finish_dryrun_cells(cells)
+    stage = records["tinyllama-1.1b"]["segments"]["stage"]
+    if seg["flops"] != stage["flops"]:
+        fail(f"phase 10b: the card's stage segment counts {seg['flops']} flops, the fake world's "
+             f"per-device count is {stage['flops']}")
+    real, fake = seg["peak_bytes"], seg["fake_peak_bytes"]
+    if not abs(real - fake) <= DRYRUN_MEM_TOL * fake:
+        fail(f"phase 10b: max_memory_allocated {real} B is not within {DRYRUN_MEM_TOL:.0%} of "
+             f"MemTracker's fake peak {fake} B")
+    if seg["launches"] != {"fwd": 2, "dq": 1, "dkv": 1} or seg["plain_calls"]:
+        fail(f"phase 10b: flash launches {seg['launches']} and {seg['plain_calls']} plain calls in "
+             f"one remat segment, expected 2 / 1 / 1 and none")
+    t_ops = stage["flops"] / PEAK_FLOPS["bfloat16"]
+    t_bytes = stage["bytes_accessed"] / HBM_BYTES_PER_S
+    say(f"phase 10b: one rank's TinyLlama train_4k stage (1 x {SHAPE_TRAIN_4K_SEQ}, plain "
+        f"attention): {seg['flops']} flops = the fake world's per-device count; "
+        f"max_memory_allocated {real / 2**30:.4f} GiB against MemTracker's fake peak "
+        f"{fake / 2**30:.4f} GiB ({(real - fake) / fake:+.2%}, within {DRYRUN_MEM_TOL:.0%})")
+    say(f"phase 10b: the flash segment (remat): B3 / B4 / B5 launches {seg['launches']['fwd']} / "
+        f"{seg['launches']['dq']} / {seg['launches']['dkv']}, 0 plain calls; "
+        f"{seg['segment_ms']:.4f} ms against its roofline term {max(t_ops, t_bytes) * 1e3:.4f} ms "
+        f"(the counted segment's flops / 989 TFLOP/s {t_ops * 1e3:.4f} ms, its unfused bytes / "
+        f"3.35 TB/s {t_bytes * 1e3:.4f} ms)")
+    return seg
+
+
 def demangle(names: list[str]) -> list[str]:
     """Kernel names as ``name<template arguments>`` (c++filt, where the
     machine has it; else as ptxas gave them)."""
@@ -4079,6 +4304,8 @@ def main() -> None:
     p8 = phase_sharded(device)
     p9 = phase_sim(device, p4_sim, serve_cells["phase 6a"], card)
     took("phases 8-9")
+    p10 = phase_dryrun(device)
+    took("phase 10")
     say(f"all phases, the build included: {time.perf_counter() - t_start:.1f} s")
 
     main_cfg = timings["float32"]  # the main path's wire
@@ -4272,6 +4499,18 @@ def main() -> None:
             "name": name, "kernel": "flash_fwd_sm90", "route": "cuda", "source": FLASH_SM90_SRC,
             "replaces": "src/repro/kernels/flash_attention/kernel.py:40", "launches": launches,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    # phase 10b: B3-B5 in one rank's train_4k stage segment (its remat run)
+    for name, replaces in (("fwd", "src/repro/kernels/flash_attention/kernel.py:40"),
+                           ("dq", "src/repro/kernels/flash_attention/kernel_bwd.py:53"),
+                           ("dkv", "src/repro/kernels/flash_attention/kernel_bwd.py:89")):
+        t = p10["timings"][name]
+        kernels.append({
+            "name": f"flash_attention.{name}[dryrun stage tinyllama]",
+            "kernel": f"flash_{name}_sm90", "route": "cuda", "source": FLASH_SM90_SRC,
+            "replaces": replaces, "launches": p10["launches"][name],
+            "max_abs_err": p10["errs"][name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

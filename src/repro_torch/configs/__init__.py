@@ -3,10 +3,10 @@
 ``get_config(name)`` returns the full ArchConfig, ``get_reduced(name)`` a
 small same-family variant for CPU tests; keyword overrides replace fields
 of either, as the JAX registry's do.  The names are the JAX package's, and
-all ten archs are ported.  The JAX configs' MoE knobs
-``moe_groups`` (dispatch groups per token shard, set by its launcher under
-expert parallelism) and ``moe_token_chunk`` (a legacy field nothing reads)
-are left out: the port routes every token as one group.
+all ten archs are ported.  ``moe_groups`` (the GShard dispatch groups,
+one group unless the dry run sets one per token shard) is a field as in
+the JAX configs; ``moe_token_chunk``, a legacy field nothing reads, is
+left out.
 """
 
 from __future__ import annotations

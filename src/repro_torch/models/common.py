@@ -3,9 +3,11 @@ with torch dtypes.
 
 Every option of the JAX package's ten archs is a field: the embeds-input
 archs (MusicGen, Qwen2-VL) bring ``input_mode``, ``Attention.rope`` /
-``mrope_sections`` and ``qk_norm``.  The JAX configs' implementation knobs
-that the port has no use for (``moe_groups``, ``moe_token_chunk``,
-``chunk_impl``) are left out.
+``mrope_sections`` and ``qk_norm``.  Of the JAX configs' implementation knobs, ``moe_groups``
+(the GShard dispatch groups, set per token shard by the dry run) is kept;
+``moe_token_chunk`` (a legacy field nothing reads) and ``chunk_impl`` (how
+XLA lowers the attention's query chunks) have no use in the port and are
+left out.
 """
 
 from __future__ import annotations
@@ -94,6 +96,7 @@ class ArchConfig:
     local_window: int = 4096
     # implementation knobs (not architecture):
     q_chunk: int = 256  # query chunk of the plain attention path
+    moe_groups: int = 1  # GShard dispatch groups (the token shards under the dry run's rules)
     rec_chunk: int = 128  # the JAX package's time chunk for chunked recurrences
     attn_impl: str = "flash"  # 'flash' (the flash-attention kernels) | 'plain'
     remat: str = "full"  # 'full' (torch.utils.checkpoint per layer) | 'none'

@@ -37,6 +37,14 @@ prefill stores the trailing ``min(S, T)`` keys at slots ``0..``; the two
 agree wherever ``S <= T`` or ``S % T == 0``, and elsewhere the JAX
 decode overwrites a key still inside the window (a fact about the
 reference; the port keeps the aligned ring on purpose).
+
+The JAX blocks' ``constrain(...)`` sites are ``parallel.context.constrain``
+calls at the same tensors: the identity off-context, a redistribution of a
+DTensor under the dry run's context.  Under ``prefer='tp'`` the attention
+block repeats K/V to the full head count before the heads shard over the
+model axis, and under ``prefer='seq_tp'`` a self-attention prefill splits
+its query rows into model-axis blocks (``gqa_attention``), as the JAX
+layers do; neither changes a number.
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention, flash_attention_train
+from ..parallel.context import constrain, current, tp_active, tp_size
+from ..parallel.sharding import is_dtensor
 from .common import ArchConfig, Attention
 
 ATTN_IMPLS = ("flash", "plain")
@@ -210,7 +220,9 @@ def gqa_attention(
     ``jnp.einsum`` promotes them (bf16 queries over an f32 cache).
 
     Each chunk of ``q_chunk`` queries sees every key, so the softmax is
-    the full row softmax; the chunking only bounds score memory."""
+    the full row softmax; the chunking only bounds score memory.  Under a
+    ``prefer='seq_tp'`` sharding context a self-attention prefill instead
+    splits the rows into model-axis blocks (``_seq_tp_attention``)."""
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -220,6 +232,10 @@ def gqa_attention(
     scale = hd ** -0.5
     if kpos is None:
         kpos = torch.arange(T, device=q.device)
+    ctx = current()
+    if ctx is not None and _seq_tp_applies(ctx, B, S, T, Hq):
+        return _seq_tp_attention(qg, k, v, kpos, ctx.model_size, scale, window=window,
+                                 softcap=softcap, q_offset=q_offset, out_dtype=q.dtype)
 
     def one_chunk(start: int, n: int) -> torch.Tensor:
         qs = qg[:, start : start + n]
@@ -239,6 +255,86 @@ def gqa_attention(
     # a last, shorter chunk takes a length that q_chunk does not divide
     chunks = [one_chunk(s, min(q_chunk, S - s)) for s in range(0, S, q_chunk)]
     return torch.cat(chunks, dim=1).reshape(B, S, Hq, hd)
+
+
+def _seq_tp_applies(ctx, B: int, S: int, T: int, Hq: int) -> bool:
+    """The JAX rule for sequence-TP (a prefill on a non-EP arch leaves the
+    model axis idle): a self-attention prefill whose length the model axis
+    divides, and whose per-shard (S / model, T) f32 score block stays under
+    8 GiB."""
+    if ctx.prefer != "seq_tp" or ctx.model_axis is None or not ctx.batch_axes:
+        return False
+    seq_tp_bytes = max(1, B // ctx.data_size) * Hq * (S // ctx.model_size) * T * 4
+    return S % ctx.model_size == 0 and S > 1 and S == T and 0 < seq_tp_bytes < 8 * 2**30
+
+
+def _seq_tp_attention(qg, k, v, kpos, nc: int, scale: float, *, window, softcap, q_offset,
+                      out_dtype):
+    """Every one of ``nc`` row blocks (sharded over the model axis) against
+    all the keys: the scores of the whole block at once, the same full-row
+    softmax as the chunked path."""
+    B, S, Hkv, G, hd = qg.shape
+    T = k.shape[1]
+    chunk = S // nc
+    qb = constrain(qg.reshape(B, nc, chunk, Hkv, G, hd), {0: "batch", 1: "model"})
+    scores = torch.einsum("bnckgh,btkh->bnkgct", qb, k).float() * scale
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    qpos = (q_offset + (torch.arange(nc, device=qg.device) * chunk)[:, None]
+            + torch.arange(chunk, device=qg.device)[None, :])  # (nc, chunk)
+    mask = qpos[..., None] >= kpos[None, None, :]
+    if window is not None:
+        mask &= (qpos[..., None] - kpos[None, None, :]) < window
+    scores = scores.masked_fill(~mask[None, :, None, None], -1e30)
+    p = torch.softmax(scores, dim=-1).to(out_dtype).to(qg.dtype)
+    o = torch.einsum("bnkgct,btkh->bnckgh", p, v)
+    return o.reshape(B, S, Hkv * G, hd)
+
+
+def write_rows(dst: torch.Tensor, dim: int, slots: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.index_copy_(dim, slots, src)`` for distinct ``slots``.  On a
+    DTensor ``dst`` (the dry run's caches, their sequence dim sharded over
+    the model axis) DTensor's in-place ``index_copy_`` would change the
+    placement under the local shard, so each shard writes the slots it owns
+    in a ``local_map`` region instead (``src`` replicated along ``dim``
+    first); a single slot (decode) reads and writes one row per shard."""
+    if not is_dtensor(dst):
+        dst.index_copy_(dim, slots, src)
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = dst.device_mesh, tuple(dst.placements)
+    size, offset = dst.shape[dim], 0
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(pl):  # nested shards of dim, major to minor
+        if p.is_shard(dim):
+            size //= mesh.size(i)
+            offset += coord[i] * size
+
+    def write(local, rows, slots):
+        loc = slots.to(torch.long) - offset
+        if slots.numel() == 1:
+            owned = (loc >= 0) & (loc < size)
+            at = loc.clamp(0, size - 1)
+            shape = [1] * local.dim()
+            shape[dim] = 1
+            old = local.index_select(dim, at)
+            local.index_copy_(dim, at, torch.where(owned.reshape(shape), rows.to(local.dtype), old))
+            return
+        inv = torch.full((max(int(dst.shape[dim]), 1),), -1, dtype=torch.long, device=local.device)
+        inv[slots.to(torch.long)] = torch.arange(slots.numel(), device=local.device)
+        which = inv[offset : offset + size]  # the row of src each owned slot takes, -1: none
+        shape = [1] * local.dim()
+        shape[dim] = size
+        new = rows.index_select(dim, which.clamp(min=0)).to(local.dtype)
+        local.copy_(torch.where((which >= 0).reshape(shape), new, local))
+
+    src_pl = tuple(Replicate() if p.is_shard(dim) else p for p in pl)
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    local_map(write, out_placements=None, in_placements=(pl, src_pl, None), device_mesh=mesh,
+              redistribute_inputs=True)(dst, src, slots)
 
 
 class AttentionBlock(nn.Module):
@@ -285,9 +381,18 @@ class AttentionBlock(nn.Module):
                 q_offset: torch.Tensor | int = 0):
         att = self.att
         B, S, _ = x.shape
-        q = (x @ self.wq).reshape(B, S, att.n_heads, att.head_dim)
+        x = constrain(x, {0: "batch"})
+        q = constrain((x @ self.wq).reshape(B, S, att.n_heads, att.head_dim),
+                      {0: "batch", 2: "model"})
         k = (x @ self.wk).reshape(B, S, att.n_kv_heads, att.head_dim)
         v = (x @ self.wv).reshape(B, S, att.n_kv_heads, att.head_dim)
+        if tp_active() and kv_cache is None and att.n_heads % tp_size() == 0:
+            # TP: K/V at the full head count, so the (KV, G) split never
+            # fights the head sharding (Megatron-style, G x the K/V reads)
+            grp = att.n_heads // att.n_kv_heads
+            k, v = k.repeat_interleave(grp, dim=2), v.repeat_interleave(grp, dim=2)
+        k = constrain(k, {0: "batch", 2: "model"})
+        v = constrain(v, {0: "batch", 2: "model"})
         q, k = self._qk_positions(q, k, positions)
         if kv_cache is not None:
             return self._cached(x, q, k, v, kv_cache, q_offset)
@@ -297,7 +402,7 @@ class AttentionBlock(nn.Module):
         else:
             o = gqa_attention(q, k, v, window=self.window, softcap=att.softcap,
                               q_chunk=self.cfg.q_chunk)
-        return o.reshape(B, S, -1).to(x.dtype) @ self.wo, None
+        return constrain(o.reshape(B, S, -1).to(x.dtype) @ self.wo, {0: "batch"}), None
 
     def _cached(self, x, q, k, v, kv_cache, q_offset):
         ck, cv, ckpos = kv_cache
@@ -307,9 +412,9 @@ class AttentionBlock(nn.Module):
         if S == 1:  # decode: store this token's k/v, attend over the cache
             pos = torch.as_tensor(q_offset, device=x.device).reshape(1).long()
             idx = pos % Tc if self.window else torch.clamp(pos, max=Tc - 1)
-            ck.index_copy_(1, idx, k.to(ck.dtype))
-            cv.index_copy_(1, idx, v.to(cv.dtype))
-            ckpos.index_copy_(0, idx, pos.to(ckpos.dtype))
+            write_rows(ck, 1, idx, k.to(ck.dtype))
+            write_rows(cv, 1, idx, v.to(cv.dtype))
+            write_rows(ckpos, 0, idx, pos.to(ckpos.dtype))
             o = gqa_attention(q, ck, cv, window=self.window, softcap=att.softcap,
                               q_chunk=self.cfg.q_chunk, q_offset=q_offset, kpos=ckpos)
         else:  # prefill: attend over its own k/v, then store the window's keys
@@ -324,11 +429,11 @@ class AttentionBlock(nn.Module):
             keep = min(S, Tc)
             pos = torch.arange(S - keep, S, device=x.device)
             slot = pos % Tc  # aligned: slot p % Tc holds position p
-            ck.index_copy_(1, slot, k[:, S - keep:].to(ck.dtype))
-            cv.index_copy_(1, slot, v[:, S - keep:].to(cv.dtype))
+            write_rows(ck, 1, slot, k[:, S - keep:].to(ck.dtype))
+            write_rows(cv, 1, slot, v[:, S - keep:].to(cv.dtype))
             ckpos.fill_(KPOS_EMPTY)
-            ckpos.index_copy_(0, slot, pos.to(ckpos.dtype))
-        return o.reshape(B, S, -1).to(x.dtype) @ self.wo, (ck, cv, ckpos)
+            write_rows(ckpos, 0, slot, pos.to(ckpos.dtype))
+        return constrain(o.reshape(B, S, -1).to(x.dtype) @ self.wo, {0: "batch"}), (ck, cv, ckpos)
 
 
 class MLP(nn.Module):
@@ -347,11 +452,17 @@ class MLP(nn.Module):
         self.kind = cfg.mlp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Megatron-style TP under a context: the hidden dim shards over
+        # 'model', and w_down's contraction reduces over it
+        x = constrain(x, {0: "batch"})
+        tp = {0: "batch", 2: "model"}
         if self.kind == "gelu":
-            return F.gelu(x @ self.w_up, approximate="tanh") @ self.w_down
-        z = x @ self.w_gate
-        act = F.gelu(z, approximate="tanh") if self.kind == "geglu" else F.silu(z)
-        return (act * (x @ self.w_up)) @ self.w_down
+            h = constrain(F.gelu(x @ self.w_up, approximate="tanh"), tp)
+        else:
+            z = x @ self.w_gate
+            act = F.gelu(z, approximate="tanh") if self.kind == "geglu" else F.silu(z)
+            h = constrain(act, tp) * constrain(x @ self.w_up, tp)
+        return constrain(h @ self.w_down, {0: "batch"})
 
 
 def softcap_logits(logits: torch.Tensor, cap: float | None) -> torch.Tensor:

@@ -1,13 +1,13 @@
 """Mixture-of-experts FFN (counterpart of ``repro/models/moe.py``): top-k
 routing with GShard-style grouped capacity dispatch [arXiv:2006.16668].
 
-The block routes all T = B*S tokens as one GShard group (the JAX
-``moe_block`` at its default ``moe_groups=1``) into expert buffers of
-capacity ``C = _capacity(T)``, through a dispatch one-hot (1, T, E, C).
-The JAX package sets more groups only per token shard under expert
-parallelism, which the port does not have yet; ``route`` already takes
-any leading group dimension.  The arithmetic is the JAX ``moe_block``'s,
-step for step:
+The block routes the T = B*S tokens as G = ``cfg.moe_groups`` GShard
+groups of T / G tokens (one group when G does not divide T), each into its
+own expert buffers of capacity ``C = _capacity(T / G)``, through a dispatch
+one-hot (G, T/G, E, C).  The dry run sets G to the token-shard count
+(``launch.specs.moe_groups_for``), so every group is shard-local; the
+trainer and the engine run at the default G = 1.  The arithmetic is the JAX
+``moe_block``'s, step for step:
 
 * the router in f32 (``x.float() @ router``), a softmax, the top-k
   choices (``torch.topk(..., sorted=True)``, as ``lax.top_k``), the gates
@@ -21,11 +21,14 @@ step for step:
 * the Switch/GShard load-balance aux ``E * sum(frac * mean_prob)``, where
   ``frac`` counts every choice, dropped ones too.
 
-The JAX block's ``constrain(...)`` calls and its ``decode_ep`` branch only
-place data on a mesh; on one device they change no arithmetic, and they are
-not ported (expert parallelism comes with ``parallel/``).  The einsums are
-plain matrix products, as in the JAX package, which runs them outside any
-Pallas kernel.
+The JAX block's ``constrain(...)`` sites are ``parallel.context.constrain``
+calls, the identity off-context.  Under the dry run's context the
+dispatch buffers (G, E, C, D) shard G over the batch axes and E over the
+model axis (EP: the reshard is the MoE all-to-all); at T <= 4096 tokens
+(``decode_ep``) the tokens are replicated and the weights' contraction
+dims shard over the data axes instead.  These sites place data; they
+change no arithmetic.  The einsums are plain matrix products, as in the
+JAX package, which runs them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.context import constrain
 from .common import ArchConfig, MoE
 
 
@@ -76,10 +80,15 @@ class MoEBlock(nn.Module):
         cfg, moe = self.cfg, self.cfg.moe
         B, S, D = x.shape
         T = B * S
-        C = _capacity(T, moe)
+        G = cfg.moe_groups if T % cfg.moe_groups == 0 else 1
+        tg = T // G
+        C = _capacity(tg, moe)
         E = moe.n_experts
 
-        xt = x.reshape(1, T, D)
+        # decode-EP: at tiny token counts replicate the tokens and shard the
+        # weights' contraction dims over the data axes (see the docstring)
+        decode_ep = T <= 4096 and E >= 2
+        xt = constrain(x.reshape(G, tg, D), {2: "data"} if decode_ep else {0: "batch"})
         probs = torch.softmax(xt.float() @ self.router, dim=-1)  # (G, tg, E)
         gate_vals, gate_idx, pos, keep = route(probs, moe, C)
         disp = (F.one_hot(gate_idx, E).to(x.dtype)[..., None]
@@ -87,11 +96,15 @@ class MoEBlock(nn.Module):
         combine = torch.sum(disp * gate_vals[..., None, None].to(x.dtype), dim=2)
         disp = torch.sum(disp, dim=2)  # (G, tg, E, C)
 
-        xe = torch.einsum("gtec,gtd->gecd", disp, xt)
+        # dispatch -> (G, E, C, D); EP reshards G@batch -> E@model (all-to-all)
+        buf = {1: "expert", 3: "data"} if decode_ep else {0: "batch", 1: "expert"}
+        xe = constrain(torch.einsum("gtec,gtd->gecd", disp, xt), buf)
         h = F.silu(torch.einsum("gecd,edf->gecf", xe, self.w_gate))
-        h = h * torch.einsum("gecd,edf->gecf", xe, self.w_up)
-        ye = torch.einsum("gecf,efd->gecd", h, self.w_down)
-        out = torch.einsum("gecd,gtec->gtd", ye, combine).reshape(B, S, D)
+        h = constrain(h * torch.einsum("gecd,edf->gecf", xe, self.w_up), buf)
+        ye = constrain(torch.einsum("gecf,efd->gecd", h, self.w_down),
+                       {1: "expert"} if decode_ep else buf)
+        out = torch.einsum("gecd,gtec->gtd", ye, combine)
+        out = constrain(out, {0: "batch"}).reshape(B, S, D)
 
         frac = torch.mean(torch.sum(F.one_hot(gate_idx, E).float(), dim=2), dim=(0, 1))
         mean_prob = torch.mean(probs, dim=(0, 1))

@@ -28,6 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rglru import rglru
+from ..kernels.rglru.ref import rglru_scan_ref
+from ..parallel.context import constrain
+from ..parallel.sharding import is_dtensor, on_local_shards
 from .common import ArchConfig
 
 RGLRU_C = 8.0
@@ -66,11 +69,12 @@ class RGLRUBlock(nn.Module):
         state).  Without ``state`` (training) the conv starts from zeros, the
         recurrence from h0 = None, and the new state is None; with it, the
         state's tensors are read and then overwritten in place."""
-        gate = F.gelu(x @ self.w_gate, approximate="tanh")
+        gate = constrain(F.gelu(x @ self.w_gate, approximate="tanh"), {0: "batch", 2: "model"})
+        main = constrain(x @ self.w_main, {0: "batch", 2: "model"})
         conv_state = None if state is None else state["conv"]
-        main, new_conv = causal_conv1d(x @ self.w_main, self.conv_w, self.conv_b, conv_state)
+        main, new_conv = causal_conv1d(main, self.conv_w, self.conv_b, conv_state)
         rec, new_h = rglru_scan(main, self, None if state is None else state["h"])
-        out = (rec * gate) @ self.w_out
+        out = constrain((rec * gate) @ self.w_out, {0: "batch"})
         if state is None:
             return out, None
         state["conv"].copy_(new_conv)
@@ -103,7 +107,13 @@ def rglru_scan(x: torch.Tensor, p: RGLRUBlock,
     log_a = -RGLRU_C * F.softplus(p.lam) * r  # (B, T, W), <= 0
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * xf)
-    h, hT = rglru(a, gated, None if h0 is None else h0.float())
+    h0 = None if h0 is None else h0.float()
+    if not is_dtensor(a):
+        h, hT = rglru(a, gated, h0)
+    else:  # a DTensor (the dry run): the JAX model's associative scan, on each
+        # rank's (batch, width) shard, differentiated by autograd
+        h, hT = on_local_shards(rglru_scan_ref, a, (a, gated, h0),
+                                ((0, 1, 2), (0, 1, 2), (0, 2)), ((0, 1, 2), (0, 2)))
     return h.to(x.dtype), hT
 
 

@@ -25,11 +25,15 @@ step runs the kernels at T = 1.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rwkv6_wkv import wkv
+from ..parallel.context import constrain
+from ..parallel.sharding import is_dtensor, on_local_shards
 from .common import ArchConfig
 from .layers import LayerNorm
 
@@ -65,7 +69,7 @@ class TimeMix(nn.Module):
         self.decay_a, self.decay_b = mk(d, LORA_DECAY), mk(LORA_DECAY, d)
         self.u = mk(d // hd, hd, dtype=torch.float32)  # per-head bonus
         self.gn_scale = mk(d)
-        self.hd = hd
+        self.hd, self.rec_chunk = hd, cfg.rec_chunk
 
     def forward(self, x: torch.Tensor, state: dict | None = None):
         """x (B, T, D), already normed by the caller -> (out (B, T, D), new
@@ -81,14 +85,23 @@ class TimeMix(nn.Module):
         mix = x[:, :, None, :] + xx[:, :, None, :] * (self.mu_rkvwg.to(x.dtype) + m.to(x.dtype))
         x_r, x_k, x_v, x_w, x_g = mix.unbind(2)
 
-        r = (x_r @ self.w_r).reshape(B, T, H, hd)
-        k = (x_k @ self.w_k).reshape(B, T, H, hd)
-        v = (x_v @ self.w_v).reshape(B, T, H, hd)
-        g = F.silu(x_g @ self.w_g)
+        r = constrain((x_r @ self.w_r).reshape(B, T, H, hd), {0: "batch", 2: "model"})
+        k = constrain((x_k @ self.w_k).reshape(B, T, H, hd), {0: "batch", 2: "model"})
+        v = constrain((x_v @ self.w_v).reshape(B, T, H, hd), {0: "batch", 2: "model"})
+        g = constrain(F.silu(x_g @ self.w_g), {0: "batch"})
         ww = torch.tanh(x_w @ self.decay_a).float() @ self.decay_b.float()
         w = torch.exp(-torch.exp(self.decay_base + ww)).reshape(B, T, H, hd)  # (0, 1)
 
-        out, s_final = wkv(r, k, v, w, self.u, None if state is None else state["wkv"])
+        s0 = None if state is None else state["wkv"]
+        if not is_dtensor(r):
+            out, s_final = wkv(r, k, v, w, self.u, s0)
+        else:  # a DTensor (the dry run): the JAX model's chunked form, on each rank's
+            # (batch, head) shard, differentiated by autograd
+            seq = (0, 1, 2, 3)
+            chunked = functools.partial(wkv_jax_chunked, chunk=self.rec_chunk)
+            out, s_final = on_local_shards(chunked, r, (r, k, v, w, self.u, s0),
+                                           (seq, seq, seq, seq, (2, 3), (0, 2, None, None)),
+                                           (seq, (0, 2, None, None)))
         # per-head group norm: population variance, eps 1e-5, no bias
         mu = torch.mean(out, dim=-1, keepdim=True)
         var = torch.var(out, dim=-1, keepdim=True, correction=0)
@@ -99,6 +112,46 @@ class TimeMix(nn.Module):
         state["shift"].copy_(x[:, -1])
         state["wkv"].copy_(s_final)
         return out, state
+
+
+def wkv_jax_chunked(r, k, v, w, u, s0=None, *, chunk: int = 128):
+    """The JAX model's chunked WKV6 (``repro/models/rwkv6.py`` ``wkv_chunked``),
+    op for op: per chunk of ``chunk`` steps the decays as cumulative products,
+    the inter-chunk product with the state, the masked intra-chunk products
+    and the bonus.  It divides by a cumulative decay (C), so the port runs it
+    only where no number is computed: the dry run's count, on ``meta``
+    shards.  ``out`` (B, T, H, K) and ``s_final`` (B, H, K, K), f32."""
+    B, T, H, K = r.shape
+    chunk = min(chunk, T)
+    T0 = T
+    if T % chunk:
+        pad = chunk - T % chunk
+        r, k, v = (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
+        w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+        T += pad
+    n = T // chunk
+
+    def chunks(a):  # (B, T, H, K) -> (N, B, H, C, K)
+        return a.float().reshape(B, n, chunk, H, K).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, wc = map(chunks, (r, k, v, w))
+    logw = torch.log(torch.clamp(wc, min=1e-30))
+    clw = torch.cumsum(logw, dim=-2)
+    S = torch.zeros(B, H, K, K, dtype=torch.float32, device=r.device) if s0 is None else s0.float()
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=r.device), diagonal=-1)
+    outs = []
+    for c in range(n):
+        w_prev, w_inc = torch.exp(clw[c] - logw[c]), torch.exp(clw[c])
+        w_end = w_inc[..., -1:, :]
+        r_t, k_t = rc[c] * w_prev, kc[c] / torch.clamp(w_inc, min=1e-30)
+        inter = torch.einsum("bhck,bhkv->bhcv", r_t, S)
+        a = torch.einsum("bhck,bhdk->bhcd", r_t, k_t)
+        intra = torch.einsum("bhcd,bhdv->bhcv", torch.where(mask, a, 0.0), vc[c])
+        diag = torch.einsum("bhck,bhck->bhc", rc[c], u[None, :, None, :] * kc[c])
+        outs.append(inter + intra + diag[..., None] * vc[c])
+        S = S * w_end.squeeze(-2)[..., :, None] + torch.einsum("bhck,bhcv->bhkv", k_t * w_end, vc[c])
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, T, H, K)
+    return out[:, :T0], S
 
 
 class ChannelMix(nn.Module):
@@ -118,8 +171,8 @@ class ChannelMix(nn.Module):
         xx = token_shift(x, state) - x
         x_k = x + xx * self.mu_k
         x_r = x + xx * self.mu_r
-        kk = torch.square(torch.relu(x_k @ self.w_k))
-        out = torch.sigmoid(x_r @ self.w_r) * (kk @ self.w_v)
+        kk = constrain(torch.square(torch.relu(x_k @ self.w_k)), {0: "batch", 2: "model"})
+        out = constrain(torch.sigmoid(x_r @ self.w_r) * (kk @ self.w_v), {0: "batch"})
         if state is None:
             return out, None
         state.copy_(x[:, -1])

@@ -312,7 +312,7 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor | None = None, caches: dict | None = None,
                 q_offset: torch.Tensor | int = 0, *, last_only: bool = False,
-                embeds: torch.Tensor | None = None):
+                embeds: torch.Tensor | None = None, act_sharding_constraint=None):
         """The serving forward (the JAX ``forward`` with ``caches``):
         ``(logits f32, new_caches, aux)``, ``hidden`` plus the head.
 
@@ -323,9 +323,11 @@ class Transformer(nn.Module):
         (None without caches).  A prefill (S > 1) starts at 0; a decode step
         feeds one token per row.  With ``last_only`` the head runs on the
         last row only (the prefill's (B, 1, vocab) logits; the JAX prefill
-        computes all rows and keeps the last)."""
+        computes all rows and keeps the last).  ``act_sharding_constraint``
+        is ``hidden``'s."""
         cfg = self.cfg
-        x, aux = self.hidden(tokens, caches, q_offset, embeds=embeds)
+        x, aux = self.hidden(tokens, caches, q_offset, embeds=embeds,
+                             act_sharding_constraint=act_sharding_constraint)
         if last_only:
             x = x[:, -1:]
         head = self.embed.T.to(cfg.param_dtype) if cfg.tie_embeddings else self.head
@@ -342,14 +344,16 @@ class Transformer(nn.Module):
         return out
 
     def hidden(self, tokens: torch.Tensor | None = None, caches: dict | None = None,
-               q_offset: torch.Tensor | int = 0, *,
-               embeds: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+               q_offset: torch.Tensor | int = 0, *, embeds: torch.Tensor | None = None,
+               act_sharding_constraint=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Final-norm hidden states (B, S, d) of the token (or embeds) batch,
         and the MoE aux summed over the layers (an f32 scalar, 0 without
         MoE).  With ``caches`` (serving, see ``forward``) every sublayer
         reads and updates its cache in place; without them (training) each
         runs under activation checkpointing when ``cfg.remat == 'full'`` and
-        gradients are on."""
+        gradients are on.  ``act_sharding_constraint`` (a callable x -> x,
+        ``parallel.sharding.act_constraint``'s) is applied to the input of
+        every stage and of the tail, as in the JAX forward."""
         cfg = self.cfg
         x = self._embed(tokens, embeds, q_offset)
         B, S = x.shape[:2]
@@ -359,6 +363,8 @@ class Transformer(nn.Module):
         remat = caches is None and cfg.remat == "full" and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for where, sub in self.named_sublayers():
+            if act_sharding_constraint is not None and _starts_stage(cfg, where):
+                x = act_sharding_constraint(x)
             if caches is None:
                 x, a = run_sublayer(sub, x, positions, remat)
             else:
@@ -367,14 +373,19 @@ class Transformer(nn.Module):
                 aux = aux + a
         return self.final_norm(x), aux
 
-    def loss(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    def loss(self, batch: dict[str, torch.Tensor], *, act_sharding_constraint=None,
+             logits_sharding_constraint=None) -> torch.Tensor:
         """Mean next-token cross-entropy plus ``MOE_AUX_COEF`` x the MoE aux
         (the JAX package's ``loss_fn``), over ``batch['tokens']`` or, when
-        the batch has no tokens, ``batch['embeds']``."""
-        x, aux = self.hidden(batch.get("tokens"), embeds=batch.get("embeds"))
+        the batch has no tokens, ``batch['embeds']``.  The two constraints
+        (None: none) are the JAX ``loss_fn``'s: ``hidden``'s between stages,
+        and one on the f32 logits (``ce_from_hidden``)."""
+        x, aux = self.hidden(batch.get("tokens"), embeds=batch.get("embeds"),
+                             act_sharding_constraint=act_sharding_constraint)
         # tied: cast once per step, outside the checkpointed loss chunks
         head = self.embed.T.to(self.cfg.param_dtype) if self.cfg.tie_embeddings else self.head
-        return ce_from_hidden(self.cfg, head, x, batch["targets"]) + MOE_AUX_COEF * aux
+        ce = ce_from_hidden(self.cfg, head, x, batch["targets"], logits_sharding_constraint)
+        return ce + MOE_AUX_COEF * aux
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +408,13 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     out: list[torch.Tensor] = []
     tree_map(out.append, tree)
     return out
+
+
+def _starts_stage(cfg: ArchConfig, where: tuple) -> bool:
+    """Whether the sublayer at ``where`` (``named_sublayers``) is the first
+    of its stage or of the tail."""
+    pattern = cfg.pattern if where[0] == "stages" else cfg.tail_pattern
+    return where[-1] == f"{pattern[0]}_0"
 
 
 def layer_cache(caches: dict, where: tuple):
@@ -442,35 +460,44 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 
 def _token_nll(head: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
-               cap: float | None) -> torch.Tensor:
-    logits = softcap_logits((x @ head).float(), cap)
+               cap: float | None, constrain=None, chunked: bool = False) -> torch.Tensor:
+    logits = (x @ head).float()
+    if constrain is not None and chunked:  # the JAX order: before the cap in a chunk
+        logits = constrain(logits)
+    logits = softcap_logits(logits, cap)
+    if constrain is not None and not chunked:  # and after it on the whole sequence
+        logits = constrain(logits)
     lse = torch.logsumexp(logits, dim=-1)
     return lse - torch.gather(logits, -1, targets[..., None].long())[..., 0]
 
 
 def _chunk_nll(head: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
-               cap: float | None) -> torch.Tensor:
-    return torch.sum(_token_nll(head, x, targets, cap))
+               cap: float | None, constrain=None) -> torch.Tensor:
+    return torch.sum(_token_nll(head, x, targets, cap, constrain, chunked=True))
 
 
 def ce_from_hidden(cfg: ArchConfig, head: torch.Tensor, x: torch.Tensor,
-                   targets: torch.Tensor) -> torch.Tensor:
+                   targets: torch.Tensor, logits_sharding_constraint=None) -> torch.Tensor:
     """Mean cross-entropy from the final-norm hidden states (the JAX
-    package's ``_ce_from_hidden``, unmasked).  ``head`` is (d, vocab).
+    package's ``_ce_from_hidden``, unmasked).  ``head`` is (d, vocab);
+    ``logits_sharding_constraint`` (None: none) is applied to the f32
+    logits where the JAX function applies it.
 
     Chunked path (vocab >= 64k, sequence a multiple of 512 and longer): the
     loss is summed per 512-token chunk, each under activation checkpointing,
     so only one chunk's (B, 512, vocab) f32 logits exist at a time, in the
     forward and again in backward."""
     B, seq = targets.shape
+    con = logits_sharding_constraint
     if cfg.vocab >= CHUNKED_CE_VOCAB and seq > CE_SEQ_CHUNK and seq % CE_SEQ_CHUNK == 0:
         parts = [
             checkpoint(_chunk_nll, head, x[:, c : c + CE_SEQ_CHUNK],
-                       targets[:, c : c + CE_SEQ_CHUNK], cfg.logit_softcap, use_reentrant=False)
+                       targets[:, c : c + CE_SEQ_CHUNK], cfg.logit_softcap, con,
+                       use_reentrant=False)
             for c in range(0, seq, CE_SEQ_CHUNK)
         ]
         return torch.sum(torch.stack(parts)) / (B * seq)
-    return torch.mean(_token_nll(head, x, targets, cfg.logit_softcap))
+    return torch.mean(_token_nll(head, x, targets, cfg.logit_softcap, con))
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ from .optimizers import (
     Optimizer,
     adamw_init,
     adamw_update,
+    clip_by_global_norm,
     make_optimizer,
     sgd_init,
     sgd_update,
@@ -15,6 +16,7 @@ __all__ = [
     "Optimizer",
     "adamw_init",
     "adamw_update",
+    "clip_by_global_norm",
     "make_optimizer",
     "sgd_init",
     "sgd_update",

@@ -27,6 +27,18 @@ class OptState:
     v: dict[str, torch.Tensor]  # second moment (AdamW only)
 
 
+@torch.no_grad()
+def clip_by_global_norm(grads: Tensors, max_norm: float) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """``(grads scaled to a global L2 norm of at most max_norm, the norm)``,
+    as the JAX function computes them: the norm is the square root of the
+    f32 sums of squares, the scale ``min(1, max_norm / max(norm, 1e-12))``
+    is applied in f32 and each gradient is cast back to its dtype.  Returns
+    new tensors; the norm is an f32 0-d tensor."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, gnorm
+
+
 def _zeros(params: Tensors) -> dict[str, torch.Tensor]:
     return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in params.items()}
 

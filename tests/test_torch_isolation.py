@@ -62,7 +62,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.configs.qwen2_vl_2b", "repro_torch.sim", "repro_torch.sim.events",
                 "repro_torch.sim.cluster", "repro_torch.sim.replay", "repro_torch.sim.report",
                 "repro_torch.sim.calibrate", "repro_torch.configs.cnn_profiles",
-                "repro_torch.launch.simulate"):
+                "repro_torch.launch.simulate", "repro_torch.configs.shapes",
+                "repro_torch.parallel", "repro_torch.parallel.sharding",
+                "repro_torch.parallel.context", "repro_torch.launch.specs",
+                "repro_torch.launch.segments", "repro_torch.launch.dryrun"):
         assert mod in rec["modules"]
 
 
