@@ -135,9 +135,12 @@ step could hide a kernel fault.
 3. Full-width training.  TinyLlama-1.1B, 22 layers, bf16 params,
    batch 4 x seq 512, ``--fuse arena --policy mg_wfbp --fabric gpu_nccl``
    on an NCCL world of 1, through ``repro_torch.launch.train.run``:
-   ``post`` and ``dag`` with f32 wire (bitwise equal), ``post`` with
-   ``bf16_ef``, all with the flash kernels, then ``post --attn-impl
-   plain``; 3 steps each from the same initial weights.  Pack and unpack
+   ``post`` and ``dag`` with f32 wire (bitwise equal), ``post`` under
+   ``remat='dots'`` (``overrides``; its 2D products saved, the rest
+   recomputed: bitwise equal to ``post``, its step time and peak printed
+   beside it), ``post`` with ``bf16_ef``, all with the flash kernels, then
+   ``post --attn-impl plain``; 3 steps each from the same initial weights.
+   Pack and unpack
    launches must each equal groups x steps, and ``issue()`` must run once
    per group per step; over the flash runs the forward kernel must launch
    2 x 22 times per step (activation checkpointing runs each layer's
@@ -146,20 +149,22 @@ step could hide a kernel fault.
 3b. Full-width RecurrentGemma-9B cut to 8 layers (2 stages of rec, rec,
    attn_local and the rec, rec tail; every width the published one), bf16
    params, batch 1 x seq 4096 (longer than the 2048 window), the same
-   launcher flags, ``post`` and ``dag`` with f32 wire, 3 steps each from the
-   same weights: finite losses, ``dag`` bitwise equal to ``post``, pack /
-   unpack / ``issue()`` = groups x steps, and per step 12 ``rglru_fwd`` (6
-   layers, each forward run twice under checkpointing), 6 ``rglru_bwd``, 4
+   launcher flags, ``post``, ``post`` under ``remat='dots'`` (``DOTS_CELLS``)
+   and ``dag`` with f32 wire, 3 steps each from the same weights: finite
+   losses, ``dots`` and ``dag`` bitwise equal to ``post``, pack / unpack /
+   ``issue()`` = groups x steps, and per step 12 ``rglru_fwd`` (6
+   layers, each forward run twice under either checkpoint), 6 ``rglru_bwd``, 4
    flash forwards, 2 dQ and 2 dK/dV, with no plain call.  Then one
    ``probe_unit_times`` pass over the trained model (the stage probe runs
    B6, B3-B5): every unit covered, finite and > 0, its launches printed
    apart from the steps'.
 3c. Full-width RWKV6-7B cut to 8 layers (every width the published one),
-   bf16 params, batch 1 x seq 4096, the same launcher flags, ``post`` and
-   ``dag`` with f32 wire, 3 steps each from the same weights: finite losses,
-   ``dag`` bitwise equal to ``post``, pack / unpack / ``issue()`` = groups x
-   steps, and per step 16 ``wkv_fwd`` (8 layers, each forward run twice
-   under checkpointing) and 8 ``wkv_bwd``, with no plain call.  Then one
+   bf16 params, batch 1 x seq 4096, the same launcher flags, ``post``,
+   ``post`` under ``remat='dots'`` and ``dag`` with f32 wire, 3 steps each
+   from the same weights: finite losses, ``dots`` and ``dag`` bitwise equal
+   to ``post``, pack / unpack / ``issue()`` = groups x steps, and per step 16
+   ``wkv_fwd`` (8 layers, each forward run twice under either checkpoint)
+   and 8 ``wkv_bwd``, with no plain call.  Then one
    probe pass as in 3b (the stage probe runs B7).
 3d-3j. The full-width cells of ``NEW_CELLS``, each through the launcher
    with phase 3b's flags, ``post`` and ``dag`` with f32 wire, 3 steps each
@@ -170,9 +175,9 @@ step could hide a kernel fault.
    40 layers (S 4096, ``--optimizer sgd``: AdamW's state does not fit one
    card beside a 3.26 B-parameter layer), MusicGen-large (48 layers, every
    one; S 4096) and Qwen2-VL-2B (28 layers, every one; S 4096), the last two
-   on (1, 4096, d) f32 embeds batches from the stream.  Held as in 3b:
-   finite losses,
-   ``dag`` bitwise equal to ``post``, pack / unpack / ``issue()`` = groups
+   on (1, 4096, d) f32 embeds batches from the stream; 3d (``DOTS_CELLS``)
+   also runs ``post`` under ``remat='dots'``.  Held as in 3b: finite
+   losses, ``dag`` (and ``dots``) bitwise equal to ``post``, pack / unpack / ``issue()`` = groups
    x steps, per step flash fwd / dQ / dK-dV = 2 / 1 / 1 per attention layer
    and no RG-LRU or WKV launch, no plain call; at 3i and 3j the embedding
    table, which the loss never reads, ends each run with an exactly zero
@@ -376,10 +381,12 @@ step could hide a kernel fault.
    the unbroken run's), each one's seconds printed.
 
 10. The dry run (``repro_torch.launch.dryrun``; host time, plus one rank's
-   segment on the card).  10a: three cells through the CLI, each ``python
+   segment on the card).  10a: four cells through the CLI, each ``python
    -m repro_torch.launch.dryrun ... --fabric gpu_nccl`` in a subprocess on a
-   fake process group, all three started together: TinyLlama-1.1B x
-   train_4k x 16x16 (FSDP / DP, the train plan), DBRX-132B x decode_32k x
+   fake process group, all four started together: TinyLlama-1.1B x
+   train_4k x 16x16 (FSDP / DP, the train plan), the same under ``--remat
+   dots`` (its flops a device less than the first's by exactly the 2·M·N·K
+   of the products it saves, its peak no lower), DBRX-132B x decode_32k x
    16x16 (EP all-to-all, ``experts_only``, the serve plan) and
    RecurrentGemma-9B x long_500k x 2x16x16 (batch 1, sequence-sharded
    caches).  Gates: exit 0, each record read back with the JAX record's
@@ -390,7 +397,10 @@ step could hide a kernel fault.
    10a's per-device stage flops, and its ``max_memory_allocated`` must lie
    within 20% of ``MemTracker``'s peak for the same segment on fake CUDA
    tensors (``DRYRUN_MEM_TOL``: ATen's own copies inside CUDA kernels are
-   not seen by a dispatch mode); with ``attn_impl='flash'`` and remat the segment launches B3 /
+   not seen by a dispatch mode); the same stage under ``remat='dots'``
+   must count on the card exactly the flops it counts on fake tensors, its
+   ``max_memory_allocated`` within 20% of ``MemTracker``'s there; with
+   ``attn_impl='flash'`` and ``remat='full'`` the segment launches B3 /
    B4 / B5 2 / 1 / 1 times at (1, 4096, 32/4, hd 64) and takes no plain
    call, and is timed beside its roofline term; the three kernels are held
    against their plain versions at that shape (1b's tolerances) and timed
@@ -493,6 +503,7 @@ NEW_ATTN = [
 #: subprocess on a fake world of 256 (16x16) or 512 (2x16x16) ranks.
 DRYRUN_CELLS = (
     ("tinyllama-1.1b", "train_4k", ()),
+    ("tinyllama-1.1b", "train_4k", ("--remat", "dots")),
     ("dbrx-132b", "decode_32k", ()),
     ("recurrentgemma-9b", "long_500k", ("--multi-pod",)),
 )
@@ -510,6 +521,11 @@ DRYRUN_ATTN = (1, 4096, 32, 4, 64, True, None, None)
 #: CUDA kernels make copies of their own (a batched product's operands made
 #: contiguous) that no dispatch mode sees; +15.1% in the first reading.
 DRYRUN_MEM_TOL = 0.20
+#: The remat policy of the selective-checkpointing runs (phase 3's
+#: ``post_f32_dots``, the cells of ``DOTS_CELLS``, phase 10's dots cell and
+#: stage): their 2D products saved, the rest recomputed.
+DOTS = {"remat": "dots"}
+DOTS_CELLS = ("phase 3b", "phase 3c", "phase 3d")
 #: Phases 3d-3j: tag, arch, depth override, launcher flags past the common
 #: ones.  Every width is the published one; the depth cuts keep the static
 #: bytes under the card's 80 GB (PERF.md section 4 reckons them).
@@ -1756,6 +1772,7 @@ def phase_full_width(device):
     from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
 
     runs = [("post_f32", ["--issue-order", "post"]),
+            ("post_f32_dots", ["--issue-order", "post"]),  # under DOTS
             ("dag_f32", ["--issue-order", "dag"]),
             ("post_bf16_ef", ["--issue-order", "post", "--compression", "bf16_ef"]),
             ("post_f32_plain_attn", ["--issue-order", "post", "--attn-impl", "plain"])]
@@ -1764,9 +1781,10 @@ def phase_full_width(device):
     fa.reset_counts()
     issue.calls = 0
     post_params, post_losses, groups, steps, flash_steps = None, None, None, 0, 0
-    step_ms = {}
+    step_ms, peak = {}, {}
     for name, extra in runs:
-        res = train(f"phase3_{name}", TRAIN_ARGS + extra)
+        res = train(f"phase3_{name}", TRAIN_ARGS + extra,
+                    overrides=DOTS if name.endswith("_dots") else None)
         n_groups = res.engine.sync.n_groups
         groups = n_groups if groups is None else groups
         if n_groups != groups:
@@ -1779,6 +1797,7 @@ def phase_full_width(device):
         step_s = statistics.median(res.step_seconds[1:])
         step_ms[name] = step_s * 1e3
         peak_gib = (res.peak_memory_bytes or 0) / 2**30
+        peak[name] = peak_gib
         say(f"phase 3: {name}: losses {[round(x, 4) for x in res.losses]}, step "
             f"{step_s * 1e3:.1f} ms (median of steps 2-3), {res.tokens_per_step / step_s:,.0f} "
             f"tokens/s, peak memory {peak_gib:.2f} GiB, {n_groups} groups")
@@ -1786,15 +1805,14 @@ def phase_full_width(device):
         params = {n: p.detach().cpu() for n, p in res.model.named_parameters()}
         if name == "post_f32":
             post_params, post_losses = params, res.losses
+        elif name == "post_f32_dots":
+            same_as_post("phase 3", res.losses, params, post_losses, post_params, "dots")
+            say(f"phase 3: dots step {step_ms[name]:.1f} ms against full {step_ms['post_f32']:.1f} "
+                f"ms; peak {peak_gib:.2f} GiB against full {peak['post_f32']:.2f} GiB")
         elif name == "dag_f32":
             dag = {"losses": res.losses, "step_ms": step_ms[name]}
-            if res.losses != post_losses:
-                fail(f"dag losses {res.losses} != post losses {post_losses}")
-            for n, p in params.items():
-                if not torch.equal(p, post_params[n]):
-                    fail(f"dag parameter {n} differs from post")
+            same_as_post("phase 3", res.losses, params, post_losses, post_params, "dag")
             post_params = None
-            say("phase 3: dag parameters and losses bitwise equal to post")
         elif name == "post_f32_plain_attn":
             gap = abs(res.losses[0] - post_losses[0])
             if gap > 1e-2:
@@ -1832,6 +1850,19 @@ def phase_full_width(device):
     return counts, dag
 
 
+def same_as_post(tag, losses, params, post_losses, post_params, name) -> None:
+    """Fails unless a run's losses and parameters are bitwise the ``post``
+    run's."""
+    import torch
+
+    if losses != post_losses:
+        fail(f"{tag}: {name} losses {losses} != post losses {post_losses}")
+    for n, p in params.items():
+        if not torch.equal(p, post_params[n]):
+            fail(f"{tag}: {name} parameter {n} differs from post")
+    say(f"{tag}: {name} parameters and losses bitwise equal to post")
+
+
 def reckon_bytes(model, optimizer: str) -> int:
     """Static bytes of a training run, reckoned before it: each parameter
     and its gradient in the parameter's dtype, AdamW's two f32 moments
@@ -1843,10 +1874,11 @@ def reckon_bytes(model, optimizer: str) -> int:
     return total
 
 
-def train_cell(tag, label, args, overrides, per_step):
+def train_cell(tag, label, args, overrides, per_step, dots=False):
     """One training cell through the launcher: ``post`` then ``dag``, 3 steps
-    each from the same weights.  Held: finite losses, ``dag`` bitwise equal
-    to ``post``, pack / unpack / ``issue()`` = groups x steps, and each
+    each from the same weights, and with ``dots`` a ``post`` run under
+    ``remat='dots'`` between them.  Held: finite losses, ``dag`` (and
+    ``dots``) bitwise equal to ``post``, pack / unpack / ``issue()`` = groups x steps, and each
     kernel wrapper of ``per_step`` ({name: (wrapper, launches a step)})
     launched that many times a step, with no plain call; a parameter the loss
     does not read (``unread_params``: an embeds arch's table) ends each run
@@ -1871,9 +1903,10 @@ def train_cell(tag, label, args, overrides, per_step):
     wk.reset_counts()
     issue.calls = 0
     post_params, post_losses, groups, steps = None, None, None, 0
-    for name in ("post", "dag"):
-        res = train(f"{tag.replace(' ', '')}_{name}", args + ["--issue-order", name],
-                    overrides=overrides)
+    for name in ("post", "dots", "dag") if dots else ("post", "dag"):
+        order = "dag" if name == "dag" else "post"
+        res = train(f"{tag.replace(' ', '')}_{name}", args + ["--issue-order", order],
+                    overrides={**overrides, **DOTS} if name == "dots" else overrides)
         n_groups = res.engine.sync.n_groups
         groups = n_groups if groups is None else groups
         if n_groups != groups:
@@ -1883,7 +1916,8 @@ def train_cell(tag, label, args, overrides, per_step):
             fail(f"{tag} {name}: non-finite loss {res.losses}")
         step_s = statistics.median(res.step_seconds[1:])
         n_params = sum(p.numel() for p in res.model.parameters())
-        say(f"{tag}: {label} {name}_f32 ({optimizer}): losses {[round(x, 4) for x in res.losses]}, "
+        run_name = "post_f32_dots" if name == "dots" else f"{name}_f32"
+        say(f"{tag}: {label} {run_name} ({optimizer}): losses {[round(x, 4) for x in res.losses]}, "
             f"step {step_s * 1e3:.1f} ms (median of steps 2-3), "
             f"{res.tokens_per_step / step_s:,.0f} tokens/s, peak memory "
             f"{(res.peak_memory_bytes or 0) / 2**30:.2f} GiB (static + arenas reckoned "
@@ -1902,13 +1936,9 @@ def train_cell(tag, label, args, overrides, per_step):
         if name == "post":
             post_params, post_losses = params, res.losses
         else:
+            same_as_post(tag, res.losses, params, post_losses, post_params, name)
+        if name == "dag":
             kept = res  # probed after the counts are read
-            if res.losses != post_losses:
-                fail(f"{tag}: dag losses {res.losses} != post losses {post_losses}")
-            for n, p in params.items():
-                if not torch.equal(p, post_params[n]):
-                    fail(f"{tag}: dag parameter {n} differs from post")
-            say(f"{tag}: dag parameters and losses bitwise equal to post")
         del res, params
         torch.cuda.empty_cache()
     counts = {
@@ -1944,7 +1974,7 @@ def phase_rg_full_width(device):
                 "flash_dq": (fa.flash_attention_dq, RG_ATTN_LAYERS),
                 "flash_dkv": (fa.flash_attention_dkv, RG_ATTN_LAYERS)}
     counts, kept = train_cell("phase 3b", "recurrentgemma-9b x 8 layers", RG_ARGS, RG_DEPTH,
-                              per_step)
+                              per_step, dots="phase 3b" in DOTS_CELLS)
     probe_pass("phase 3b", kept, RG_ARGS)
     return counts
 
@@ -1959,7 +1989,7 @@ def phase_rwkv_full_width(device):
     per_step = {"wkv_fwd": (wk.wkv_fwd, 2 * RWKV_LAYERS), "wkv_bwd": (wk.wkv_bwd, RWKV_LAYERS),
                 "flash_fwd": (fa.flash_attention_fwd, 0), "rglru_fwd": (rg.rglru_fwd, 0)}
     counts, kept = train_cell("phase 3c", f"rwkv6-7b x {RWKV_LAYERS} layers", RWKV_ARGS,
-                              {"n_layers": RWKV_LAYERS}, per_step)
+                              {"n_layers": RWKV_LAYERS}, per_step, dots="phase 3c" in DOTS_CELLS)
     probe_pass("phase 3c", kept, RWKV_ARGS)
     return counts
 
@@ -1990,7 +2020,7 @@ def phase_new_full_width(device):
         args = ["--arch", arch, "--steps", "3", "--fuse", "arena", "--policy", "mg_wfbp",
                 "--fabric", "gpu_nccl"] + extra
         label = f"{arch} x {cfg.n_layers} layers"
-        out[arch], kept = train_cell(tag, label, args, depth, per_step)
+        out[arch], kept = train_cell(tag, label, args, depth, per_step, dots=tag in DOTS_CELLS)
         del kept
         c = out[arch]
         for name in ("flash_fwd", "flash_dq", "flash_dkv"):
@@ -4027,7 +4057,7 @@ def phase_sim(device, p4, cell6a, card) -> dict:
 
 
 def start_dryrun_cells() -> list:
-    """Phase 10a's three CLI runs, started together, each in its own process
+    """Phase 10a's CLI runs, started together, each in its own process
     (``--fabric gpu_nccl``, a record under ``build/phase10``), output to a
     log file beside it."""
     import os
@@ -4036,7 +4066,8 @@ def start_dryrun_cells() -> list:
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
     cells = []
     for arch, shape, extra in DRYRUN_CELLS:
-        tag = f"{arch}__{shape}"
+        key = arch + (f"__{extra[extra.index('--remat') + 1]}" if "--remat" in extra else "")
+        tag = f"{key}__{shape}"
         out, log = DRYRUN_OUT / f"{tag}.json", DRYRUN_OUT / f"{tag}.log"
         out.unlink(missing_ok=True)
         with open(log, "w") as logf:
@@ -4044,15 +4075,16 @@ def start_dryrun_cells() -> list:
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
                  *extra, "--fabric", "gpu_nccl", "--out", str(out)],
                 stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
-        cells.append({"arch": arch, "shape": shape, "proc": proc, "out": out, "log": log,
-                      "t0": time.perf_counter()})
+        cells.append({"key": key, "arch": arch, "shape": shape, "proc": proc, "out": out,
+                      "log": log, "t0": time.perf_counter()})
     return cells
 
 
 def finish_dryrun_cells(cells, timeout: float = 300.0) -> dict:
     """Wait for phase 10a's runs (killing any still running at the end) and
     hold each record to the gates: exit 0, the JAX record's keys, the peak
-    printed.  Returns ``{arch: record}``."""
+    printed.  Returns ``{key: record}``, the key the arch with ``__<remat>``
+    where the cell sets one."""
     records = {}
     try:
         for c in cells:
@@ -4071,14 +4103,14 @@ def finish_dryrun_cells(cells, timeout: float = 300.0) -> dict:
             mem, tot = rec["memory"], rec["totals"]
             groups = (rec["plan"]["analytic"]["schedule"]["groups"] if "plan" in rec
                       else rec["serve_plan"]["schedule"]["groups"])
-            say(f"phase 10a: {c['arch']} x {c['shape']} x {rec['mesh']} ({rec['n_devices']} fake "
+            say(f"phase 10a: {c['key']} x {c['shape']} x {rec['mesh']} ({rec['n_devices']} fake "
                 f"ranks): {secs:.1f} s; peak_per_device_gib {mem['peak_per_device_gib']} "
                 f"({mem['peak_per_device_gib'] * 2**30 / 80e9:.1%} of 80 GB); whole step "
                 f"{rec['whole_program']['flops_per_device']:.6e} flops/device, collectives "
                 f"{rec['whole_program']['collectives']['counts']}; dominant {tot['dominant']}, "
                 f"roofline_fraction {tot['roofline_fraction']:.6f}, bound "
                 f"{tot['roofline_bound_s']:.6e} s; plan groups ({len(groups)}) {groups}")
-            records[c["arch"]] = rec
+            records[c["key"]] = rec
     finally:
         for c in cells:
             if c["proc"].poll() is None:
@@ -4090,6 +4122,41 @@ def finish_dryrun_cells(cells, timeout: float = 300.0) -> dict:
 def _mem_tracker_peak(tracker) -> int:
     return int(sum(v["Total"] for dev, v in tracker.get_tracker_snapshot("peak").items()
                    if str(dev) != "meta"))
+
+
+def dots_segment(cfg, B, S, device) -> dict:
+    """Phase 10b's stage under ``remat='dots'``: its flops
+    (``FlopCounterMode``) and peak allocated memory on the card, and the
+    same on fake CUDA tensors (``MemTracker``), with the segment's time."""
+    import torch
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.segments import fake_tensors, stage_train_local
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run = stage_train_local(cfg, B, S, device, remat="dots", seed=0)
+    with FlopCounterMode(display=False) as fc:
+        run()
+    torch.cuda.synchronize()
+    out = {"flops": int(fc.get_total_flops()),
+           "peak_bytes": int(torch.cuda.max_memory_allocated() - m0)}
+    out["segment_ms"] = median_ms(run, reps=5, warmup=1)
+    del run
+    torch.cuda.empty_cache()
+    with fake_tensors():
+        tracker = MemTracker()
+        with tracker, FlopCounterMode(display=False) as fake_fc:
+            stage_train_local(cfg, B, S, device, remat="dots", seed=None)()
+    out["fake_flops"] = int(fake_fc.get_total_flops())
+    out["fake_peak_bytes"] = _mem_tracker_peak(tracker)
+    say(f"phase 10b: the dots stage on the card: {out['flops']} flops, peak {out['peak_bytes']} B, "
+        f"{out['segment_ms']:.4f} ms; on fake tensors {out['fake_flops']} flops, MemTracker's "
+        f"peak {out['fake_peak_bytes']} B")
+    return out
 
 
 def dryrun_segment_on_card(device) -> dict:
@@ -4133,10 +4200,11 @@ def dryrun_segment_on_card(device) -> dict:
     out["fake_peak_bytes"] = _mem_tracker_peak(tracker)
     say(f"phase 10b: MemTracker's peak of the same segment on fake tensors: "
         f"{out['fake_peak_bytes']} B")
+    out["dots"] = dots_segment(cfg, B, S, device)
 
     # the same segment with the flash kernels, under remat as the trainer runs it
-    run = stage_train_local(dataclasses.replace(cfg, attn_impl="flash"), B, S, device, remat=True,
-                            seed=1)
+    run = stage_train_local(dataclasses.replace(cfg, attn_impl="flash"), B, S, device,
+                            remat="full", seed=1)
     run()  # warm-up
     torch.cuda.synchronize()
     fa.reset_counts()
@@ -4167,8 +4235,36 @@ def dryrun_segment_on_card(device) -> dict:
     return out
 
 
+def check_dots_cell(records) -> None:
+    """Phase 10a's TinyLlama train_4k cell under ``--remat dots`` against
+    the ``full`` one: fewer flops a device by exactly the 2·M·N·K of the
+    products ``'dots'`` saves (q, k, v, o, gate, up of every layer, at this
+    device's tokens), which ``'full'`` recomputes; a peak no lower."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+
+    full, dots = records["tinyllama-1.1b"], records["tinyllama-1.1b__dots"]
+    cfg, shape = get_config("tinyllama-1.1b"), SHAPES["train_4k"]
+    att = cfg.attention
+    d, qd, kvd = cfg.d_model, att.n_heads * att.head_dim, att.n_kv_heads * att.head_dim
+    per_token = d * qd + 2 * d * kvd + qd * d + 2 * d * cfg.d_ff
+    tokens = shape.global_batch * shape.seq_len // full["n_devices"]
+    want = 2 * tokens * per_token * cfg.n_layers
+    f_full, f_dots = (r["whole_program"]["flops_per_device"] for r in (full, dots))
+    p_full, p_dots = (r["memory"]["peak_per_device_gib"] for r in (full, dots))
+    if f_full - f_dots != want:
+        fail(f"phase 10a: full - dots = {f_full - f_dots} flops/device, the saved products' "
+             f"2·M·N·K is {want}")
+    if not p_full <= p_dots:
+        fail(f"phase 10a: the dots peak {p_dots} GiB is below the full one {p_full} GiB")
+    say(f"phase 10a: dots against full: flops/device {f_dots:.6e} against {f_full:.6e} (less by "
+        f"{want:.6e} = the saved products' 2·M·N·K at {tokens} tokens a device), peak "
+        f"{p_dots} against {p_full} GiB, collectives {dots['whole_program']['collectives']['counts']} "
+        f"against {full['whole_program']['collectives']['counts']}")
+
+
 def phase_dryrun(device) -> dict:
-    """Phase 10: the dry-run CLI's three cells on fake worlds (10a, on the
+    """Phase 10: the dry-run CLI's cells on fake worlds (10a, on the
     host, in subprocesses started first) while one rank's stage segment runs
     for real on the card (10b); then 10b's gates against 10a's record."""
     cells = start_dryrun_cells()
@@ -4184,6 +4280,21 @@ def phase_dryrun(device) -> dict:
     if not abs(real - fake) <= DRYRUN_MEM_TOL * fake:
         fail(f"phase 10b: max_memory_allocated {real} B is not within {DRYRUN_MEM_TOL:.0%} of "
              f"MemTracker's fake peak {fake} B")
+    dots = seg["dots"]
+    if dots["flops"] != dots["fake_flops"]:
+        fail(f"phase 10b: the card's dots stage counts {dots['flops']} flops, the fake tensors' "
+             f"{dots['fake_flops']}")
+    if not abs(dots["peak_bytes"] - dots["fake_peak_bytes"]) <= DRYRUN_MEM_TOL * dots["fake_peak_bytes"]:
+        fail(f"phase 10b: the dots stage's max_memory_allocated {dots['peak_bytes']} B is not within "
+             f"{DRYRUN_MEM_TOL:.0%} of MemTracker's fake peak {dots['fake_peak_bytes']} B")
+    say(f"phase 10b: the dots stage (1 x {SHAPE_TRAIN_4K_SEQ}, plain attention): {dots['flops']} "
+        f"flops = the fake tensors' count ({dots['flops'] - seg['flops']:+d} against the stage "
+        f"with remat off: the batched products' recompute); max_memory_allocated "
+        f"{dots['peak_bytes'] / 2**30:.4f} GiB against MemTracker's "
+        f"{dots['fake_peak_bytes'] / 2**30:.4f} GiB "
+        f"({(dots['peak_bytes'] - dots['fake_peak_bytes']) / dots['fake_peak_bytes']:+.2%}, within "
+        f"{DRYRUN_MEM_TOL:.0%}); remat off {real / 2**30:.4f} GiB")
+    check_dots_cell(records)
     if seg["launches"] != {"fwd": 2, "dq": 1, "dkv": 1} or seg["plain_calls"]:
         fail(f"phase 10b: flash launches {seg['launches']} and {seg['plain_calls']} plain calls in "
              f"one remat segment, expected 2 / 1 / 1 and none")

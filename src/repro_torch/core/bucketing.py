@@ -19,9 +19,10 @@ Leaves are visited in sorted key order at every dict level, as
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
+from torch import nn
 
 from .schedule import Schedule
 
@@ -95,6 +96,37 @@ def tree_size(tree: Any) -> int:
     return sum(_leaf_size(leaf) for _, leaf in _subtree_paths(tree, ()))
 
 
+def layout_from_params(
+    params: Any,
+    comm_dtype_bytes: int = 4,
+    model_shards: int = 1,
+    order_key: Callable[[str], float] | None = None,
+) -> ParamLayout:
+    """A per-leaf ParamLayout of a parameter tree: one unit per leaf.
+
+    ``params`` is a nested dict of tensors (or of anything with a
+    ``shape``), visited in sorted key order as the JAX tree is, each leaf
+    named by its dot-joined path; or an ``nn.Module``, whose
+    ``named_parameters()`` give the leaves in registration order, each
+    path the name split at its dots.  Leaves are ordered by ``order_key``
+    over their names (default: that order).  ``model_shards`` divides the
+    data-parallel message size (FSDP / TP / EP shrink its payload)."""
+    if isinstance(params, nn.Module):
+        named = [(name, tuple(name.split(".")), p) for name, p in params.named_parameters()]
+    else:
+        named = [(".".join(map(str, path)), path, leaf)
+                 for path, leaf in _subtree_paths(params, ())]
+    if order_key is not None:
+        named.sort(key=lambda t: order_key(t[0]))
+    units = []
+    for i, (name, path, leaf) in enumerate(named):
+        size = _leaf_size(leaf)
+        units.append(CommUnit(name=name, index=i + 1,
+                              grad_bytes=max(1, size * comm_dtype_bytes // model_shards),
+                              params=size, paths=(path,)))
+    return ParamLayout(units=tuple(units))
+
+
 def stacked_lm_layout(
     param_shapes: Any,
     n_stages: int,
@@ -139,6 +171,29 @@ def stacked_lm_layout(
     if "head" in param_shapes:
         head_pairs += _subtree_paths(param_shapes["head"], ("head",))
     units.append(leaf_unit("head", idx, head_pairs))
+    return ParamLayout(units=tuple(units))
+
+
+def layout_for_stacked_lm(
+    num_layers: int,
+    embed_params: int,
+    layer_params: int,
+    head_params: int,
+    comm_dtype_bytes: int = 4,
+    model_shards: int = 1,
+) -> ParamLayout:
+    """A synthetic ParamLayout of a stacked LM, ``[embed, layer x L, head]``,
+    for the cost model alone (no tree behind it; ``stacked_lm_layout`` is
+    the one the sync runs on)."""
+
+    def unit(name: str, idx: int, p: int) -> CommUnit:
+        return CommUnit(name=name, index=idx,
+                        grad_bytes=max(1, p * comm_dtype_bytes // model_shards),
+                        params=p, paths=((name,),))
+
+    units = [unit("embed", 1, embed_params)]
+    units += [unit(f"layer_{i}", i + 2, layer_params) for i in range(num_layers)]
+    units += [unit("head", num_layers + 2, head_params)]
     return ParamLayout(units=tuple(units))
 
 

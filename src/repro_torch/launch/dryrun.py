@@ -17,7 +17,9 @@ For each cell this module:
   4. counts the step's per-device flops, bytes and collectives
      (``whole_program``, by ``segments.CostMode``'s rule).  The JAX count
      undercounts the layer ``scan`` (XLA counts its body once); this one
-     runs every layer, and under ``remat='full'`` the recompute too;
+     runs every layer, and the recompute of ``remat='full'`` or ``'dots'``
+     too (under ``'dots'`` the saved products, and the redistributions that
+     feed them, do not run again);
   5. runs the cost segments (``segments.py``, remat off) and recomposes the
      per-device totals and the three roofline terms (``recompose``), with
      the roofline constants passed in: the H100 SXM's (989e12 dense bf16
@@ -57,7 +59,7 @@ from ..core.cost_model import TPU_V5E, Hardware
 from ..devices import resolve_device
 from ..fabric import available_fabrics
 from ..fabric.presets import GPU_NCCL
-from ..models.transformer import Transformer, _flatten
+from ..models.transformer import REMATS, Transformer, _flatten
 from ..optim import make_optimizer
 from ..optim.optimizers import OptState
 from ..parallel.sharding import batch_specs, cache_pspecs, is_spec, param_pspecs, rules_for_arch
@@ -508,8 +510,8 @@ def main(argv: list[str] | None = None, overrides: dict | None = None) -> int:
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--no-fsdp-data", action="store_true",
                     help="paper-faithful baseline: params replicated over data")
-    ap.add_argument("--remat", default=None, choices=["full", "none"],
-                    help="override the shape's remat (the JAX flag's 'dots' has no port)")
+    ap.add_argument("--remat", default=None, choices=list(REMATS),
+                    help="override the shape's remat (the segments count with it off)")
     ap.add_argument("--qchunk", type=int, default=None)
     ap.add_argument("--serve-sharding", default="experts_only",
                     choices=["experts_only", "full", "model_only"],

@@ -8,8 +8,9 @@ a few steady steps of the launcher's configuration.
 Takes every flag of ``repro_torch.launch.train``; ``--steps`` is the
 number of profiled steps, run after ``WARMUP`` unprofiled ones.  Called
 from Python, ``main(argv, overrides={'n_layers': 8})`` replaces fields of
-the arch config, as ``launch.train.prepare`` does.  Prints
-the wall time per step, the device's busy and idle shares of that wall
+the arch config, as ``launch.train.prepare`` does
+(``overrides={'remat': 'dots'}`` profiles the selective-checkpoint policy).
+Prints the wall time per step, the device's busy and idle shares of that wall
 time (union of kernel intervals), device time by kernel class and the
 top kernels by device time.  CUDA only: a profile without device events
 is refused rather than reported.

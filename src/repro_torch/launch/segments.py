@@ -643,20 +643,21 @@ def stage_train_segment(
         with activation_sharding(from_rules(rules, batch, prefer=_prefer(rules, False))):
             y = x
             for sub in stage.values():
-                y, _ = run_sublayer(sub, y, pos, False)
+                y, _ = run_sublayer(sub, y, pos, "none")
         torch.autograd.backward([y], [dy])
         _grads_to_param_placements(stage)
     return mode.tally.seg_cost("stage_train")
 
 
-def stage_train_local(cfg: ArchConfig, batch: int, seq: int, device, *, remat: bool = False,
+def stage_train_local(cfg: ArchConfig, batch: int, seq: int, device, *, remat: str = "none",
                       pattern: tuple[str, ...] | None = None, seed: int | None = 0):
     """One rank's stage segment for real: the stage's sublayers on
     ``device`` (random weights, N(0, 0.02), from ``seed``; None: no
     generator, as under a fake or ``meta`` device, where only shapes
     count), an input and an output gradient of ``(batch, seq, d_model)``.
     Returns ``run()``, one forward and backward as ``stage_train_segment``
-    counts it on a rank whose shard is this batch (remat per ``remat``)."""
+    counts it on a rank whose shard is this batch, each sublayer under the
+    ``remat`` policy (``run_sublayer``: ``'full'``, ``'dots'`` or ``'none'``)."""
     pattern = tuple(pattern or cfg.pattern)
     device = torch.device(device)
     gen = None if seed is None or device.type == "meta" else \

@@ -99,7 +99,8 @@ class ArchConfig:
     moe_groups: int = 1  # GShard dispatch groups (the token shards under the dry run's rules)
     rec_chunk: int = 128  # the JAX package's time chunk for chunked recurrences
     attn_impl: str = "flash"  # 'flash' (the flash-attention kernels) | 'plain'
-    remat: str = "full"  # 'full' (torch.utils.checkpoint per layer) | 'none'
+    remat: str = "full"  # 'full' (torch.utils.checkpoint per layer) | 'dots' (its 2D products
+    # kept, the JAX dots_with_no_batch_dims_saveable) | 'none'
 
     @property
     def n_stages(self) -> int:

@@ -162,7 +162,9 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     positions; for text the three streams are equal and this is
     ``apply_rope``."""
     sel = _mrope_freqs_on(x.shape[-1], theta, tuple(sections), x.device)
-    ang = torch.einsum("k...s,kf->...sf", positions.float(), sel)  # (..., S, hd/2)
+    # the JAX einsum 'k...s,kf->...sf' has no batch dimension; as a matmul it is one
+    # aten.mm (torch.einsum would lower it to a bmm of batch 1), which remat='dots' saves
+    ang = positions.float().movedim(0, -1) @ sel  # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -62,7 +62,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..devices import resolve_device
 from .common import ArchConfig
@@ -83,6 +83,7 @@ from .rglru import RGLRUBlock, init_rglru_state, lam_init
 from .rwkv6 import LORA_DECAY, LORA_MIX, RWKV6Block, init_rwkv6_state
 
 KINDS = ("attn", "attn_local", "attn_global", "moe", "rec", "rwkv")
+REMATS = ("full", "dots", "none")
 ATTN_KINDS = ("attn", "attn_local", "attn_global", "moe")  # the kinds with an attention block
 CHUNKED_CE_VOCAB = 64000  # big-vocab archs never materialize full logits
 CE_SEQ_CHUNK = 512
@@ -102,7 +103,7 @@ def _check_supported(cfg: ArchConfig) -> None:
         "mlp": cfg.mlp not in MLPS if kinds - {"rwkv"} else cfg.mlp != "rwkv_cmix",
         "attention": bool(kinds & set(ATTN_KINDS)) and cfg.attention is None,
         "moe": "moe" in kinds and cfg.moe is None,
-        "remat": cfg.remat not in ("full", "none"),
+        "remat": cfg.remat not in REMATS,
         "input_mode": cfg.input_mode not in ("tokens", "embeds"),
         "rope": att is not None and att.rope not in ROPES,
     }
@@ -170,11 +171,53 @@ class SubLayer(nn.Module):
         return x + h, aux, new_cache
 
 
-def run_sublayer(sub: nn.Module, x: torch.Tensor, positions: torch.Tensor, remat: bool):
-    """``(x, aux)`` of one sublayer in training (no cache), under
-    ``torch.utils.checkpoint`` when ``remat``; aux is None for a sublayer
-    without MoE."""
-    out = checkpoint(sub, x, positions, use_reentrant=False) if remat else sub(x, positions)
+# remat='dots' is the JAX model's ``dots_with_no_batch_dims_saveable``: the
+# output of a product whose contraction has no batch dimension is saved for
+# backward, everything else is recomputed.  In the port such a product is
+# aten.mm (aten.addmm with a bias): an ``x @ w`` of a (B, S, .) activation
+# by a 2D weight folds the leading dims into one mm.  These are q / k / v /
+# o, the MLPs' gate / up / down, the MoE router, the RG-LRU block's
+# main / gate / out and its wa / wx gates, RWKV6's r / k / v / g / o,
+# lora_a, decay_a / decay_b and the channel mix's k / r / v, and the M-RoPE
+# angles.  The JAX products with a batch dimension lower to aten.bmm and
+# are recomputed: attention scores and PV, the MoE dispatch / expert /
+# combine einsums, RWKV6's lora_b einsum and its WKV chunk products.  No
+# bmm is saved, since torch.einsum lowers a batch of one (one MoE group,
+# one KV head at batch 1) to a bmm as well.  On the card the flash, RG-LRU
+# and WKV kernels write through ctypes into buffers that no dispatch mode
+# sees, so they rerun, as under 'full'.  One product is saved that JAX
+# does not keep: an MLP's down projection without a post-norm, which only
+# the residual add reads, so JAX's partial evaluation drops it (one (B, S, d)
+# tensor a layer more; ROADMAP C).
+SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``remat='dots'``."""
+    if op in SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_contexts():
+    """``checkpoint``'s ``context_fn`` under ``remat='dots'``."""
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
+def run_sublayer(sub: nn.Module, x: torch.Tensor, positions: torch.Tensor, remat: str):
+    """``(x, aux)`` of one sublayer in training (no cache) under the
+    ``remat`` policy: ``'full'`` recomputes the sublayer in backward
+    (``torch.utils.checkpoint``), ``'dots'`` keeps its ``dots_policy``
+    products and recomputes the rest, ``'none'`` keeps what autograd
+    saves.  aux is None for a sublayer without MoE."""
+    if remat == "none":
+        out = sub(x, positions)
+    elif remat == "dots":
+        out = checkpoint(sub, x, positions, use_reentrant=False, context_fn=dots_contexts)
+    elif remat == "full":
+        out = checkpoint(sub, x, positions, use_reentrant=False)
+    else:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
     return out[0], out[1]
 
 
@@ -350,8 +393,8 @@ class Transformer(nn.Module):
         and the MoE aux summed over the layers (an f32 scalar, 0 without
         MoE).  With ``caches`` (serving, see ``forward``) every sublayer
         reads and updates its cache in place; without them (training) each
-        runs under activation checkpointing when ``cfg.remat == 'full'`` and
-        gradients are on.  ``act_sharding_constraint`` (a callable x -> x,
+        runs under ``cfg.remat`` (``run_sublayer``) when gradients are on.
+        ``act_sharding_constraint`` (a callable x -> x,
         ``parallel.sharding.act_constraint``'s) is applied to the input of
         every stage and of the tail, as in the JAX forward."""
         cfg = self.cfg
@@ -360,7 +403,7 @@ class Transformer(nn.Module):
         positions = (torch.arange(S, device=x.device) + q_offset)[None, :].expand(B, S)
         if cfg.attention is not None and cfg.attention.rope == "mrope":
             positions = positions[None].expand(3, B, S)  # (t, h, w), equal for text
-        remat = caches is None and cfg.remat == "full" and torch.is_grad_enabled()
+        remat = cfg.remat if caches is None and torch.is_grad_enabled() else "none"
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for where, sub in self.named_sublayers():
             if act_sharding_constraint is not None and _starts_stage(cfg, where):

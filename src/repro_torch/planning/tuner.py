@@ -39,6 +39,7 @@ import torch.distributed as dist
 from ..core.bucketing import ParamLayout, group_arenas, layer_buckets_for_scan
 from ..core.comm_model import AllReduceModel
 from ..core.cost_model import Hardware, LayerCost
+from ..devices import resolve_device
 from .costs import (
     SLIM_COMM_SWEEP,
     MeasuredComm,
@@ -379,21 +380,23 @@ class CommRefitter:
 
 
 def psum_time_fn(group=None, dtype=torch.float32, repeats: int = 2,
-                 device="cpu") -> Callable[[int], float]:
+                 device=None) -> Callable[[int], float]:
     """A ``time_fn`` for ``CommRefitter.check`` that times one real
     all-reduce per call on ``group`` (the default process group when
-    None): one warm-up call, then the min of ``repeats``, the device
-    synchronized before each clock read on CUDA; every rank gets rank 0's
-    time, so every rank's refit drifts alike.
+    None) on ``device`` (cuda when None, see ``resolve_device``): one
+    warm-up call, then the min of ``repeats``, the device synchronized
+    before each clock read on CUDA; every rank gets rank 0's time, so
+    every rank's refit drifts alike.
 
     One zero buffer per probe size is allocated once and reused for the
     lifetime of the returned callable (zeros stay zeros however often
     they are summed), so the periodic drift checks allocate nothing.  ``dist.all_reduce`` is called directly, outside the
     counted ``issue()`` seam.
     """
+    device = resolve_device(device)
     itemsize = torch.empty((), dtype=dtype).element_size()
     buffers: dict[int, torch.Tensor] = {}
-    on_cuda = torch.device(device).type == "cuda"
+    on_cuda = device.type == "cuda"
 
     def call(x: torch.Tensor) -> None:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)

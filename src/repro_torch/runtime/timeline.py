@@ -92,7 +92,6 @@ def make_unit_probes(cfg, model, batch: dict) -> dict[str, tuple[Callable, tuple
     positions = torch.arange(S, device=device)[None, :].expand(B, S)
     if cfg.attention is not None and cfg.attention.rope == "mrope":
         positions = positions[None].expand(3, B, S)
-    remat = cfg.remat == "full"
     embed = _leaf(model.embed)  # the embed probe's, and the tied head's, copy
 
     if cfg.input_mode == "embeds":
@@ -123,7 +122,7 @@ def make_unit_probes(cfg, model, batch: dict) -> dict[str, tuple[Callable, tuple
             with torch.enable_grad():
                 y = xx
                 for sub in subs.values():
-                    y, _ = run_sublayer(sub, y, positions, remat)
+                    y, _ = run_sublayer(sub, y, positions, cfg.remat)
                 return torch.autograd.grad(y.float().sum(), (*params, xx))
 
         return fn

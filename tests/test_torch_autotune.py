@@ -145,7 +145,7 @@ def test_timed_all_reduces_at_world1():
     assert all(math.isfinite(v) and v >= 0 for v in (fits["data"].a, fits["data"].b))
     times = time_group_comm(None, [1000, 4096, 1 << 16])
     assert len(times) == 3 and all(t > 0 for t in times)
-    time_fn = psum_time_fn()
+    time_fn = psum_time_fn(device="cpu")
     assert time_fn(4096) > 0 and time_fn(4096) > 0
     assert issue.calls == calls
 
@@ -358,7 +358,7 @@ STEP_SCRIPT = textwrap.dedent("""
     t = time_collective_call(f, torch.zeros(4), repeats=3, clock=lambda: next(ticks),
                              agree=lambda s: rank0_values([s])[0])
     mc = MeasuredComm.time_psums(sizes_bytes=(4096, 65536, 1 << 20), repeats=3)
-    probe = psum_time_fn()
+    probe = psum_time_fn(device="cpu")
     print(json.dumps({"t": t, "calls": calls[0], "times": list(mc.times_s),
                       "probe": [probe(4096), probe(1 << 20)]}))
     dist.destroy_process_group()

@@ -24,6 +24,13 @@ against the JAX package's, on the CPU.
   16x16 fake world at reduced widths and depth), with ``jax`` blocked:
   a record with the JAX record's keys, the peak printed.
 * The JAX model's chunked WKV as the dry run runs it, against the JAX one.
+* ``--remat``: the port CLI offers the JAX CLI's choices, ``'dots'``
+  included.  On reduced TinyLlama at batch 8 x 256 (q_chunk 128) on the 2x4
+  world, the whole step's flops order full > dots >= none and its peaks
+  full <= dots <= none, on the fake world and in XLA's record of the JAX
+  step on 8 virtual devices; on the fake world full - dots is exactly the
+  2·M·N·K of the products ``'dots'`` saves (q, k, v, o, gate, up), which
+  ``'full'`` recomputes.
 """
 
 import dataclasses
@@ -81,6 +88,70 @@ JAX_SEGMENTS = textwrap.dedent("""
             out[arch + "/" + name] = dataclasses.asdict(c)
     print(json.dumps(out))
 """ % {"B": B, "S": S})
+
+
+REMAT_B, REMAT_S, REMAT_Q_CHUNK = 8, 256, 128
+
+JAX_REMAT_CELL = textwrap.dedent("""
+    import os, sys, json, dataclasses
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    from types import SimpleNamespace
+    import jax
+    from repro.compat import set_mesh
+    from repro.configs import get_reduced
+    from repro.launch.mesh import make_mesh
+    from repro.launch.specs import batch_input_specs, opt_state_specs, param_specs
+    from repro.launch.steps import make_train_step
+    from repro.optim import make_optimizer
+    from repro.optim.optimizers import OptState
+    from repro.parallel.sharding import batch_specs, named, param_pspecs, rules_for_arch
+    mesh = make_mesh((2, 4), ("data", "model"))
+    B, S = %(B)d, %(S)d
+    shape = SimpleNamespace(kind="train", global_batch=B, seq_len=S)
+    out = {}
+    for remat in ("full", "dots", "none"):
+        cfg = dataclasses.replace(get_reduced("tinyllama-1.1b"), remat=remat, q_chunk=%(Q)d)
+        rules = rules_for_arch(cfg, mesh, fsdp_data=True)
+        p_shapes = param_specs(cfg)
+        p_sh = named(param_pspecs(p_shapes, rules), mesh)
+        opt = make_optimizer("adamw")
+        o_sh = OptState(step=jax.NamedSharding(mesh, jax.sharding.PartitionSpec()), m=p_sh, v=p_sh)
+        b_sh = named(batch_specs(cfg, rules, B, S), mesh)
+        with set_mesh(mesh):
+            compiled = jax.jit(make_train_step(cfg, rules, opt), in_shardings=(p_sh, o_sh, b_sh),
+                               out_shardings=(p_sh, o_sh, None), donate_argnums=(0, 1)).lower(
+                p_shapes, opt_state_specs(cfg, opt), batch_input_specs(cfg, shape)).compile()
+        ma, ca = compiled.memory_analysis(), compiled.cost_analysis()
+        ca = ca[0] if isinstance(ca, list) else ca
+        out[remat] = {"flops": float(ca["flops"]),
+                      "peak": ma.argument_size_in_bytes + ma.output_size_in_bytes
+                              + ma.temp_size_in_bytes - ma.alias_size_in_bytes}
+    print(json.dumps(out))
+""" % {"B": REMAT_B, "S": REMAT_S, "Q": REMAT_Q_CHUNK})
+
+PORT_REMAT_CELL = textwrap.dedent("""
+    import dataclasses, json, sys
+    sys.modules["jax"] = None
+    from types import SimpleNamespace
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import dryrun, segments
+    from repro_torch.parallel.sharding import rules_for_arch
+    B, S = %(B)d, %(S)d
+    shape = SimpleNamespace(kind="train", global_batch=B, seq_len=S)
+    out = {}
+    with segments.fake_world(8):
+        mesh = segments.fake_mesh((2, 4), ("data", "model"))
+        for remat in ("full", "dots", "none"):
+            cfg = dataclasses.replace(get_reduced("tinyllama-1.1b"), remat=remat,
+                                      attn_impl="plain", q_chunk=%(Q)d)
+            rules = rules_for_arch(cfg, mesh, fsdp_data=True)
+            mem, whole = dryrun._run_step(cfg, shape, rules, mesh, 1)
+            out[remat] = {"flops": whole["flops_per_device"],
+                          "peak": mem["argument_bytes"] + mem["output_bytes"]
+                                  + mem["temp_bytes"] - mem["alias_bytes"],
+                          "batch_axes": rules.batch_axes(B)}
+    print(json.dumps(out))
+""" % {"B": REMAT_B, "S": REMAT_S, "Q": REMAT_Q_CHUNK})
 
 
 def jax_mesh(name):
@@ -149,21 +220,40 @@ def test_plan_records_equal(arch, capsys):
     capsys.readouterr()
 
 
-@pytest.fixture(scope="module")
-def jax_segments(tmp_path_factory):
-    """The JAX segments, started at once in a subprocess (XLA's warnings go
-    to a file, so no pipe fills while the port's segments run)."""
-    err = tmp_path_factory.mktemp("jax_segments") / "stderr.txt"
+def _start(tmp_path_factory, name, *argv):
+    """``argv`` in a subprocess started at once (XLA's warnings go to a
+    file, so no pipe fills while the port's side runs)."""
+    err = tmp_path_factory.mktemp(name) / "stderr.txt"
     with open(err, "w") as errf:
         proc = subprocess.Popen(
-            [sys.executable, "-c", JAX_SEGMENTS, ",".join(SEG_ARCHS), ",".join(SEG_NAMES)],
+            [sys.executable, "-c", *argv],
             stdout=subprocess.PIPE, stderr=errf, text=True, cwd=REPO_ROOT,
             env=dict(SUBPROC_ENV, OMP_NUM_THREADS="1"))
     proc.stderr_path = err
-    yield proc
+    return proc
+
+
+def _stop(proc):
     if proc.poll() is None:
         proc.kill()
         proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def jax_segments(tmp_path_factory):
+    """The JAX segments, started at once in a subprocess."""
+    proc = _start(tmp_path_factory, "jax_segments", JAX_SEGMENTS, ",".join(SEG_ARCHS),
+                  ",".join(SEG_NAMES))
+    yield proc
+    _stop(proc)
+
+
+@pytest.fixture(scope="module")
+def jax_remat_cell(tmp_path_factory):
+    """XLA's record of the JAX remat cell, started at once in a subprocess."""
+    proc = _start(tmp_path_factory, "jax_remat_cell", JAX_REMAT_CELL)
+    yield proc
+    _stop(proc)
 
 
 PORT_SEGMENTS = textwrap.dedent("""
@@ -246,7 +336,9 @@ def test_one_ranks_local_segment_counts_the_fake_worlds_per_device_flops():
     assert rec["local"] == rec["fake"]
 
 
-def test_cli_writes_a_record_with_the_jax_keys(tmp_path):
+def _run_cli(tmp_path, *extra: str) -> dict:
+    """The CLI on reduced TinyLlama x train_4k with ``jax`` blocked, run to
+    its end: the record it wrote."""
     red = get_reduced("tinyllama-1.1b")
     over = {"n_layers": 2, "d_model": red.d_model, "d_ff": red.d_ff, "vocab": red.vocab}
     out = tmp_path / "rec.json"
@@ -262,13 +354,16 @@ def test_cli_writes_a_record_with_the_jax_keys(tmp_path):
             assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
             sys.exit(code)
         """), "--device", "cpu", "--arch", "tinyllama-1.1b", "--shape", "train_4k",
-         "--fabric", "gpu_nccl", "--out", str(out),
+         "--fabric", "gpu_nccl", "--out", str(out), *extra,
          json.dumps({**over, "attention": dataclasses.asdict(red.attention)})],
         capture_output=True, text=True, timeout=600, cwd=REPO_ROOT,
         env=dict(SUBPROC_ENV, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "peak_per_device_gib" in proc.stdout and "dry-run complete: 1 ok, 0 failed" in proc.stdout
-    rec = json.loads(out.read_text())
+    return json.loads(out.read_text())
+
+
+def _check_record(rec: dict) -> None:
     assert set(rec) == {"arch", "shape", "mesh", "n_devices", "fsdp_data", "n_microbatches",
                         "compile_s", "memory", "whole_program", "segments", "totals", "plan"}
     assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
@@ -282,6 +377,14 @@ def test_cli_writes_a_record_with_the_jax_keys(tmp_path):
                 "collective_term_s"):
         assert key in rec["totals"]
     assert {"analytic", "arena", "measured", "replanned"} <= set(rec["plan"])
+
+
+def test_cli_writes_a_record_with_the_jax_keys(tmp_path):
+    _check_record(_run_cli(tmp_path))
+
+
+def test_cli_runs_a_dots_cell(tmp_path):
+    _check_record(_run_cli(tmp_path, "--remat", "dots"))
 
 
 def test_wkv_jax_chunked_matches_the_jax_model():
@@ -307,3 +410,37 @@ def test_wkv_jax_chunked_matches_the_jax_model():
         to, ts = wkv_jax_chunked(*(torch.from_numpy(a) for a in args), chunk=16)
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
+
+
+def _choices(main, argv, capsys) -> str:
+    """The ``(choose from ...)`` of an argparse error on ``--remat``."""
+    with pytest.raises(SystemExit):
+        main(argv)
+    err = capsys.readouterr().err
+    return err[err.index("(choose from"):].splitlines()[0]
+
+
+def test_remat_choices_equal_the_jax_cli(capsys, monkeypatch):
+    argv = ["--remat", "offload"]
+    monkeypatch.setattr(sys, "argv", ["dryrun", *argv])
+    want = _choices(lambda _: jdry.main(), argv, capsys)
+    assert "'dots'" in want or " dots" in want
+    assert _choices(dryrun.main, argv, capsys) == want
+
+
+def test_remat_orders_flops_and_peaks_on_a_2x4_cell(jax_remat_cell):
+    got = run_json(PORT_REMAT_CELL)
+    stdout, _ = jax_remat_cell.communicate(timeout=600)
+    assert jax_remat_cell.returncode == 0, jax_remat_cell.stderr_path.read_text()[-3000:]
+    want = json.loads(stdout.strip().splitlines()[-1])
+    for side, rec in (("port", got), ("jax", want)):
+        full, dots, none = rec["full"], rec["dots"], rec["none"]
+        assert full["flops"] > dots["flops"] >= none["flops"], (side, rec)
+        assert full["peak"] <= dots["peak"] <= none["peak"], (side, rec)
+    # one row of 256 tokens a rank; the saved products of each layer
+    assert got["dots"]["batch_axes"] == ["data", "model"]
+    cfg, att = get_reduced("tinyllama-1.1b"), get_reduced("tinyllama-1.1b").attention
+    d, qd, kvd = cfg.d_model, att.n_heads * att.head_dim, att.n_kv_heads * att.head_dim
+    per_token = d * qd + 2 * d * kvd + qd * d + 2 * d * cfg.d_ff  # q, k, v, o, gate, up
+    tokens = REMAT_B * REMAT_S // 8
+    assert got["full"]["flops"] - got["dots"]["flops"] == 2 * tokens * per_token * cfg.n_layers
