@@ -225,9 +225,11 @@ step could hide a kernel fault.
    serving mode: ``rglru_fwd`` at (4, 1 and 2, 4096) with a nonzero h0
    (1e-5, hT == h[:, -1]), ``wkv_fwd`` at (4, 1, 64, 64) bf16 and f32 r/k/v
    with a nonzero s0 (2e-4 + 2e-4 relative), the flash kernels at prefill
-   lengths of 6a, 6b, 6d and 6e (phase 1b's checks), B7 and B3 (at each of
-   those cells' longest prompt) timed in that mode beside their bounds (the
-   flash forward beside SDPA; B6 is timed in phase 1c).  Then five cells
+   lengths of every cell with attention (6a, 6b, 6d-6j; phase 1b's checks),
+   B7 and B3 (at each of those cells' longest prompt) timed in that mode
+   beside their bounds (the flash forward beside SDPA, at 6h's softcap
+   beside ``torch.compile(flex_attention)`` with a tanh ``score_mod``; B6
+   is timed in phase 1c).  Then ten cells
    (``SERVE_CELLS``), each served twice on the same weights, once with the
    decode step captured in a CUDA graph and once eager: 6a TinyLlama-1.1B,
    22 layers, 8 slots / max_seq 1024, 16 requests of 64-512 prompt tokens
@@ -236,7 +238,15 @@ step could hide a kernel fault.
    of it) x 64; 6c RWKV6-7B, all 32 layers, 4 / 4096, 8 requests of
    256-2048 x 64; 6d MusicGen-large, all 48 layers, and 6e Qwen2-VL-2B, all
    28, each 8 / 1024 with 6a's 16 requests x 128, through the stub frontend
-   (token ids become rows of the model's table, gathered inside the graph).
+   (token ids become rows of the model's table, gathered inside the graph);
+   6f StarCoder2-3B (all 30 layers), 6g StarCoder2-7B (all 32) and 6h
+   Gemma2-2B (all 26: softcaps, alternating 4096 windows, the tied 256000
+   x 2304 table), each 8 / 1024 with 6a's requests; 6i Mixtral-8x7B and 6j
+   DBRX-132B unsharded, each at the deepest depth whose bf16 weights and
+   f32 arena, reckoned on ``meta`` tensors before the run
+   (``reckon_serve_bytes``), stay within 64 GB (``SERVE_STATIC_BUDGET``: a
+   peak under 70 GB), 4 / 1024, 8 requests of 64-512 x 64 (at 4 slots a
+   decode step's 4 tokens fit every expert's capacity, so no choice drops).
    Held: every request completes with its tokens, in the
    vocabulary; the captured step's tokens equal the eager step's for
    every request; the two equal-length requests batched give what each
@@ -248,7 +258,8 @@ step could hide a kernel fault.
    profiled decode step, captured and eager, ran by name in the device
    trace B6 once per RG-LRU layer, B7's two kernels once per RWKV6 layer
    and no flash forward (at 6c the captured step only), B6 as its step
-   kernel and never its tiled one; in 6b B6's launches inside the
+   kernel and never its tiled one (captured steps at every cell, eager
+   ones at ``SERVE_EAGER_PROFILE``'s); in 6b B6's launches inside the
    prefills (the wrapper's count read around each prefill) are the
    RG-LRU layers x the prefills, and the 2304-token prefill's device trace
    holds B6's tiled kernel once per RG-LRU layer and no step kernel; in 6b the
@@ -262,14 +273,18 @@ step could hide a kernel fault.
    request against the full forward (no ring) on an f32 copy of the
    weights, with f32 caches, at the same gate, the bf16 model's readings
    printed beside it (bf16 rounding puts them near 2e-2, as reduced
-   TinyLlama's and StarCoder2's in bf16); 6d's are not held to it: its
+   TinyLlama's and StarCoder2's in bf16), and so in 6h (softcaps and
+   alternating windows in decode; every prompt inside the window); 6d's are
+   not held to it: its
    decode step adds position 0's sinusoid, as the JAX engine's does.  Printed: prefill ms a request (median), decode step ms
    captured and eager, tokens/s, peak GB, the calibrated plan's predicted
    step against the observed one, each step's bound (weight bytes, the
    embedding table only when tied, plus the cache arena, at 3.35 TB/s),
-   and at 6a, 6b, 6d and 6e a torch.profiler breakdown of a captured and of
-   an eager step (wall, device busy, idle share, ms by kernel class, the
-   port's kernels by name), at 6c of a captured step.  Then
+   and a torch.profiler breakdown of a captured step (wall, device busy,
+   idle share, ms by kernel class, the port's kernels by name, the five
+   records that take the most time), at 6a, 6b, 6d, 6e and 6f of an eager
+   one too; at 6b and 6h, whose tied table is f32, the device time of its
+   cast to the bf16 head that every decode step runs.  Then
    the ten archs' reduced configs through the engine in f32 on the card
    (graph) and on the CPU (eager): greedy tokens equal over 8 steps, first
    logits within 1e-4 x max|logit| (reduced StarCoder2's and Qwen2-VL's head
@@ -383,15 +398,20 @@ step could hide a kernel fault.
 10. The dry run (``repro_torch.launch.dryrun``; host time, plus one rank's
    segment on the card).  10a: four cells through the CLI, each ``python
    -m repro_torch.launch.dryrun ... --fabric gpu_nccl`` in a subprocess on a
-   fake process group, all four started together: TinyLlama-1.1B x
+   fake process group, all started together: first TinyLlama-1.1B x
+   train_4k x 16x16 at reduced widths and 2 layers, whose collectives by
+   kind for the whole step and each segment (counted by the placement rule,
+   whatever the torch version) must equal ``DRYRUN_REDUCED_COUNTS``, the
+   counts ``tests/test_torch_dryrun.py`` pins; then TinyLlama-1.1B x
    train_4k x 16x16 (FSDP / DP, the train plan), the same under ``--remat
    dots`` (its flops a device less than the first's by exactly the 2·M·N·K
    of the products it saves, its peak no lower), DBRX-132B x decode_32k x
    16x16 (EP all-to-all, ``experts_only``, the serve plan) and
    RecurrentGemma-9B x long_500k x 2x16x16 (batch 1, sequence-sharded
    caches).  Gates: exit 0, each record read back with the JAX record's
-   keys, ``peak_per_device_gib`` printed; its dominant term, roofline
-   fraction and the plan's groups are printed.  10b, on the card meanwhile:
+   keys, ``peak_per_device_gib`` printed; its dominant term and the three
+   roofline terms, its collectives by the op that required them, the
+   roofline fraction and the plan's groups are printed.  10b, on the card meanwhile:
    one rank's TinyLlama train_4k stage segment (batch 1 x 4096, full width,
    plain attention, remat off) under ``FlopCounterMode`` must count exactly
    10a's per-device stage flops, and its ``max_memory_allocated`` must lie
@@ -413,8 +433,7 @@ the last line is ``{"ok": true, "device": {...}}``.  The ``kernels`` line's
 launches add up phases 3-3j and phases 4's and 5's training steps; it holds
 the flash kernels once per configuration (TinyLlama, RecurrentGemma and
 each ``NEW_ATTN`` shape, whose launches are its cell's: Gemma2's local and
-global shapes share phase 3f's), and the serving path's B3 (6a, 6b, 6d,
-6e), B6
+global shapes share phase 3f's), and the serving path's B3 (6a, 6b, 6d-6j), B6
 (6b: its decode steps, and its prefills, counted around each, in a row of
 their own) and B7 (6c)
 launches of the CUDA-graph runs in rows of their own, timed in serving
@@ -507,6 +526,25 @@ DRYRUN_CELLS = (
     ("dbrx-132b", "decode_32k", ()),
     ("recurrentgemma-9b", "long_500k", ("--multi-pod",)),
 )
+#: Phase 10a's pinned cell: TinyLlama x train_4k x 16x16 at reduced widths and 2 layers (the
+#: CLI cell of tests/test_torch_dryrun.py), run first: its collectives by kind (counted by the
+#: placement rule, ``launch/segments.py``) for the whole step and each segment, pinned in that
+#: test too, must come out the same on this host's torch
+DRYRUN_REDUCED_KEY = "tinyllama-1.1b__reduced"
+DRYRUN_REDUCED_COUNTS = {
+    "whole_program": {"all-gather": 86, "reduce-scatter": 32, "all-reduce": 14},
+    "stage": {"all-gather": 28, "reduce-scatter": 14, "all-reduce": 4},
+    "head": {"all-gather": 6, "reduce-scatter": 4, "all-reduce": 2},
+}
+DRYRUN_REDUCED = """
+import sys
+from repro_torch.configs import get_reduced
+from repro_torch.launch import dryrun
+red = get_reduced("tinyllama-1.1b")
+sys.exit(dryrun.main(sys.argv[1:], overrides={"n_layers": 2, "d_model": red.d_model,
+                                               "d_ff": red.d_ff, "vocab": red.vocab,
+                                               "attention": red.attention}))
+"""
 #: The JAX dry-run record's keys (``repro/launch/dryrun.py``); a train cell
 #: adds ``plan``, a decode cell ``serve_plan``.
 DRYRUN_KEYS = {"arch", "shape", "mesh", "n_devices", "fsdp_data", "n_microbatches", "compile_s",
@@ -1005,10 +1043,10 @@ def time_flash(shape, device, seed, tag, plain_reps=7):
     mask); SDPA computes no softcap, so at a softcap shape it is
     ``torch.compile(flex_attention)`` with the tanh softcap as its
     ``score_mod`` and the causal (and window) mask as its ``block_mask``.
-    The yardstick is timed only (the port never calls it), after its o is
-    held within phase 1b's bf16 tolerance of the kernel's."""
+    The yardstick (``attention_yardstick``) is timed only (the port never
+    calls it), after its o is held within phase 1b's bf16 tolerance of the
+    kernel's."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     B, S, Hq, Hkv, hd, _, window, softcap = shape
@@ -1028,39 +1066,7 @@ def time_flash(shape, device, seed, tag, plain_reps=7):
     # backward as one figure for dQ + dK/dV
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
-    if softcap:
-        import os
-
-        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
-
-        # the compiled yardstick's caches stay inside the checkout's build/
-        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "torchinductor"))
-        os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
-
-        def mask_mod(b, h, i, j):
-            return (i >= j) if window is None else (i >= j) & (i - j < window)
-
-        def score_mod(score, b, h, i, j):
-            return softcap * torch.tanh(score / softcap)
-
-        block_mask = create_block_mask(mask_mod, None, None, S, S, device=device)
-        flex = torch.compile(flex_attention)
-        lib_name = "flex_attention"
-
-        def library():
-            return flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
-    else:
-        if window is None:
-            sdpa_opts = dict(is_causal=True)
-        else:
-            pos = torch.arange(S, device=device)
-            sdpa_opts = dict(attn_mask=(pos[:, None] >= pos[None, :])
-                             & (pos[:, None] - pos[None, :] < window))
-        lib_name = "SDPA"
-
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_opts)
-
+    lib_name, library = attention_yardstick(qt, kt, vt, window, softcap, device)
     out = library()
     if not torch.allclose(out.transpose(1, 2).float(), o.float(), rtol=2e-2, atol=2e-2):
         fail(f"{tag}: the yardstick {lib_name} does not compute the kernel's function: max "
@@ -1114,6 +1120,43 @@ def time_flash(shape, device, seed, tag, plain_reps=7):
     del q, k, v, do, o, lse, delta, qt, kt, vt, out
     torch.cuda.empty_cache()
     return timings
+
+
+def attention_yardstick(qt, kt, vt, window, softcap, device):
+    """The one PyTorch call that computes the flash forward's function on
+    (B, H, S, hd) views, as ``(name, call)``: SDPA, causal (the window as a
+    mask), or at a softcap, which SDPA does not compute,
+    ``torch.compile(flex_attention)`` with the tanh softcap as its
+    ``score_mod``."""
+    import torch
+    import torch.nn.functional as F
+
+    S = qt.shape[2]
+    if softcap:
+        import os
+
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        # the compiled yardstick's caches stay inside the checkout's build/
+        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "torchinductor"))
+        os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+
+        def mask_mod(b, h, i, j):
+            return (i >= j) if window is None else (i >= j) & (i - j < window)
+
+        def score_mod(score, b, h, i, j):
+            return softcap * torch.tanh(score / softcap)
+
+        block_mask = create_block_mask(mask_mod, None, None, S, S, device=device)
+        flex = torch.compile(flex_attention)
+        return "flex_attention", lambda: flex(qt, kt, vt, score_mod=score_mod,
+                                              block_mask=block_mask, enable_gqa=True)
+    if window is None:
+        opts = dict(is_causal=True)
+    else:
+        pos = torch.arange(S, device=device)
+        opts = dict(attn_mask=(pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window))
+    return "SDPA", lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **opts)
 
 
 def phase_flash(device):
@@ -2388,7 +2431,21 @@ SERVE_CELLS = [
     ("phase 6c", "rwkv6-7b", 4, 4096, serve_lens(8, 256, 2048), 64),
     ("phase 6d", "musicgen-large", 8, 1024, serve_lens(16, 64, 512), 128),
     ("phase 6e", "qwen2-vl-2b", 8, 1024, serve_lens(16, 64, 512), 128),
+    ("phase 6f", "starcoder2-3b", 8, 1024, serve_lens(16, 64, 512), 128),
+    ("phase 6g", "starcoder2-7b", 8, 1024, serve_lens(16, 64, 512), 128),
+    ("phase 6h", "gemma2-2b", 8, 1024, serve_lens(16, 64, 512), 128),
+    ("phase 6i", "mixtral-8x7b", 4, 1024, serve_lens(8, 64, 512), 64),
+    ("phase 6j", "dbrx-132b", 4, 1024, serve_lens(8, 64, 512), 64),
 ]
+#: The serving cells cut in depth: the deepest whose bf16 weights and f32 cache arena,
+#: reckoned before the run (``reckon_serve_bytes``), stay within ``SERVE_STATIC_BUDGET``
+SERVE_CUT_ARCHS = ("mixtral-8x7b", "dbrx-132b")
+#: 70 GB of peak less ~6 GB for the prefills' activations, a second engine's arena, the
+#: graph's pool and the allocator's slack
+SERVE_STATIC_BUDGET = 64e9
+#: The cells whose eager decode step is also profiled (6c and the MoE cells' eager steps are
+#: not: the script's time limit)
+SERVE_EAGER_PROFILE = ("phase 6a", "phase 6b", "phase 6d", "phase 6e", "phase 6f")
 SERVE_SOLO_TOKENS = 16  # the batched == solo pair's tokens
 SERVE_REDUCED_STEPS = 8
 RG_SERVE_ATTN = (1, 2304, 16, 1, 256, True, 2048, None)  # 6b's longest prefill, one layer
@@ -2396,11 +2453,16 @@ TL_SERVE_ATTN = (1, 512, 32, 4, 64, True, None, None)  # 6a's longest prefill, o
 MG_SERVE_ATTN = (1, 512, 32, 32, 64, True, None, None)  # 6d's, MHA
 QW_SERVE_ATTN = (1, 512, 12, 2, 128, True, None, None)  # 6e's, GQA 6:1
 #: Each serving cell with attention: its tag, the key of its B3 timing, one prefill layer's
-#: attention at the longest prompt
+#: attention at the longest prompt (Gemma2's at its windowed layers' softcap and window)
 SERVE_ATTN = [("phase 6a", "flash[tinyllama]", TL_SERVE_ATTN),
               ("phase 6b", "flash[recurrentgemma]", RG_SERVE_ATTN),
               ("phase 6d", "flash[musicgen-large]", MG_SERVE_ATTN),
-              ("phase 6e", "flash[qwen2-vl-2b]", QW_SERVE_ATTN)]
+              ("phase 6e", "flash[qwen2-vl-2b]", QW_SERVE_ATTN),
+              ("phase 6f", "flash[starcoder2-3b]", (1, 512, 24, 2, 128, True, None, None)),
+              ("phase 6g", "flash[starcoder2-7b]", (1, 512, 36, 4, 128, True, None, None)),
+              ("phase 6h", "flash[gemma2-2b]", (1, 512, 8, 4, 256, True, 4096, 50.0)),
+              ("phase 6i", "flash[mixtral-8x7b]", (1, 512, 32, 8, 128, True, 4096, None)),
+              ("phase 6j", "flash[dbrx-132b]", (1, 512, 48, 8, 128, True, None, None))]
 DECODE_RGLRU = (4, 1, 4096)  # 6b's decode step, one RG-LRU layer
 DECODE_WKV = (4, 1, 64, 64)  # 6c's decode step, one RWKV6 layer
 
@@ -2459,7 +2521,8 @@ def serve_kernel_checks(device):
     errs["flash"] = flash_errs["fwd"]
     say(f"phase 6: rglru_fwd at T 1 and 2 with h0 (max |diff| {errs['rglru']:.3e}, hT == "
         f"h[:, -1]); wkv_fwd at {DECODE_WKV} with s0, bf16 and f32 r/k/v (max |diff| "
-        f"{errs['wkv']:.3e}); flash fwd/dQ/dK-dV at {n} prefill lengths of 6a, 6b, 6d and 6e (bf16: "
+        f"{errs['wkv']:.3e}); flash fwd/dQ/dK-dV at {n} prefill lengths of "
+        f"{', '.join(tag.split()[-1] for tag, _, _ in SERVE_ATTN)} (bf16: "
         f"{fmt_rel(rel)}): all within phases 1c / 1d / 1b's tolerances")
 
     timings = {}  # B6 in this mode is timed in phase 1c
@@ -2472,11 +2535,12 @@ def serve_kernel_checks(device):
                                    5 * elems * K, PEAK_FLOPS["tf32"] / 3)
     for _, key, shape in SERVE_ATTN:
         timings[key] = time_serve_flash(shape, device)
-    for key, where, lib_name in [("wkv", f"wkv_fwd {DECODE_WKV} bf16 r/k/v with s0", None)] + [
+    for key, where in [("wkv", f"wkv_fwd {DECODE_WKV} bf16 r/k/v with s0")] + [
             (key, f"{tag}'s flash fwd {shape[:5]}" + (f" window {shape[6]}" if shape[6] else "")
-             + " bf16", "SDPA") for tag, key, shape in SERVE_ATTN]:
+             + (f" softcap {shape[7]:g}" if shape[7] else "") + " bf16")
+            for tag, key, shape in SERVE_ATTN]:
         t = timings[key]
-        lib = "none" if t["library_ms"] is None else f"{lib_name} {t['library_ms']:.4f} ms"
+        lib = "none" if t["library_ms"] is None else f"{t['library']} {t['library_ms']:.4f} ms"
         say(f"phase 6: {where}, one launch: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {lib}, bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
             f"({t['bound_ms'] / t['ms'] * 100:.1f}% of bound)")
@@ -2487,27 +2551,28 @@ def serve_kernel_checks(device):
 
 def time_serve_flash(shape, device) -> dict:
     """B3's forward in serving mode (a prefill's, no autograd) at one
-    layer's ``shape``, timed beside its plain version, SDPA (masked for a
-    window) and its bound."""
+    layer's ``shape``, timed beside its plain version, the library call
+    that computes its function (``attention_yardstick``: SDPA, masked for a
+    window; flex attention at a softcap), held within 2e-2 of the kernel's
+    output, and its bound."""
     import torch
     from repro_torch.kernels import flash_attention as fa
 
-    B, S, Hq, Hkv, hd, _, window, _ = shape
+    B, S, Hq, Hkv, hd, _, window, softcap = shape
     q, kk, vv, _ = flash_inputs(B, S, S, Hq, Hkv, hd, torch.bfloat16, device, 90)
-    if window is None:
-        sdpa_opts = dict(is_causal=True)
-    else:
-        pos = torch.arange(S, device=device)
-        sdpa_opts = dict(attn_mask=(pos[:, None] >= pos[None, :])
-                         & (pos[:, None] - pos[None, :] < window))
+    opts = dict(window=window, softcap=softcap)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, kk, vv))
+    lib_name, library = attention_yardstick(qt, kt, vt, window, softcap, device)
+    o = fa.flash_attention_fwd(q, kk, vv, **opts)
+    out = library().transpose(1, 2)
+    if not torch.allclose(out.float(), o.float(), rtol=2e-2, atol=2e-2):
+        fail(f"phase 6: the yardstick {lib_name} at {shape[:5]} does not compute the kernel's "
+             f"function: max |o diff| {float((out.float() - o.float()).abs().max()):.3e}")
     nbytes, flops = flash_work(B, S, Hq, Hkv, hd, 2, window=window)["fwd"]
-    return kernel_timing(
-        lambda: fa.flash_attention_fwd(q, kk, vv, window=window, return_lse=True),
-        lambda: fa.flash_attention_fwd_ref(q, kk, vv, window=window),
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
-                                                                 **sdpa_opts),
-        nbytes, flops, PEAK_FLOPS["bfloat16"])
+    t = kernel_timing(lambda: fa.flash_attention_fwd(q, kk, vv, return_lse=True, **opts),
+                      lambda: fa.flash_attention_fwd_ref(q, kk, vv, **opts),
+                      library, nbytes, flops, PEAK_FLOPS["bfloat16"])
+    return {**t, "library": lib_name}
 
 
 def kernel_timing(kern, plain, library, nbytes, flops, peak) -> dict:
@@ -2539,7 +2604,7 @@ TRACE_NAMES = {"flash_fwd": ("flash_fwd_sm90_kernel", "flash_fwd_kernel"),
                "wkv_fwd_out": ("wkv_fwd_out_kernel",)}
 
 
-def decode_profile(engine, steps: int = 10) -> dict:
+def decode_profile(engine, steps: int = 10, tries: int = 4) -> dict:
     """torch.profiler over ``steps`` decode steps of ``engine`` (every slot
     active, its state saved first and put back after): wall and device-busy
     ms a step, the idle share, device ms a step by kernel class (the classes
@@ -2548,7 +2613,11 @@ def decode_profile(engine, steps: int = 10) -> dict:
     for a graph, what its replays ran.  Two warm-up steps run with the
     tracer already on and are dropped (the first replays under a fresh
     tracer can lose kernel records), and the device is idle at both ends
-    of the recorded steps."""
+    of the recorded steps.  Every step launches the same kernels, so a
+    trace in which some record's count is not a multiple of ``steps`` lost
+    records (one trace of 6b's eager steps kept 259 of 260 B6 step kernels): it
+    is taken again from the same state, up to ``tries`` times; the last
+    trace is returned either way, for the callers' gates to judge."""
     import torch
     from repro_torch.launch.profile_step import _union_us, kernel_class
     from repro_torch.models.transformer import tree_leaves
@@ -2556,27 +2625,35 @@ def decode_profile(engine, steps: int = 10) -> dict:
 
     warm = 2
     saved = [t.clone() for t in tree_leaves(engine._state)]
-    with torch.inference_mode():
-        engine._state["active"].fill_(True)
-        engine._launch_step()
-        torch.cuda.synchronize()
-        once = schedule(wait=0, warmup=warm, active=steps, repeat=1)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=once) as prof:
-            for i in range(warm + steps):
-                if i == warm:
-                    t0 = time.perf_counter()
-                engine._launch_step()
-                if i in (warm - 1, warm + steps - 1):
-                    torch.cuda.synchronize()
-                if i == warm + steps - 1:
-                    wall = (time.perf_counter() - t0) * 1e3 / steps
-                prof.step()
-        for dst, src in zip(tree_leaves(engine._state), saved):
-            dst.copy_(src)
-    # the device events, less the schedule's step annotations (each spans its whole step)
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.name.startswith("ProfilerStep")]
+    for _ in range(tries):
+        with torch.inference_mode():
+            engine._state["active"].fill_(True)
+            engine._launch_step()
+            torch.cuda.synchronize()
+            once = schedule(wait=0, warmup=warm, active=steps, repeat=1)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=once) as prof:
+                for i in range(warm + steps):
+                    if i == warm:
+                        t0 = time.perf_counter()
+                    engine._launch_step()
+                    if i in (warm - 1, warm + steps - 1):
+                        torch.cuda.synchronize()
+                    if i == warm + steps - 1:
+                        wall = (time.perf_counter() - t0) * 1e3 / steps
+                    prof.step()
+            for dst, src in zip(tree_leaves(engine._state), saved):
+                dst.copy_(src)
+        # the device events, less the schedule's step annotations (each spans its whole step)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
+        counts: dict = {}
+        for e in events:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if all(c % steps == 0 for c in counts.values()):
+            break
+        say(f"decode_profile: a trace of {steps} steps lost records ({len(events)} device "
+            f"records); taken again")
     busy = _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3 / steps
     by_class: dict = {}
     for e in events:
@@ -2585,11 +2662,17 @@ def decode_profile(engine, steps: int = 10) -> dict:
     named = {key: sum(any(n in e.name for n in names) for e in events) / steps
              for key, names in TRACE_NAMES.items()}
     names: dict = {}  # every device record a step, by name (phase 8 compares two steps')
+    name_ms: dict = {}
     for e in events:
         names[e.name] = names.get(e.name, 0) + 1
+        name_ms[e.name] = name_ms.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(name_ms.items(), key=lambda kv: -kv[1])[:5]
     return {"wall_ms": wall, "busy_ms": busy, "idle": 1.0 - busy / wall if events else None,
             "kernels": len(events) / steps, "named": named,
             "names": {n: c / steps for n, c in names.items()},
+            # the five records that take the most device time a step: short name, launches
+            # a step, ms a step
+            "top": [(short_name(n), names[n] / steps, round(ms / steps, 4)) for n, ms in top],
             "classes": {c: round(ms / steps, 4)
                         for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1])}}
 
@@ -2695,9 +2778,10 @@ RING_STEPS = 16  # decode steps of the ring check; the JAX ring loses one more k
 #: held at ``RING_GATE``.  Qwen2-VL's bf16 steps read 1.5e-2 - 2e-2 on an H100: the bf16
 #: decode path's own rounding (reduced TinyLlama and StarCoder2 in bf16 read 1e-2 on the CPU, and
 #: M-RoPE there reads exactly RoPE's), so its bf16 readings are printed and an f32 copy of the
-#: model is held.  MusicGen's are not held: its decode step adds position 0's sinusoid, as the
+#: model is held; so is Gemma2-2B's (its softcaps and alternating windows in decode, every
+#: prompt inside the 4096 window).  MusicGen's are not held: its decode step adds position 0's sinusoid, as the
 #: JAX engine's does (ROADMAP C)
-FULL_FORWARD_ARCHS = {"recurrentgemma-9b": "bf16", "qwen2-vl-2b": "f32"}
+FULL_FORWARD_ARCHS = {"recurrentgemma-9b": "bf16", "qwen2-vl-2b": "f32", "gemma2-2b": "f32"}
 RING_GATE = 3e-3  # max |diff| / max|logit| a step of the aligned ring (PERF.md)
 
 
@@ -2824,9 +2908,44 @@ def ring_check(tag, cfg, model, max_seq, prompt, device, gated=True) -> dict:
     return out
 
 
+def reckon_serve_bytes(cfg, slots: int, max_seq: int) -> int:
+    """Static bytes of a serving run, reckoned before it on ``meta``
+    tensors: each parameter once in its dtype (``reckon_bytes`` without
+    gradients, optimizer state or wire) and the engine's f32 cache arena."""
+    import torch
+    from repro_torch.models import Transformer, init_caches
+    from repro_torch.models.transformer import tree_leaves
+
+    weights = sum(p.numel() * p.element_size()
+                  for p in Transformer(cfg, device="meta", seed=None).parameters())
+    arena = init_caches(cfg, slots, max_seq, dtype=torch.float32, device="meta")
+    return weights + sum(t.numel() * t.element_size() for t in tree_leaves(arena))
+
+
+def serve_depth(arch, slots, max_seq) -> tuple[int, str]:
+    """The depth a serving cell runs at, and why: every layer, or for
+    ``SERVE_CUT_ARCHS`` the deepest whose reckoned static bytes stay within
+    ``SERVE_STATIC_BUDGET``."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch).n_layers
+    if arch not in SERVE_CUT_ARCHS:
+        return full, f"all {full}"
+    one, two = (reckon_serve_bytes(get_config(arch, n_layers=n), slots, max_seq) for n in (1, 2))
+    per_layer = two - one
+    depth = min(full, int((SERVE_STATIC_BUDGET - (one - per_layer)) // per_layer))
+    why = (f"{depth} of {full} (the deepest within {SERVE_STATIC_BUDGET / 1e9:.0f} GB of weights "
+           f"and arena: {per_layer / 1e9:.3f} GB a layer, {(one - per_layer) / 1e9:.3f} GB "
+           f"besides; {reckon_serve_bytes(get_config(arch, n_layers=depth), slots, max_seq) / 1e9:.2f} "
+           f"GB reckoned; all {full} would take "
+           f"{reckon_serve_bytes(get_config(arch), slots, max_seq) / 1e9:.1f} GB)")
+    return depth, why
+
+
 def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
-    """One full-depth serving cell through ``launch.serve.run``: the CUDA
-    graph engine, then the eager one on the same weights and requests."""
+    """One serving cell through ``launch.serve.run``, at full depth or the
+    depth ``serve_depth`` reckons: the CUDA graph engine, then the eager one
+    on the same weights and requests."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -2834,7 +2953,8 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
     from repro_torch.serving import Request, ServingEngine
 
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    depth, why = serve_depth(arch, slots, max_seq)
+    cfg = get_config(arch, n_layers=depth)
     model = Transformer(cfg, device=device, seed=0)
     args = ["--arch", arch, "--slots", str(slots), "--requests", str(len(lens)),
             "--prompt-lens", ",".join(map(str, lens)), "--tokens", str(tokens),
@@ -2894,10 +3014,10 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
         if alone[r.rid] != both[r.rid]:
             fail(f"{tag}: request {r.rid} batched {both[r.rid]} != alone {alone[r.rid]}")
 
-    # the decode-step profile, captured and eager, on the graph run's engine; at 6c only
-    # the captured step's, for what its replays run
+    # the decode-step profile, captured (for what its replays run) and, at the cells of
+    # SERVE_EAGER_PROFILE, eager
     prof = {"graph": decode_profile(g["res"].engine, steps=10 if arch != "rwkv6-7b" else 3)}
-    if arch != "rwkv6-7b":
+    if tag in SERVE_EAGER_PROFILE:
         prof["eager"] = decode_profile(e["res"].engine)
     for mode, p in prof.items():
         check_step_kernels(f"{tag} {mode}", cfg, p)
@@ -2927,6 +3047,14 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
             fwd32 = ring_check(f"{tag} f32", cfg32, model32, max_seq, req.prompt, device)
             del model32
             torch.cuda.empty_cache()
+    # a tied table kept in f32 is cast to the bf16 head inside every decode step; that cast
+    # alone, by device time (it shares its kernel's name with the step's other casts)
+    head_cast = None
+    if cfg.tie_embeddings and model.embed.dtype != cfg.param_dtype:
+        with torch.inference_mode():
+            ms = device_ms(lambda: model.embed.T.to(cfg.param_dtype))
+        moved = model.embed.numel() * (model.embed.element_size() + 2)
+        head_cast = {"ms": ms, "gb": moved / 1e9, "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
     plan = g["res"].plan
     bound_ms = decode_bytes(model, g["res"].engine) / HBM_BYTES_PER_S * 1e3
     res = {
@@ -2938,9 +3066,9 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
         "predicted_ms": plan.predicted_step_time() * 1e3, "bound_ms": bound_ms, "fwd": fwd,
         "fwd32": fwd32,
         "prof": prof, "steps": g["steps"], "replays": g["replays"],
-        "prefill_launches": g["prefill_counts"]["rglru_fwd"],
+        "prefill_launches": g["prefill_counts"]["rglru_fwd"], "head_cast": head_cast,
     }
-    say(f"{tag}: {arch} all {cfg.n_layers} layers bf16, {slots} slots / max_seq {max_seq}, "
+    say(f"{tag}: {arch} {why} layers bf16, {slots} slots / max_seq {max_seq}, "
         f"{len(lens)} requests (prompts {min(lens)}-{max(lens)}) x {tokens} tokens, greedy: "
         f"captured step tokens == eager step tokens for every request; batched == alone for "
         f"the two {lens[0]}-token requests; 1 decode graph, none after joins or retirements; "
@@ -2962,7 +3090,8 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
         named = {k: int(v) for k, v in p["named"].items()}
         say(f"{tag}: {mode} decode step under torch.profiler: {p['wall_ms']:.3f} ms wall, "
             f"{p['busy_ms']:.3f} ms device busy, idle share {idle}, {p['kernels']:.0f} kernels "
-            f"a step, of them by name {named}; device ms a step by class {p['classes']}")
+            f"a step, of them by name {named}; device ms a step by class {p['classes']}; the "
+            f"records taking the most (name, launches a step, ms a step): {p['top']}")
     if fwd32:
         say(f"{tag}: the {fwd['S']}-token request's {RING_STEPS} decode steps against the full "
             f"forward at positions {fwd['S']}-{fwd['S'] + RING_STEPS - 1}, max |diff| / "
@@ -2977,6 +3106,11 @@ def serve_cell(tag, arch, slots, max_seq, lens, tokens, device):
             f"prefill's ring {fmt_steps(fwd['jax'])}, window positions without a key over its "
             f"rings at steps 1 / 8 / {RING_STEPS}: {fwd['jax_missing'][0]} / "
             f"{fwd['jax_missing'][7]} / {fwd['jax_missing'][-1]}")
+    if head_cast:
+        say(f"{tag}: the tied f32 table's cast to the bf16 head, alone, as each decode step runs "
+            f"it: {head_cast['ms']:.4f} ms device time ({head_cast['gb']:.2f} GB moved, bound "
+            f"{head_cast['bound_ms']:.3f} ms), of the captured step's "
+            f"{prof['graph']['busy_ms']:.3f} ms device busy")
     say(f"{tag}: {time.perf_counter() - t0:.1f} s")
     del model, g, e, out
     torch.cuda.empty_cache()
@@ -4065,15 +4199,19 @@ def start_dryrun_cells() -> list:
     DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
     cells = []
-    for arch, shape, extra in DRYRUN_CELLS:
+    for arch, shape, extra in (("tinyllama-1.1b", "train_4k", ("reduced",)),) + DRYRUN_CELLS:
         key = arch + (f"__{extra[extra.index('--remat') + 1]}" if "--remat" in extra else "")
+        if extra == ("reduced",):
+            key, extra, head = DRYRUN_REDUCED_KEY, (), ["-c", DRYRUN_REDUCED]
+        else:
+            head = ["-m", "repro_torch.launch.dryrun"]
         tag = f"{key}__{shape}"
         out, log = DRYRUN_OUT / f"{tag}.json", DRYRUN_OUT / f"{tag}.log"
         out.unlink(missing_ok=True)
         with open(log, "w") as logf:
             proc = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-                 *extra, "--fabric", "gpu_nccl", "--out", str(out)],
+                [sys.executable, *head, "--arch", arch, "--shape", shape, *extra,
+                 "--fabric", "gpu_nccl", "--out", str(out)],
                 stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
         cells.append({"key": key, "arch": arch, "shape": shape, "proc": proc, "out": out,
                       "log": log, "t0": time.perf_counter()})
@@ -4109,7 +4247,11 @@ def finish_dryrun_cells(cells, timeout: float = 300.0) -> dict:
                 f"{rec['whole_program']['flops_per_device']:.6e} flops/device, collectives "
                 f"{rec['whole_program']['collectives']['counts']}; dominant {tot['dominant']}, "
                 f"roofline_fraction {tot['roofline_fraction']:.6f}, bound "
-                f"{tot['roofline_bound_s']:.6e} s; plan groups ({len(groups)}) {groups}")
+                f"{tot['roofline_bound_s']:.6e} s (compute {tot['compute_term_s']:.6e}, memory "
+                f"{tot['memory_term_s']:.6e}, collective {tot['collective_term_s']:.6e}); plan "
+                f"groups ({len(groups)}) {groups}")
+            by_op = [line.strip() for line in text.splitlines() if "collectives by op:" in line]
+            say(f"phase 10a: {c['key']}: {by_op[0] if by_op else 'no collectives-by-op line'}")
             records[c["key"]] = rec
     finally:
         for c in cells:
@@ -4263,6 +4405,21 @@ def check_dots_cell(records) -> None:
         f"against {full['whole_program']['collectives']['counts']}")
 
 
+def check_pinned_counts(rec) -> None:
+    """Phase 10a's reduced cell: its collectives by kind, for the whole step
+    and each segment, exactly ``DRYRUN_REDUCED_COUNTS`` (the counts
+    ``tests/test_torch_dryrun.py`` pins), whatever the torch version."""
+    import torch
+
+    got = {"whole_program": rec["whole_program"]["collectives"]["counts"],
+           **{name: rec["segments"][name]["coll_counts"] for name in ("stage", "head")}}
+    if got != DRYRUN_REDUCED_COUNTS:
+        fail(f"phase 10a: the reduced TinyLlama train_4k cell's collectives under torch "
+             f"{torch.__version__} are {got}, pinned {DRYRUN_REDUCED_COUNTS}")
+    say(f"phase 10a: the reduced TinyLlama train_4k cell's collectives under torch "
+        f"{torch.__version__} equal the pinned counts: {got}")
+
+
 def phase_dryrun(device) -> dict:
     """Phase 10: the dry-run CLI's cells on fake worlds (10a, on the
     host, in subprocesses started first) while one rank's stage segment runs
@@ -4272,6 +4429,7 @@ def phase_dryrun(device) -> dict:
         seg = dryrun_segment_on_card(device)
     finally:
         records = finish_dryrun_cells(cells)
+    check_pinned_counts(records[DRYRUN_REDUCED_KEY])
     stage = records["tinyllama-1.1b"]["segments"]["stage"]
     if seg["flops"] != stage["flops"]:
         fail(f"phase 10b: the card's stage segment counts {seg['flops']} flops, the fake world's "
@@ -4520,23 +4678,14 @@ def main() -> None:
     # count the prefills and the capture's recording; a replay's launches are
     # read by name from the device trace
     graph_counts = {tag: c["counts"]["graph"] for tag, c in serve_cells.items()}
-    for name, source, replaces, key, counter, err, extra in (
-            ("flash_attention.fwd[serve tinyllama]", FLASH_SM90_SRC,
-             "src/repro/kernels/flash_attention/kernel.py:40", "flash[tinyllama]",
-             ("phase 6a", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
-            ("flash_attention.fwd[serve recurrentgemma]", FLASH_SM90_SRC,
-             "src/repro/kernels/flash_attention/kernel.py:40", "flash[recurrentgemma]",
-             ("phase 6b", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
-            ("flash_attention.fwd[serve musicgen-large]", FLASH_SM90_SRC,
-             "src/repro/kernels/flash_attention/kernel.py:40", "flash[musicgen-large]",
-             ("phase 6d", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
-            ("flash_attention.fwd[serve qwen2-vl-2b]", FLASH_SM90_SRC,
-             "src/repro/kernels/flash_attention/kernel.py:40", "flash[qwen2-vl-2b]",
-             ("phase 6e", "flash_fwd"), "flash", {"kernel": "flash_fwd_sm90"}),
+    for name, source, replaces, key, counter, err, extra in [
+            (f"flash_attention.fwd[serve {key[6:-1]}]", FLASH_SM90_SRC,
+             "src/repro/kernels/flash_attention/kernel.py:40", key, (tag, "flash_fwd"), "flash",
+             {"kernel": "flash_fwd_sm90"}) for tag, key, _ in SERVE_ATTN] + [
             ("rglru.fwd[serve]", RGLRU_SRC, "src/repro/kernels/rglru/kernel.py:31", "decode",
              ("phase 6b", "rglru_fwd"), "rglru", {"kernel": "rglru_step_kernel"}),
             ("rwkv6_wkv.fwd[serve]", WKV_SRC, "src/repro/kernels/rwkv6_wkv/kernel.py:31", "wkv",
-             ("phase 6c", "wkv_fwd"), "wkv", {})):
+             ("phase 6c", "wkv_fwd"), "wkv", {})]:
         t = rglru_timings[key] if key == "decode" else serve_timings[key]
         cell = serve_cells[counter[0]]
         per_replay = cell["prof"]["graph"]["named"][

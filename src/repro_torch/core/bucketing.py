@@ -48,6 +48,24 @@ def tree_get(tree: Any, path: tuple[Any, ...]) -> Any:
     return tree
 
 
+def tree_set(tree: Any, path: tuple[Any, ...], value: Any) -> Any:
+    """Functional set on nested dict/list/tuple trees: a new tree with
+    ``value`` at ``path``, the containers along it copied, ``tree`` left
+    as it was."""
+    if not path:
+        return value
+    key = path[0]
+    if isinstance(tree, dict):
+        new = dict(tree)
+        new[key] = tree_set(tree[key], path[1:], value)
+        return new
+    if isinstance(tree, (list, tuple)):
+        new_l = list(tree)
+        new_l[key] = tree_set(tree[key], path[1:], value)
+        return type(tree)(new_l)
+    raise TypeError(f"unsupported container {type(tree)} at {path}")
+
+
 @dataclasses.dataclass(frozen=True)
 class CommUnit:
     """One schedulable gradient message (paper: one 'layer' l with p^(l))."""

@@ -5,18 +5,23 @@ gradient) and ``rwkv6_wkv`` (the RWKV6 WKV recurrence and its gradient).
 Every Pallas kernel of the JAX package has its counterpart here.
 
 Each wrapper counts the calls that launched its kernel in ``.launches``;
-``launch_counts()`` reads them all at once."""
+``launch_counts()`` reads them all at once.  The JAX package's
+``repro.kernels`` names resolve here, its oracles (``*_ref``) among them,
+but for two: ``flash_attention`` and ``rglru`` stay the subpackages' names
+(their ops of those names are the subpackages' own), and the ``*_pallas``
+entry points are the CUDA wrappers."""
 
-from .comm_pack import pack_arena, unpack_arena
+from .comm_pack import pack_arena, pack_arena_ref, unpack_arena, unpack_arena_ref
 from .flash_attention import (  # the subpackages keep their names: their ops
-    flash_attention_bwd,            # ``flash_attention`` and ``rglru`` are not
-    flash_attention_dkv,            # re-exported here
+    attention_ref,                  # ``flash_attention`` and ``rglru`` are not
+    flash_attention_bwd,            # re-exported here
+    flash_attention_dkv,
     flash_attention_dq,
     flash_attention_fwd,
     flash_attention_train,
 )
-from .rglru import RGLRUScan, rglru_bwd, rglru_fwd
-from .rwkv6_wkv import WKV6Function, wkv_bwd, wkv_fwd
+from .rglru import RGLRUScan, rglru_bwd, rglru_fwd, rglru_ref
+from .rwkv6_wkv import WKV6Function, wkv, wkv_bwd, wkv_fwd, wkv_ref
 
 
 def launch_counts() -> dict[str, int]:
@@ -30,6 +35,7 @@ def launch_counts() -> dict[str, int]:
 __all__ = [
     "RGLRUScan",
     "WKV6Function",
+    "attention_ref",
     "flash_attention_bwd",
     "flash_attention_dkv",
     "flash_attention_dq",
@@ -37,9 +43,14 @@ __all__ = [
     "flash_attention_train",
     "launch_counts",
     "pack_arena",
+    "pack_arena_ref",
     "rglru_bwd",
     "rglru_fwd",
+    "rglru_ref",
     "unpack_arena",
+    "unpack_arena_ref",
+    "wkv",
     "wkv_bwd",
     "wkv_fwd",
+    "wkv_ref",
 ]

@@ -71,6 +71,7 @@ from .segments import (
     fake_world,
     head_fwd_segment,
     head_train_segment,
+    keeps_experts,
     stage_fwd_segment,
     stage_train_segment,
     local_nbytes,
@@ -205,14 +206,18 @@ def _peak_bytes(tracker) -> int:
     return int(total)
 
 
-def _run_step(cfg, shape, rules, mesh, n_microbatches: int) -> tuple[dict, dict]:
+def _run_step(cfg, shape, rules, mesh, n_microbatches: int,
+              by_op: dict | None = None) -> tuple[dict, dict]:
     """Build the cell's placed fake state, run its step once under the
-    counters, and return the record's ``memory`` and ``whole_program``."""
+    counters, and return the record's ``memory`` and ``whole_program``;
+    ``by_op`` (when given) receives each collective kind's count by the
+    op whose placements required it."""
     B, S = shape.global_batch, shape.seq_len
     pspecs = param_pspecs(param_specs(cfg), rules)
     model = Transformer(cfg, device="meta", seed=None)
+    tokens = B * (S if shape.kind != "decode" else 1)
     distribute_module(model, _param_spec_of(pspecs), mesh,
-                      keep_experts=rules.fsdp_data == "experts_only")
+                      keep_experts=keeps_experts(cfg, rules, tokens))
     params_b = local_nbytes(list(model.parameters()))
     tracker = _mem_tracker()
     if shape.kind == "train":
@@ -260,6 +265,8 @@ def _run_step(cfg, shape, rules, mesh, n_microbatches: int) -> tuple[dict, dict]
         "peak_per_device_gib": round((args_b + out_b + temp_b - alias_b) / 2**30, 3),
     }
     t = mode.tally
+    if by_op is not None:
+        by_op.update(sorted(t.coll_by_op.items(), key=lambda kv: (-kv[1], kv[0])))
     whole = {
         "flops_per_device": float(t.flops),
         "bytes_accessed": float(t.bytes),
@@ -296,7 +303,9 @@ def dry_cell(arch: str, shape_name: str, multi_pod: bool, fsdp_data=True,
             "n_microbatches": n_microbatches,
         }
         t0 = time.time()
-        rec["memory"], rec["whole_program"] = _run_step(cfg, shape, rules, mesh, n_microbatches)
+        by_op: dict = {}
+        rec["memory"], rec["whole_program"] = _run_step(cfg, shape, rules, mesh, n_microbatches,
+                                                        by_op)
         rec["compile_s"] = round(time.time() - t0, 1)
         mem, wp = rec["memory"], rec["whole_program"]
         print(f"[{arch} x {shape_name} x {rec['mesh']}] fake step {rec['compile_s']}s")
@@ -306,6 +315,7 @@ def dry_cell(arch: str, shape_name: str, multi_pod: bool, fsdp_data=True,
               f"temp {mem['temp_bytes']} alias {mem['alias_bytes']})")
         print(f"  whole_program flops/device: {wp['flops_per_device']:.6e}, "
               f"collectives {wp['collectives']['counts']}")
+        print(f"  collectives by op: {json.dumps(by_op)}")
         if not skip_segments:
             rec["segments"] = segment_costs(arch, shape_name, mesh, rules, overrides)
             rec["totals"] = recompose(cfg, shape, rec, n_dev, roofline)

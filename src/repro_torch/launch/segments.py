@@ -11,19 +11,31 @@ what each op would do on one rank:
 
 * **flops per device**: each op's global flops (``torch.utils.flop_counter``'s
   formulas, matmul-class ops only) divided by the product of the sizes of
-  the mesh dims on which the op's output is ``Shard`` or ``Partial``; on a
-  ``Replicate`` dim every rank does the work again.  XLA's count also holds
+  the mesh dims on which the op's output is not ``Replicate`` (a shard,
+  strided or plain, or a partial sum); on a ``Replicate`` dim every rank
+  does the work again.  XLA's count also holds
   the elementwise flops, so the port's count is the smaller (0.87-0.99 of
   it on the reduced and full configs);
 * **bytes per device**: the local bytes of each op's tensor inputs and
   outputs (view ops move nothing and are skipped).  These are unfused
   bytes, larger than XLA's fused count;
-* **collectives**: each ``c10d_functional`` collective DTensor issues, by
-  the JAX kind names (``all-gather``, ``reduce-scatter``, ``all-reduce``,
-  ``all-to-all``), its payload the larger of its local input and output
-  bytes (the JAX parser's rule).  GSPMD also issues ``collective-permute``s
-  and involuntary rematerializations that DTensor does not, so the two
-  records agree by kind and rule, not by bytes.
+* **collectives**: each redistribution DTensor runs, counted by the
+  placement rule (``_redistributions_counted``: one collective per mesh
+  dim whose placement changes, by the JAX kind names ``all-gather``,
+  ``reduce-scatter``, ``all-reduce``, ``all-to-all``), its payload the
+  larger of its local input and output bytes (the JAX parser's rule), not
+  by the collectives DTensor's planner executes, which differ between
+  torch versions; a ``c10d_functional`` collective issued outside a
+  redistribution counts as executed.  GSPMD also issues
+  ``collective-permute``s and involuntary rematerializations that DTensor
+  does not, so the two records agree by kind and rule, not by bytes.
+
+Where DTensor's sharding propagation would place a result otherwise than
+GSPMD, or differently in different torch versions, ``CostMode`` and
+``counting`` place it as GSPMD does: a sum of partial sums stays partial
+(``_partial_linear``), operands of an elementwise op take one layout
+(``_align_pointwise``), and the MoE combine runs on each rank's experts
+(``_ShardedCombine``).
 
 A segment counts with remat off (``specs.arch_config_for_shape(...,
 cost_mode=True)``): the JAX segment count holds no recompute.  A train
@@ -37,11 +49,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import sys
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -263,6 +277,9 @@ class _Tally:
         self.coll_counts: dict[str, int] = {}
         self.coll_bytes: dict[str, int] = {}
         self.concat_ops = 0
+        # each collective by the op that issued it: "<kind> <- <DTensor op>"
+        self.coll_by_op: dict[str, int] = {}
+        self.op: str = "outside an op"
 
     def collective(self, func, args, out) -> bool:
         if func.namespace != "_c10d_functional":
@@ -271,10 +288,14 @@ class _Tally:
         if kind is not None:
             ins = [a for a in tree_flatten(args)[0] if isinstance(a, torch.Tensor)]
             outs = [o for o in tree_flatten(out)[0] if isinstance(o, torch.Tensor)]
-            nbytes = max(sum(map(_local_nbytes, ins)), sum(map(_local_nbytes, outs)))
-            self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
-            self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + nbytes
+            self.count(kind, max(sum(map(_local_nbytes, ins)), sum(map(_local_nbytes, outs))))
         return True
+
+    def count(self, kind: str, nbytes: int) -> None:
+        self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
+        self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + nbytes
+        key = f"{kind} <- {self.op}"
+        self.coll_by_op[key] = self.coll_by_op.get(key, 0) + 1
 
     def seg_cost(self, name: str) -> SegCost:
         return SegCost(name=name, flops=self.flops, bytes_accessed=self.bytes,
@@ -324,7 +345,11 @@ class CostMode(TorchDispatchMode):
             out = _expand_over_batch(args[0], tuple(args[1]))
             if out is not None:
                 return out
-        if any(issubclass(t, DTensor) for t in types):
+        out = _partial_linear(func, args, kwargs)
+        if out is not None:
+            outs = [out]
+        elif any(issubclass(t, DTensor) for t in types):
+            outer, tally.op = tally.op, str(func)
             with self._inner:
                 args = tuple(_at_use(a) if isinstance(a, nn.Parameter) else a for a in args)
                 if torch.Tag.pointwise in func.tags:
@@ -339,6 +364,7 @@ class CostMode(TorchDispatchMode):
                         out = func(_unsharded_past_prefix(args[0], args[1]), *args[1:], **kwargs)
                 if isinstance(out, DTensor) and any(_is_mask_partial(p) for p in out.placements):
                     out = _reduce_mask_partial(out)
+            tally.op = outer
             outs = [o for o in tree_flatten(out)[0] if isinstance(o, torch.Tensor)]
             if func._overloadpacket in flop_registry:
                 flops = flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
@@ -346,7 +372,7 @@ class CostMode(TorchDispatchMode):
                 div = 1
                 if d is not None:
                     div = math.prod(d.device_mesh.size(i) for i, p in enumerate(d.placements)
-                                    if p.is_shard() or p.is_partial())
+                                    if not p.is_replicate())
                 tally.flops += flops / div
         else:
             out = func(*args, **kwargs)
@@ -361,6 +387,45 @@ class CostMode(TorchDispatchMode):
             ins = [a for a in tree_flatten((args, kwargs))[0] if isinstance(a, torch.Tensor)]
             tally.bytes += sum(map(_local_nbytes, ins)) + sum(map(_local_nbytes, outs))
         return out
+
+
+_LINEAR_OPS = (torch.ops.aten.add, torch.ops.aten.sub)
+
+
+def _partial_linear(func, args, kwargs):
+    """A sum or difference of two DTensors of one shape whose placements
+    agree on every mesh dim, or are a partial sum on one side and
+    replicated on the other: a partial sum on those mesh dims, on each
+    rank's shards (the replicated operand counts once; no collective, as
+    GSPMD keeps it; the gradient norm's running sum of per-tensor partial
+    squares).  DTensor's own rule here depends on the torch version (2.11
+    all-reduces the partial operand at every such sum).  None for any other
+    op or operands."""
+    from torch.distributed.tensor import DTensor
+
+    if func._overloadpacket not in _LINEAR_OPS or len(args) != 2:
+        return None
+    a, b = args
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or a.shape != b.shape \
+            or a.device_mesh != b.device_mesh:
+        return None
+    placements, partial = [], False
+    for pa, pb in zip(a.placements, b.placements):
+        if _is_mask_partial(pa) or _is_mask_partial(pb):
+            return None
+        if pa == pb:
+            placements.append(pa)
+            partial |= pa.is_partial()
+        elif pa.is_partial() and pb.is_replicate() or pb.is_partial() and pa.is_replicate():
+            placements.append(pa if pa.is_partial() else pb)
+            partial = True
+        else:
+            return None
+    if not partial or any(p.is_partial() and p.reduce_op != "sum" for p in placements):
+        return None
+    local = func(a._local_tensor, b._local_tensor, **kwargs)
+    return DTensor.from_local(local, a.device_mesh, placements, run_check=False,
+                              shape=a.shape, stride=a.stride())
 
 
 def _is_view(func) -> bool:
@@ -491,7 +556,19 @@ def _align_pointwise(args: tuple) -> tuple:
             return o
         return _reshard(o, placements)
 
-    return tuple(align(a) for a in args)
+    args = tuple(align(a) for a in args)
+    # operands of one shape sharded on different dims: all take the layout of
+    # the one that shards the leading (batch) dim most, as GSPMD keeps the
+    # activations' batch layout through elementwise ops (DTensor's choice
+    # here depends on the torch version)
+    same = [a for a in args if isinstance(a, DTensor) and a.shape == best.shape
+            and a.device_mesh == best.device_mesh and not any(p.is_partial() for p in a.placements)]
+    if len({tuple(a.placements) for a in same}) < 2:
+        return args
+    lead = max(same, key=lambda a: (sum(getattr(p, "dim", None) == 0 for p in a.placements),
+                                    _shards(a)))
+    return tuple(_reshard(a, lead.placements) if any(a is o for o in same)
+                 and tuple(a.placements) != tuple(lead.placements) else a for a in args)
 
 
 def _is_replicated_scalar(x) -> bool:
@@ -538,51 +615,144 @@ def _reduce_mask_partial(x):
     return _reshard(x, placements)
 
 
+def _is_sharded(p) -> bool:
+    """A shard, plain or strided (torch 2.13's ``_StridedShard`` answers
+    ``is_shard()`` False)."""
+    return not (p.is_replicate() or p.is_partial())
+
+
+def _transition(src, dst) -> str | None:
+    """The collective one mesh dim's placement change implies, by the JAX
+    parser's kind names; None for a local change (a chunk of a replicated
+    or partial tensor, or none)."""
+    if src == dst or src.is_replicate():
+        return None
+    if src.is_partial():
+        return "all-reduce" if dst.is_replicate() else None if dst.is_partial() else "reduce-scatter"
+    if dst.is_replicate():
+        return "all-gather"
+    return None if dst.is_partial() else "all-to-all"
+
+
 @contextlib.contextmanager
-def _alltoall_counted(tally: _Tally):
-    """DTensor's Shard(i) -> Shard(j) reshard on a CPU mesh falls back to an
-    all-gather and a chunk (gloo has no all-to-all); count it as the
-    all-to-all it is on the card, at its input's bytes."""
-    from torch.distributed.tensor import _collective_utils, placement_types
+def _redistributions_counted(tally: _Tally):
+    """Count every redistribution DTensor runs by the placement rule, not
+    by the collectives its planner executes (which differ between torch
+    versions: 2.13 merges or splits some steps that 2.11 plans otherwise,
+    and a CPU mesh has no all-to-all).  Each mesh dim whose placement
+    changes is one collective of the kind ``_transition`` names, taken
+    innermost mesh dim first; its payload the larger of its local input
+    and output bytes (the JAX parser's rule) at that step."""
+    from torch.distributed.tensor import _redistribute
 
-    orig = _collective_utils.shard_dim_alltoall
+    orig = _redistribute.redistribute_local_tensor
 
-    def counted(input, gather_dim, shard_dim, mesh, mesh_dim):
-        tally.coll_counts["all-to-all"] = tally.coll_counts.get("all-to-all", 0) + 1
-        tally.coll_bytes["all-to-all"] = tally.coll_bytes.get("all-to-all", 0) + _local_nbytes(input)
+    def counted(local_tensor, current_spec, target_spec, *args, **kwargs):
+        mesh, nbytes = current_spec.mesh, _local_nbytes(local_tensor)
+        steps = zip(current_spec.placements, target_spec.placements)
+        for i, (src, dst) in reversed(list(enumerate(steps))):
+            kind = _transition(src, dst)
+            n = mesh.size(i)
+            out = nbytes * n if kind == "all-gather" else \
+                nbytes // n if _is_sharded(dst) and not _is_sharded(src) else nbytes
+            if kind is not None:
+                tally.count(kind, max(nbytes, out))
+            nbytes = out
         with _uncounted(tally):
-            return orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+            return orig(local_tensor, current_spec, target_spec, *args, **kwargs)
 
-    mods = [m for m in (_collective_utils, placement_types) if getattr(m, "shard_dim_alltoall", None) is orig]
+    mods = [m for name, m in list(sys.modules.items()) if name.startswith("torch.distributed.tensor")
+            and getattr(m, "redistribute_local_tensor", None) is orig]
     for m in mods:
-        m.shard_dim_alltoall = counted
+        m.redistribute_local_tensor = counted
     try:
         yield
     finally:
         for m in mods:
-            m.shard_dim_alltoall = orig
+            m.redistribute_local_tensor = orig
 
 
 @contextlib.contextmanager
 def _uncounted(tally: _Tally):
-    counts, nbytes = dict(tally.coll_counts), dict(tally.coll_bytes)
+    saved = (dict(tally.coll_counts), dict(tally.coll_bytes), dict(tally.coll_by_op))
     try:
         yield
     finally:
-        tally.coll_counts.clear()
-        tally.coll_counts.update(counts)
-        tally.coll_bytes.clear()
-        tally.coll_bytes.update(nbytes)
+        for d, old in zip((tally.coll_counts, tally.coll_bytes, tally.coll_by_op), saved):
+            d.clear()
+            d.update(old)
+
+
+def _einsum_on_shards(equation: str, a, b):
+    """A two-operand einsum of DTensors as GSPMD shards it: on each mesh
+    dim the one index either operand is sharded on (plain shards only)
+    shards both operands where they hold it (the whole one takes its local
+    chunk, no collective), and the output where it holds it, else the
+    output is a partial sum over that mesh dim (a contracted index).  Run
+    on each rank's shards in a ``local_map`` region, so forward and
+    backward compute only what the rank holds.  None where the rule does
+    not apply (two indices on one mesh dim, partial or strided operands, a
+    size the mesh dim does not divide)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ins, out = equation.replace(" ", "").split("->")
+    ia, ib = ins.split(",")
+    mesh = a.device_mesh
+    if b.device_mesh != mesh:
+        return None
+    pa, pb, po = [], [], []
+    for i in range(mesh.ndim):
+        letters = set()
+        for x, ix in ((a, ia), (b, ib)):
+            p = x.placements[i]
+            if type(p) is Shard:
+                letters.add(ix[p.dim])
+            elif not p.is_replicate():
+                return None
+        if len(letters) > 1:
+            return None
+        letter = letters.pop() if letters else ""
+        for x, ix, pl in ((a, ia, pa), (b, ib, pb)):
+            if letter and letter in ix and x.shape[ix.index(letter)] % mesh.size(i):
+                return None
+            pl.append(Shard(ix.index(letter)) if letter and letter in ix else Replicate())
+        po.append(Shard(out.index(letter)) if letter and letter in out
+                  else Partial() if letter else Replicate())
+    region = local_map(lambda x, y: torch.einsum(equation, x, y), out_placements=(tuple(po),),
+                       in_placements=(tuple(pa), tuple(pb)), device_mesh=mesh,
+                       redistribute_inputs=True)
+    return region(a, b)
+
+
+class _ShardedCombine(TorchFunctionMode):
+    """The MoE combine einsum (``models.moe.COMBINE``) on DTensors through
+    ``_einsum_on_shards``: its expert buffers hold the expert index sharded
+    over the model axis, which DTensor would gather to compute the combine
+    whole on every rank (forward and backward); GSPMD combines each rank's
+    experts and sums the partial outputs.  Every other call runs as is."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        from ..models.moe import COMBINE
+        from ..parallel.sharding import is_dtensor
+
+        if func is torch.einsum and len(args) == 3 and args[0] == COMBINE \
+                and is_dtensor(args[1]) and is_dtensor(args[2]) and not kwargs:
+            out = _einsum_on_shards(*args)
+            if out is not None:
+                return out
+        return func(*args, **(kwargs or {}))
 
 
 @contextlib.contextmanager
 def counting():
     """Run under a fresh ``CostMode`` with plain tensors taken as
-    replicated (constants, position tables): yields the mode."""
+    replicated (constants, position tables) and the MoE combine sharded as
+    GSPMD shards it (``_ShardedCombine``): yields the mode."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     mode = CostMode()
-    with _alltoall_counted(mode.tally), implicit_replication(), mode:
+    with _redistributions_counted(mode.tally), implicit_replication(), _ShardedCombine(), mode:
         yield mode
 
 
@@ -617,6 +787,19 @@ def _prefer(rules: ShardingRules, serving: bool) -> str:
     return "tp" if rules.reserve_model else "fsdp"
 
 
+def keeps_experts(cfg: ArchConfig, rules: ShardingRules, tokens: int) -> bool:
+    """Whether the MoE expert tables stay sharded where they are used
+    (``distribute_module``'s ``keep_experts``): under the serving rules'
+    ``experts_only``, and wherever a block of ``tokens`` runs decode-EP,
+    whose products contract the tables' data-sharded dims shard-local, as
+    GSPMD computes them (a ZeRO-3 gather would make the backward's
+    products whole over the data axes)."""
+    from ..models.moe import uses_decode_ep
+
+    return rules.fsdp_data == "experts_only" or (cfg.moe is not None
+                                                 and uses_decode_ep(tokens, cfg.moe))
+
+
 def _grads_to_param_placements(module: nn.Module) -> None:
     for p in module.parameters():
         if p.grad is not None and tuple(p.grad.placements) != tuple(p.placements):
@@ -634,7 +817,7 @@ def stage_train_segment(
     ba = rules.batch_axes(batch)
     stage = distribute_module(_sublayers(cfg, pattern, "meta"),
                               _stage_spec_of(cfg, rules, tail), mesh,
-                              keep_experts=rules.fsdp_data == "experts_only")
+                              keep_experts=keeps_experts(cfg, rules, batch * seq))
     x = fake_dtensor((batch, seq, cfg.d_model), cfg.param_dtype, (ba, None, None), mesh)
     x.requires_grad_(True)
     dy = fake_dtensor((batch, seq, cfg.d_model), cfg.param_dtype, (ba, None, None), mesh)
@@ -696,7 +879,7 @@ def stage_fwd_segment(
     with torch.no_grad():
         stage = distribute_module(_sublayers(cfg, pattern, "meta"),
                                   _stage_spec_of(cfg, rules, tail), mesh,
-                                  keep_experts=rules.fsdp_data == "experts_only")
+                                  keep_experts=keeps_experts(cfg, rules, batch * seq))
         x = fake_dtensor((batch, seq, cfg.d_model), cfg.param_dtype, (ba, None, None), mesh)
         pos = _positions(cfg, rules, mesh, batch, seq, pos_value)
         cache = None

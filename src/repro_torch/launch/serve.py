@@ -190,7 +190,7 @@ def run(argv: list[str] | None = None, *, model: Transformer | None = None,
         quiet: bool = False) -> ServeResult:
     """Parse ``argv``, build (or take) the model, plan, engine and
     requests, and serve them to completion.  ``model`` reuses built
-    weights; ``cuda_graph`` is the engine's (None: a graph on the card);
+    weights and their config; ``cuda_graph`` is the engine's (None: a graph on the card);
     ``chaos`` replaces the schedule the ``--chaos-*`` flags would build and
     routes the run through the resilient loop."""
     args = parse_args(argv)
@@ -226,10 +226,11 @@ def _tp_mesh(args: argparse.Namespace, device: torch.device, say):
 def _serve(args: argparse.Namespace, device: torch.device, say, resilient: bool,
            model: Transformer | None, cuda_graph: bool | None,
            chaos: ChaosConfig | None) -> ServeResult:
-    cfg = (get_reduced(args.arch, param_dtype=torch.float32) if args.reduced
-           else get_config(args.arch))
     if model is None:
+        cfg = (get_reduced(args.arch, param_dtype=torch.float32) if args.reduced
+               else get_config(args.arch))
         model = Transformer(cfg, device=device, seed=0)
+    cfg = model.cfg  # a given model's own config (a depth cut, say)
     max_seq = args.max_seq or max(_prompt_lens(args)) + args.tokens + 1
     mesh, tp = None, args.virtual_tp
     if args.sharded or args.measure_comm:

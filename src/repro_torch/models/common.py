@@ -115,3 +115,16 @@ class ArchConfig:
     def block_kinds(self) -> list[str]:
         """Per-layer kinds, length n_layers."""
         return list(self.pattern) * self.n_stages + list(self.tail_pattern)
+
+
+def param_count(tree: Any) -> int:
+    """The number of parameter elements in ``tree``: a module's parameters,
+    or the leaves (tensors, numpy arrays) of nested dicts, lists and tuples
+    (the JAX ``param_count`` over a pytree)."""
+    if isinstance(tree, torch.nn.Module):
+        return sum(p.numel() for p in tree.parameters())
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_count(v) for v in tree)
+    return int(tree.numel()) if isinstance(tree, torch.Tensor) else int(getattr(tree, "size", 1))

@@ -41,6 +41,17 @@ from ..parallel.context import constrain
 from .common import ArchConfig, MoE
 
 
+#: the combine einsum: each token's expert outputs, weighted by its gates
+COMBINE = "gecd,gtec->gtd"
+
+
+def uses_decode_ep(tokens: int, moe: MoE) -> bool:
+    """Whether a block of ``tokens`` tokens runs decode-EP: the tokens
+    replicated, the expert weights' contraction dims sharded over the data
+    axes (see the module docstring)."""
+    return tokens <= 4096 and moe.n_experts >= 2
+
+
 def _capacity(tokens_per_group: int, moe: MoE) -> int:
     c = int(tokens_per_group * moe.top_k * moe.capacity_factor / moe.n_experts)
     return max(4, min(tokens_per_group, (c + 3) // 4 * 4))
@@ -87,7 +98,7 @@ class MoEBlock(nn.Module):
 
         # decode-EP: at tiny token counts replicate the tokens and shard the
         # weights' contraction dims over the data axes (see the docstring)
-        decode_ep = T <= 4096 and E >= 2
+        decode_ep = uses_decode_ep(T, moe)
         xt = constrain(x.reshape(G, tg, D), {2: "data"} if decode_ep else {0: "batch"})
         probs = torch.softmax(xt.float() @ self.router, dim=-1)  # (G, tg, E)
         gate_vals, gate_idx, pos, keep = route(probs, moe, C)
@@ -103,7 +114,7 @@ class MoEBlock(nn.Module):
         h = constrain(h * torch.einsum("gecd,edf->gecf", xe, self.w_up), buf)
         ye = constrain(torch.einsum("gecf,efd->gecd", h, self.w_down),
                        {1: "expert"} if decode_ep else buf)
-        out = torch.einsum("gecd,gtec->gtd", ye, combine)
+        out = torch.einsum(COMBINE, ye, combine)
         out = constrain(out, {0: "batch"}).reshape(B, S, D)
 
         frac = torch.mean(torch.sum(F.one_hot(gate_idx, E).float(), dim=2), dim=(0, 1))

@@ -65,7 +65,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..devices import resolve_device
-from .common import ArchConfig
+from .common import ArchConfig, param_count
 from .layers import (
     KPOS_EMPTY,
     MLP,
@@ -574,6 +574,13 @@ def _nest(named: dict[str, Any], stack) -> dict:
     for rest, by_layer in per_layer.items():
         _set(tree, ["stages", *rest.split(".")], stack([by_layer[i] for i in range(len(by_layer))]))
     return tree
+
+
+def describe_params(cfg: ArchConfig, params: Any) -> str:
+    """One line on the model's size, as the JAX ``describe_params`` prints
+    it; ``params`` a module or a tree of tensors (``param_count``)."""
+    n = param_count(params)
+    return f"{cfg.name}: {n / 1e9:.3f}B params ({cfg.n_layers} layers, d={cfg.d_model})"
 
 
 def param_shapes(cfg: ArchConfig) -> dict:

@@ -323,9 +323,9 @@ def test_rwkv6_init_gap_is_f32_rounding():
     float32 both packages name made float64, they agree to 1e-10 on every
     leaf: the function is the same.  Each side's f32 is off that f64 in its
     own direction (JAX 1.8e-4, the port 3.6e-4 on ``embed``): the gap is f32
-    rounding on both sides.  The port's f32 error depends on the order of
-    its CPU reductions (one thread here; up to 1.1e-2 seen with six), so
-    the f32 bounds hold at one thread and the f64 agreement at any."""
+    rounding on both sides.  The witness gives the same readings at 1, 2, 4
+    and 6 CPU threads (the port's 3.6e-4 on ``embed`` each time); it runs
+    here at one."""
     out = subprocess.run([sys.executable, "-c", F64_WITNESS], capture_output=True, text=True,
                          timeout=600, env=dict(SUBPROC_ENV, OMP_NUM_THREADS="1"), cwd=REPO_ROOT)
     assert out.returncode == 0, out.stderr[-3000:]

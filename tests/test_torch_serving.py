@@ -15,7 +15,9 @@ JAX package's, on reduced configs with f32 weights bridged by
   and the decode steps wrap it.
 * The JAX engine and the port's on one request stream with mid-flight
   joins, retirements inside a bucket and slot reuse: the same greedy
-  tokens for every request.
+  tokens for every request, for TinyLlama, RecurrentGemma, RWKV6,
+  StarCoder2-3B / 7B, Gemma2-2B (softcaps, alternating windows), Mixtral
+  and DBRX (MoE; MusicGen and Qwen2-VL in their own files).
 * The JAX engine tests' invariants (``tests/test_serving_engine.py``) on
   the port's engine: batched == solo, slot reuse, an empty step that does
   nothing and builds nothing, and joins that build nothing new.
@@ -126,7 +128,9 @@ def _stream(vocab, n=6, seed=3):
              int(rng.integers(2, 7))) for rid in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "recurrentgemma-9b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "recurrentgemma-9b", "rwkv6-7b",
+                                  "starcoder2-3b", "starcoder2-7b", "gemma2-2b",
+                                  "mixtral-8x7b", "dbrx-132b"])
 def test_engine_matches_reference_engine(arch):
     """One stream through both engines: three requests, two steps, three
     more joining mid-flight (retirements inside the bucket free slots
