@@ -74,10 +74,19 @@ step could hide a kernel fault.
    (dr, dk, dv, dw, du, ds0) within 2e-4 x max(1, max|g|); a strong-decay
    case (w in (0.05, 0.3), T 256); a run split at T/2 and threaded through
    s_final -> s0 matches one run; a second run gives the same bits.  The
+   step kernel (``wkv_step_kernel``, which ``wkv_fwd`` takes for T up to
+   ``step_max_t()``, the decode step) at the decode step's (4, T, 64, 64),
+   T 1, 2, the threshold and one past it (the chunked side of the switch),
+   f32 and bf16 r/k/v, with and without s0 and ds_final: out / s_final at
+   the gate, a second run bitwise equal, the backward after it within the
+   gradient gate (handed the forward's chunk state, s0 itself, the same
+   bits as without), the step launches counted; and each row of a B 4 call
+   bitwise the same row alone.  The
    chunked forward (64-step chunks of 8-step sub-chunks) also alone, out /
    s_final at the same gate and a second run bitwise equal: at T below, at
    and past its boundaries (1, 8, 9, 15, 16, 63, 64, 65, 4096 + 17; K 64 bf16
-   and K 32 f32 with s0), with w holding exact zeros and with chunks whose
+   and K 32 f32 with s0; up to ``step_max_t()`` these run the step kernel),
+   with w holding exact zeros and with chunks whose
    first 30 decays are 1e-30 (main path's shape; against the plain version in
    f64, with the f32 loop's and the chunked form's (``wkv_chunked_ref``)
    readings and the kernel's against the loop printed beside it), and a run
@@ -227,7 +236,10 @@ step could hide a kernel fault.
    with a nonzero s0 (2e-4 + 2e-4 relative), the flash kernels at prefill
    lengths of every cell with attention (6a, 6b, 6d-6j; phase 1b's checks),
    B7 and B3 (at each of those cells' longest prompt) timed in that mode
-   beside their bounds (the flash forward beside SDPA, at 6h's softcap
+   beside their bounds (B7's step kernel by CUDA events and device time
+   beside the parent's path at the same T, the chunked pair from a build
+   with ``kStepMaxT`` 0, held to ``wkv_ref`` too; B7's chunked pair at
+   6c's longest prompt; the flash forward beside SDPA, at 6h's softcap
    beside ``torch.compile(flex_attention)`` with a tanh ``score_mod``; B6
    is timed in phase 1c).  Then ten cells
    (``SERVE_CELLS``), each served twice on the same weights, once with the
@@ -254,10 +266,12 @@ step could hide a kernel fault.
    retirement; flash fwd = attention layers x prefills and no other flash
    launch, ``rglru_fwd`` / ``wkv_fwd`` = recurrent layers x (prefills +
    decode steps run in Python: the capture's warm-up and recording, eager
-   steps), no backward kernel and no plain call on the card; every
-   profiled decode step, captured and eager, ran by name in the device
-   trace B6 once per RG-LRU layer, B7's two kernels once per RWKV6 layer
-   and no flash forward (at 6c the captured step only), B6 as its step
+   steps), B7's step kernel = RWKV6 layers x those decode steps (the
+   prefills run its chunked pair), no backward kernel and no plain call on
+   the card; every profiled decode step, captured and eager, ran by name in
+   the device trace B6 once per RG-LRU layer, B7's step kernel once per
+   RWKV6 layer and neither kernel of its chunked pair, and no flash forward
+   (at 6c the captured step only), B6 as its step
    kernel and never its tiled one (captured steps at every cell, eager
    ones at ``SERVE_EAGER_PROFILE``'s); in 6b B6's launches inside the
    prefills (the wrapper's count read around each prefill) are the
@@ -402,13 +416,18 @@ step could hide a kernel fault.
    train_4k x 16x16 at reduced widths and 2 layers, whose collectives by
    kind for the whole step and each segment (counted by the placement rule,
    whatever the torch version) must equal ``DRYRUN_REDUCED_COUNTS``, the
-   counts ``tests/test_torch_dryrun.py`` pins; then TinyLlama-1.1B x
+   counts ``tests/test_torch_dryrun.py`` pins, and RecurrentGemma-9B x
+   long_500k x 2x16x16 at full width and 3 layers (rec, rec, attn_local),
+   whose counts must equal ``DRYRUN_RG_SMALL_COUNTS``, pinned there too;
+   then TinyLlama-1.1B x
    train_4k x 16x16 (FSDP / DP, the train plan), the same under ``--remat
    dots`` (its flops a device less than the first's by exactly the 2·M·N·K
    of the products it saves, its peak no lower), DBRX-132B x decode_32k x
    16x16 (EP all-to-all, ``experts_only``, the serve plan) and
    RecurrentGemma-9B x long_500k x 2x16x16 (batch 1, sequence-sharded
-   caches).  Gates: exit 0, each record read back with the JAX record's
+   caches; its flops a device, collectives by kind and collectives by op
+   must equal ``DRYRUN_RG_LONG``, this repository's tests' torch's).  Gates:
+   exit 0, each record read back with the JAX record's
    keys, ``peak_per_device_gib`` printed; its dominant term and the three
    roofline terms, its collectives by the op that required them, the
    roofline fraction and the plan's groups are printed.  10b, on the card meanwhile:
@@ -545,6 +564,34 @@ sys.exit(dryrun.main(sys.argv[1:], overrides={"n_layers": 2, "d_model": red.d_mo
                                                "d_ff": red.d_ff, "vocab": red.vocab,
                                                "attention": red.attention}))
 """
+#: Phase 10a's second pinned cell: RecurrentGemma-9B x long_500k x 2x16x16 at full width and 3
+#: layers (rec, rec, attn_local: the RG-LRU block's gates and a local attention; the cell of
+#: tests/test_torch_dryrun.py), run first too, its counts pinned in that test as well
+DRYRUN_RG_SMALL_KEY = "recurrentgemma-9b__3_layers"
+DRYRUN_RG_SMALL_COUNTS = {
+    "whole_program": {"all-reduce": 40, "all-gather": 65, "reduce-scatter": 21},
+    "stage": {"all-reduce": 33, "reduce-scatter": 19, "all-gather": 61},
+    "head": {"all-reduce": 2},
+}
+DRYRUN_RG_SMALL = """
+import sys
+from repro_torch.launch import dryrun
+sys.exit(dryrun.main(sys.argv[1:], overrides={"n_layers": 3, "tail_pattern": ()}))
+"""
+#: The whole RecurrentGemma-9B x long_500k x 2x16x16 cell, as this repository's tests' torch
+#: counts it: phase 10a gates the card's torch to the same flops, kinds and op histogram
+DRYRUN_RG_LONG = {
+    "flops_per_device": 37486592.0,
+    "counts": {"all-reduce": 458, "all-gather": 824, "reduce-scatter": 292},
+    "by_op": {"all-gather <- aten.mm.default": 584, "all-reduce <- aten.add.Tensor": 206,
+              "reduce-scatter <- aten.mm.default": 188, "all-gather <- aten.copy_.default": 104,
+              "reduce-scatter <- aten.mul.Tensor": 104, "all-gather <- outside an op": 76,
+              "all-reduce <- aten.pow.Tensor_Scalar": 76, "all-reduce <- aten.gelu.default": 64,
+              "all-reduce <- aten.bmm.default": 60, "all-reduce <- aten.copy_.default": 26,
+              "all-gather <- aten.split.Tensor": 24, "all-gather <- aten.view.default": 24,
+              "all-reduce <- outside an op": 24, "all-gather <- aten._softmax.default": 12,
+              "all-reduce <- aten.embedding.default": 1, "all-reduce <- aten.mm.default": 1},
+}
 #: The JAX dry-run record's keys (``repro/launch/dryrun.py``); a train cell
 #: adds ``plan``, a decode cell ``serve_plan``.
 DRYRUN_KEYS = {"arch", "shape", "mesh", "n_devices", "fsdp_data", "n_microbatches", "compile_s",
@@ -640,15 +687,16 @@ def median_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 10, tries: int = 4) -> float:
+def device_ms(fn, calls: int = 10, tries: int = 4, kernels: int = 1) -> float:
     """Device time of one call of ``fn``: the kernels (and copies) that
     torch.profiler records over ``calls`` calls, over ``calls``, after
     ``calls`` warm-up calls under the same tracer whose records it drops (a
     fresh tracer can lose its first records).  The host's time to enqueue
-    them is not in it.  Every call launches at least one kernel, so a trace
-    with fewer device events than calls lost some: it is taken again, up to
-    ``tries`` times, and then the time is NaN (printed "nan": not
-    measured).  Fails if no trace recorded a device event."""
+    them is not in it.  Every call launches at least ``kernels`` kernels, so
+    a trace with fewer device events than ``kernels`` x calls lost some: it
+    is taken again, up to ``tries`` times, and then the time is NaN
+    (printed "nan": not measured).  Fails if no trace recorded a device
+    event."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -665,7 +713,7 @@ def device_ms(fn, calls: int = 10, tries: int = 4) -> float:
                 prof.step()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.name.startswith("ProfilerStep")]
-        if len(events) >= calls:
+        if len(events) >= kernels * calls:
             return sum(e.time_range.end - e.time_range.start for e in events) / calls / 1e3
         seen = max(seen, len(events))
     if not seen:
@@ -1436,11 +1484,11 @@ def phase_wkv(device):
     import torch
     from repro_torch.kernels import rwkv6_wkv as wk
 
-    errs = {"fwd": 0.0, "bwd": 0.0}
+    errs = {"fwd": 0.0, "bwd": 0.0, "step": 0.0}
     gate = {"share": 0.0, "at": ""}  # the largest forward |diff| / (2e-4 + 2e-4 |ref|)
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
 
-    def check_out(out, s_final, want_out, want_s, tag) -> float:
+    def check_out(out, s_final, want_out, want_s, tag, key="fwd") -> float:
         """Holds out and s_final (each unless None) at the gate; returns the
         larger reading as a share of the gate."""
         worst = 0.0
@@ -1451,7 +1499,7 @@ def phase_wkv(device):
             if not bool((d <= 2e-4 + 2e-4 * ref.abs()).all()) or not torch.isfinite(got).all():
                 fail(f"wkv {name} differs from its plain version at {tag}: max |diff| "
                      f"{float(d.max()):.3e}")
-            errs["fwd"] = max(errs["fwd"], float(d.max()))
+            errs[key] = max(errs[key], float(d.max()))
             share = float((d / (2e-4 + 2e-4 * ref.abs())).max())
             worst = max(worst, share)
             if share > gate["share"]:
@@ -1467,7 +1515,8 @@ def phase_wkv(device):
         want_out, want_s = wk.wkv_ref(*(t.double() if exact and t is not None else t
                                         for t in args))
         torch.cuda.synchronize()
-        share = check_out(None if state_only else out, s_final, want_out, want_s, tag)
+        key = "step" if r.shape[1] <= wk.step_max_t() else "fwd"
+        share = check_out(None if state_only else out, s_final, want_out, want_s, tag, key)
         out2, s2 = wk.wkv_fwd(r, k, v, w, u, s0)
         if not (torch.equal(out2, out) and torch.equal(s2, s_final)):
             fail(f"wkv: a second forward on the same inputs gave other bits at {tag}")
@@ -1532,6 +1581,44 @@ def phase_wkv(device):
         f"(max |diff| out/s_final {errs['fwd']:.3e}, gradients {errs['bwd']:.3e}; strong decay "
         f"included); split at T/2 through s_final -> s0 {split:.3e}; repeated runs bitwise equal")
 
+    # --- the step kernel: the decode step's shape at T 1, 2 and the threshold, and one past
+    # it (the chunked side of the switch); the backward after each forward, handed the
+    # forward's chunk state (s0 itself on the step path)
+    tmax = wk.step_max_t()
+    n_step = 0
+    wk.reset_counts()
+    for Tb in (1, 2, tmax, tmax + 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_state in (False, True):
+                rb, kb, vb, wb, ub, s0b, dob, dsb = wkv_inputs(DECODE_WKV[0], Tb, *DECODE_WKV[2:],
+                                                               device, 100 + Tb, dtype)
+                if not with_state:
+                    s0b, dsb = None, None
+                check((rb, kb, vb, wb, ub, s0b, dob, dsb),
+                      f"{(DECODE_WKV[0], Tb) + DECODE_WKV[2:]} {str(dtype)[6:]}"
+                      f"{' s0/ds_final' if with_state else ''}")
+                n_step += 1
+    # each case runs the forward three times (check_fwd twice, check_bwd's chunk states once)
+    want_steps = 3 * 4 * sum(Tb <= tmax for Tb in (1, 2, tmax, tmax + 1))
+    if wk.wkv_fwd.step_launches != want_steps or wk.wkv_fwd.ref_calls:
+        fail(f"phase 1d: {wk.wkv_fwd.step_launches} step-kernel launches and "
+             f"{wk.wkv_fwd.ref_calls} plain calls, want {want_steps} and 0 (T <= {tmax})")
+    rb, kb, vb, wb, ub, s0b = wkv_inputs(*DECODE_WKV, device, 110, torch.bfloat16)[:6]
+    out_all, s_all = wk.wkv_fwd(rb, kb, vb, wb, ub, s0b)
+    for b in range(DECODE_WKV[0]):
+        one = slice(b, b + 1)
+        out_b, s_b = wk.wkv_fwd(rb[one], kb[one], vb[one], wb[one], ub, s0b[one])
+        if not (torch.equal(out_b, out_all[one]) and torch.equal(s_b, s_all[one])):
+            fail(f"phase 1d: row {b} of the step kernel at {DECODE_WKV} alone differs from the "
+                 f"same row batched")
+    say(f"phase 1d: the step kernel (T <= step_max_t() = {tmax}) within the gate of wkv_ref on "
+        f"{n_step} cases (T 1, 2, {tmax} and {tmax + 1}, the chunked side, at (4, T, 64, 64), f32 "
+        f"and bf16 r/k/v, with and without s0; max |diff| out/s_final {errs['step']:.3e}), "
+        f"{want_steps} step launches; the backward after each within the gradient gate, the "
+        f"forward's chunk state (s0) handed over giving the same bits; rows of a B 4 call "
+        f"bitwise a B 1 call; repeats bitwise equal")
+    del rb, kb, vb, wb, ub, s0b, out_all, s_all
+
     # --- the chunked forward alone: its chunk and sub-chunk boundaries, the decays
     # where exponents could cancel or underflow, a split off the chunk grid
     n_fwd = 0
@@ -1594,7 +1681,8 @@ def phase_wkv(device):
     off_grid = max(float((torch.cat([out_a, out_b], 1) - out).abs().max()),
                    float((s_b - s_final).abs().max()))
     say(f"phase 1d: chunked wkv fwd within the gate on {n_fwd} more cases (T 1, 8, 9, 15, 16, "
-        f"63, 64, 65, 4113 at K 64 bf16 and K 32 f32 + s0; exact-zero, 1e-30-then-0.99 and "
+        f"63, 64, 65, 4113 at K 64 bf16 and K 32 f32 + s0, T <= {tmax} through the step "
+        f"kernel; exact-zero, 1e-30-then-0.99 and "
         f"near-1 decays) and split at T/2 + 17 (off the 64-step grid; {off_grid:.3e} from one "
         f"run); largest forward reading {gate['share']:.4f} of the gate |d| <= 2e-4 + "
         f"2e-4 |ref| ({gate['at']}); near-1 decays against f64: out and s_final at T 529 "
@@ -2478,7 +2566,11 @@ def serve_kernel_checks(device):
     """B6 and B7 at T = 1 with a nonzero h0 / s0, B3 at the cells' prefill
     lengths, against their plain versions with phases 1c / 1d / 1b's
     tolerances; then B7's and B3's time in that mode beside its bound (B6's
-    is phase 1c's)."""
+    is phase 1c's): B7's step kernel by CUDA events and device time, beside
+    the parent's path at the same T (its chunked pair, from the build with
+    ``kStepMaxT`` 0, ``rwkv6_wkv.compare.variant(0)``, held to ``wkv_ref``
+    too), and the
+    chunked pair at 6c's longest prompt, as its prefills run it."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru as rg
@@ -2530,12 +2622,52 @@ def serve_kernel_checks(device):
     r, k, v, w, u, s0 = wkv_inputs(B, T, H, K, device, 71, torch.bfloat16)[:6]
     elems = B * T * H * K
     nbytes = (3 * 2 + 4 + 4) * elems + 4 * H * K + 2 * 4 * B * H * K * K  # ..., s0 -> ..., s_final
-    timings["wkv"] = kernel_timing(lambda: wk.wkv_fwd(r, k, v, w, u, s0),
-                                   lambda: wk.wkv_ref(r, k, v, w, u, s0), None, nbytes,
-                                   5 * elems * K, PEAK_FLOPS["tf32"] / 3)
+    step = lambda: wk.wkv_fwd(r, k, v, w, u, s0)
+    wk.reset_counts()
+    step()
+    if (wk.wkv_fwd.launches, wk.wkv_fwd.step_launches) != (1, 1):
+        fail(f"phase 6: wkv_fwd at {DECODE_WKV} did not take the step kernel")
+    # the step kernel's arithmetic runs on the f32 CUDA cores
+    timings["wkv"] = t = kernel_timing(step, lambda: wk.wkv_ref(r, k, v, w, u, s0), None, nbytes,
+                                       5 * elems * K, PEAK_FLOPS["float32"])
+    t["device_ms"] = device_ms(step)
+    # the parent's path at the same T: the chunked pair (a build with kStepMaxT 0)
+    from repro_torch.kernels.rwkv6_wkv import compare
+
+    parent = compare.caller(compare.load([0])[0], r, k, v, w, u, s0)
+    got, want = parent(), wk.wkv_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("out", "s_final"), got, want):
+        if not bool(((x - y).abs() <= 2e-4 + 2e-4 * y.abs()).all()):
+            fail(f"phase 6: the chunked pair's {name} at {DECODE_WKV} differs from wkv_ref")
+    # two kernels a call: a trace that kept one of them would read half the time
+    t["parent_ms"], t["parent_device_ms"] = median_ms(parent), device_ms(parent, kernels=2)
+    # the step kernel through the same bare call as the parent's path (events carry the
+    # wrapper's host time: this is the like-for-like event reading)
+    t["bare_ms"] = median_ms(compare.caller(wk.ops._library(), r, k, v, w, u, s0))
+    # the chunked pair in 6c's prefills: its longest prompt, no s0
+    Tp = max(next(cell for cell in SERVE_CELLS if cell[0] == "phase 6c")[4])
+    rp, kp, vp, wp, up = wkv_inputs(1, Tp, H, K, device, 72, torch.bfloat16)[:5]
+    prefill = lambda: wk.wkv_fwd(rp, kp, vp, wp, up)
+    timings["wkv_prefill"] = kernel_timing(
+        prefill, lambda: wk.wkv_ref(rp, kp, vp, wp, up), None,
+        (3 * 2 + 4 + 4) * Tp * H * K + 4 * H * K + 4 * H * K * K, 5 * Tp * H * K * K,
+        PEAK_FLOPS["tf32"] / 3)
+    errs["wkv_prefill"] = float((prefill()[0] - wk.wkv_ref(rp, kp, vp, wp, up)[0]).abs().max())
+    say(f"phase 6: wkv_fwd {DECODE_WKV} bf16 r/k/v with s0, the step kernel: {t['ms']:.4f} ms by "
+        f"CUDA events through the wrapper ({t['bare_ms']:.4f} ms through the bare library "
+        f"call), device {t['device_ms'] * 1e3:.2f} us, against the parent's path (the "
+        f"chunked pair at T 1, kStepMaxT 0 build, within the gate of wkv_ref) "
+        f"{t['parent_ms']:.4f} ms by events through the bare library call, device "
+        f"{t['parent_device_ms'] * 1e3:.2f} us; bound "
+        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_ms'] / t['device_ms'] * 100:.1f}% of bound by "
+        f"device time, {t['bound_ms'] / t['parent_device_ms'] * 100:.1f}% the parent's)")
+    del rp, kp, vp, wp, up
     for _, key, shape in SERVE_ATTN:
         timings[key] = time_serve_flash(shape, device)
-    for key, where in [("wkv", f"wkv_fwd {DECODE_WKV} bf16 r/k/v with s0")] + [
+    for key, where in [("wkv", f"wkv_fwd {DECODE_WKV} bf16 r/k/v with s0 (step kernel)"),
+                       ("wkv_prefill", f"wkv_fwd (1, {Tp}, {H}, {K}) bf16 r/k/v (chunked pair, "
+                                       f"6c's longest prefill)")] + [
             (key, f"{tag}'s flash fwd {shape[:5]}" + (f" window {shape[6]}" if shape[6] else "")
              + (f" softcap {shape[7]:g}" if shape[7] else "") + " bf16")
             for tag, key, shape in SERVE_ATTN]:
@@ -2600,7 +2732,7 @@ def decode_bytes(model, engine) -> int:
 # the port's kernels by the names the device trace gives them (substrings)
 TRACE_NAMES = {"flash_fwd": ("flash_fwd_sm90_kernel", "flash_fwd_kernel"),
                "rglru_fwd": ("rglru_fwd_kernel",), "rglru_step": ("rglru_step_kernel",),
-               "wkv_fwd_state": ("wkv_fwd_state_kernel",),
+               "wkv_step": ("wkv_step_kernel",), "wkv_fwd_state": ("wkv_fwd_state_kernel",),
                "wkv_fwd_out": ("wkv_fwd_out_kernel",)}
 
 
@@ -2683,7 +2815,7 @@ def serve_counts(cfg) -> dict:
     from repro_torch.kernels import rwkv6_wkv as wk
 
     return {"flash_fwd": fa.flash_attention_fwd.launches, "rglru_fwd": rg.rglru_fwd.launches,
-            "wkv_fwd": wk.wkv_fwd.launches,
+            "wkv_fwd": wk.wkv_fwd.launches, "wkv_step": wk.wkv_fwd.step_launches,
             "plain": sum(f.ref_calls for f in (fa.flash_attention_fwd, fa.flash_attention_dq,
                                                fa.flash_attention_dkv, rg.rglru_fwd, rg.rglru_bwd,
                                                wk.wkv_fwd, wk.wkv_bwd)),
@@ -2703,13 +2835,15 @@ def check_serve_counts(tag, cfg, res, counts, n_prefills):
     never in decode; B6 and B7 once per recurrent layer per prefill and per
     decode step that ran in Python (eager steps, warm-ups, eager probes, the
     capture's warm-up and its recording; a replay runs no wrapper, and
-    ``check_step_kernels`` reads what it ran from the device trace); no
-    backward kernel, no plain version on the card."""
+    ``check_step_kernels`` reads what it ran from the device trace), B7 in
+    its step kernel in the decode steps only (a prefill's T is past
+    ``step_max_t()``); no backward kernel, no plain version on the card."""
     attn, rec, rwkv = layer_counts(cfg)
     eng = res.engine
     steps = eng.decode_launches - eng.graph_replays + eng.graph_captures
     want = {"flash_fwd": attn * n_prefills, "rglru_fwd": rec * (n_prefills + steps),
-            "wkv_fwd": rwkv * (n_prefills + steps), "plain": 0, "other": 0}
+            "wkv_fwd": rwkv * (n_prefills + steps), "wkv_step": rwkv * steps, "plain": 0,
+            "other": 0}
     if counts != want:
         fail(f"{tag}: kernel counts {counts}, want {want} ({attn} attention, {rec} RG-LRU, "
              f"{rwkv} RWKV6 layers; {n_prefills} prefills, {steps} decode steps in Python)")
@@ -2718,11 +2852,12 @@ def check_serve_counts(tag, cfg, res, counts, n_prefills):
 
 def check_step_kernels(tag, cfg, prof):
     """Each profiled decode step ran B6's step kernel once per RG-LRU layer
-    and never its tiled one, B7's two kernels once per RWKV6 layer and no
-    flash forward, by name in the device trace."""
+    and never its tiled one, B7's step kernel once per RWKV6 layer and
+    neither of its chunked pair, and no flash forward, by name in the
+    device trace."""
     _, rec, rwkv = layer_counts(cfg)
-    want = {"flash_fwd": 0, "rglru_fwd": 0, "rglru_step": rec, "wkv_fwd_state": rwkv,
-            "wkv_fwd_out": rwkv}
+    want = {"flash_fwd": 0, "rglru_fwd": 0, "rglru_step": rec, "wkv_step": rwkv,
+            "wkv_fwd_state": 0, "wkv_fwd_out": 0}
     if prof["named"] != want:
         fail(f"{tag}: a decode step's kernels in the device trace {prof['named']}, want {want}")
 
@@ -3281,7 +3416,8 @@ def resilient_cell(tag, model, cfg, args, chaos, restarts, min_fallbacks=0):
     prefills = eng.prefills + ref.prefills
     steps = sum(e.decode_launches - e.graph_replays + e.graph_captures for e in (eng, ref))
     want = {"flash_fwd": attn * prefills, "rglru_fwd": rec * (prefills + steps),
-            "wkv_fwd": rwkv * (prefills + steps), "plain": 0, "other": 0}
+            "wkv_fwd": rwkv * (prefills + steps), "wkv_step": rwkv * steps, "plain": 0,
+            "other": 0}
     if counts != want or pre != {"prefills": prefills, "rglru_fwd": rec * prefills}:
         fail(f"{tag}: kernel counts {counts} (inside the prefills {pre}), want {want} "
              f"({prefills} prefills counted by the engines, {steps} decode steps in Python)")
@@ -3466,7 +3602,8 @@ def fleet_run(tag, model, args, clock):
     counts = serve_counts(model.cfg)
     engines = [r.engine for r in res.fleet.replicas]
     prefills = sum(e.prefills for e in engines)
-    want = {"flash_fwd": layer_counts(model.cfg)[0] * prefills, "rglru_fwd": 0, "wkv_fwd": 0, "plain": 0, "other": 0}
+    want = {"flash_fwd": layer_counts(model.cfg)[0] * prefills, "rglru_fwd": 0, "wkv_fwd": 0,
+            "wkv_step": 0, "plain": 0, "other": 0}
     if counts != want:
         fail(f"{tag}: kernel counts {counts}, want {want} ({prefills} prefills over the replicas)")
     if [e.graph_captures for e in engines] != [1] * len(engines):
@@ -3662,7 +3799,8 @@ def check_sharded(tag, cfg, run, base, groups, n_prefills, graph) -> None:
             fail(f"{tag}: eager issue() calls (warm-up, run) "
                  f"{(run['warm_calls'], run['run_calls'])}, want {want}")
     attn, _, _ = layer_counts(cfg)
-    want = {"flash_fwd": attn * n_prefills, "rglru_fwd": 0, "wkv_fwd": 0, "plain": 0, "other": 0}
+    want = {"flash_fwd": attn * n_prefills, "rglru_fwd": 0, "wkv_fwd": 0, "wkv_step": 0,
+            "plain": 0, "other": 0}
     if run["counts"] != want:
         fail(f"{tag}: kernel counts {run['counts']}, want {want}")
 
@@ -4199,10 +4337,14 @@ def start_dryrun_cells() -> list:
     DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
     cells = []
-    for arch, shape, extra in (("tinyllama-1.1b", "train_4k", ("reduced",)),) + DRYRUN_CELLS:
+    pinned = (("tinyllama-1.1b", "train_4k", ("reduced",)),
+              ("recurrentgemma-9b", "long_500k", ("3 layers",)))
+    for arch, shape, extra in pinned + DRYRUN_CELLS:
         key = arch + (f"__{extra[extra.index('--remat') + 1]}" if "--remat" in extra else "")
         if extra == ("reduced",):
             key, extra, head = DRYRUN_REDUCED_KEY, (), ["-c", DRYRUN_REDUCED]
+        elif extra == ("3 layers",):
+            key, extra, head = DRYRUN_RG_SMALL_KEY, ("--multi-pod",), ["-c", DRYRUN_RG_SMALL]
         else:
             head = ["-m", "repro_torch.launch.dryrun"]
         tag = f"{key}__{shape}"
@@ -4218,12 +4360,13 @@ def start_dryrun_cells() -> list:
     return cells
 
 
-def finish_dryrun_cells(cells, timeout: float = 300.0) -> dict:
+def finish_dryrun_cells(cells, timeout: float = 300.0) -> tuple[dict, dict]:
     """Wait for phase 10a's runs (killing any still running at the end) and
     hold each record to the gates: exit 0, the JAX record's keys, the peak
     printed.  Returns ``{key: record}``, the key the arch with ``__<remat>``
-    where the cell sets one."""
-    records = {}
+    where the cell sets one, and ``{key: the collectives by op}`` (the CLI's
+    "collectives by op" line)."""
+    records, by_ops = {}, {}
     try:
         for c in cells:
             rc = c["proc"].wait(timeout=max(1.0, timeout - (time.perf_counter() - c["t0"])))
@@ -4251,14 +4394,17 @@ def finish_dryrun_cells(cells, timeout: float = 300.0) -> dict:
                 f"{tot['memory_term_s']:.6e}, collective {tot['collective_term_s']:.6e}); plan "
                 f"groups ({len(groups)}) {groups}")
             by_op = [line.strip() for line in text.splitlines() if "collectives by op:" in line]
-            say(f"phase 10a: {c['key']}: {by_op[0] if by_op else 'no collectives-by-op line'}")
+            if not by_op:
+                fail(f"phase 10a: {c['key']}: no collectives-by-op line")
+            say(f"phase 10a: {c['key']}: {by_op[0]}")
             records[c["key"]] = rec
+            by_ops[c["key"]] = json.loads(by_op[0].split("collectives by op:", 1)[1])
     finally:
         for c in cells:
             if c["proc"].poll() is None:
                 c["proc"].kill()
                 c["proc"].wait()
-    return records
+    return records, by_ops
 
 
 def _mem_tracker_peak(tracker) -> int:
@@ -4405,19 +4551,37 @@ def check_dots_cell(records) -> None:
         f"against {full['whole_program']['collectives']['counts']}")
 
 
-def check_pinned_counts(rec) -> None:
-    """Phase 10a's reduced cell: its collectives by kind, for the whole step
-    and each segment, exactly ``DRYRUN_REDUCED_COUNTS`` (the counts
+def check_pinned_counts(rec, pinned: dict, what: str) -> None:
+    """Phase 10a's pinned cells (the reduced TinyLlama train_4k cell, the
+    3-layer RecurrentGemma long_500k cell): their collectives by kind, for
+    the whole step and each segment, exactly ``pinned`` (the counts
     ``tests/test_torch_dryrun.py`` pins), whatever the torch version."""
     import torch
 
     got = {"whole_program": rec["whole_program"]["collectives"]["counts"],
-           **{name: rec["segments"][name]["coll_counts"] for name in ("stage", "head")}}
-    if got != DRYRUN_REDUCED_COUNTS:
-        fail(f"phase 10a: the reduced TinyLlama train_4k cell's collectives under torch "
-             f"{torch.__version__} are {got}, pinned {DRYRUN_REDUCED_COUNTS}")
-    say(f"phase 10a: the reduced TinyLlama train_4k cell's collectives under torch "
-        f"{torch.__version__} equal the pinned counts: {got}")
+           **{name: seg["coll_counts"] for name, seg in rec["segments"].items()}}
+    if got != pinned:
+        fail(f"phase 10a: {what}'s collectives under torch {torch.__version__} are {got}, "
+             f"pinned {pinned}")
+    say(f"phase 10a: {what}'s collectives under torch {torch.__version__} equal the pinned "
+        f"counts: {got}")
+
+
+def check_rg_long(rec, by_op) -> None:
+    """Phase 10a's RecurrentGemma long_500k cell: the same flops a device,
+    collectives by kind and collectives by op as ``DRYRUN_RG_LONG`` (the
+    counts of this repository's tests' torch), whatever the torch version."""
+    import torch
+
+    got = {"flops_per_device": rec["whole_program"]["flops_per_device"],
+           "counts": rec["whole_program"]["collectives"]["counts"], "by_op": by_op}
+    for key, want in DRYRUN_RG_LONG.items():
+        if got[key] != want:
+            fail(f"phase 10a: RecurrentGemma-9B x long_500k's {key} under torch "
+                 f"{torch.__version__} is {got[key]}, pinned {want}")
+    say(f"phase 10a: RecurrentGemma-9B x long_500k under torch {torch.__version__}: "
+        f"{got['flops_per_device']:.6e} flops/device, collectives {got['counts']} and the "
+        f"collectives by op equal the pinned ones")
 
 
 def phase_dryrun(device) -> dict:
@@ -4428,8 +4592,12 @@ def phase_dryrun(device) -> dict:
     try:
         seg = dryrun_segment_on_card(device)
     finally:
-        records = finish_dryrun_cells(cells)
-    check_pinned_counts(records[DRYRUN_REDUCED_KEY])
+        records, by_ops = finish_dryrun_cells(cells)
+    check_pinned_counts(records[DRYRUN_REDUCED_KEY], DRYRUN_REDUCED_COUNTS,
+                        "the reduced TinyLlama train_4k cell")
+    check_pinned_counts(records[DRYRUN_RG_SMALL_KEY], DRYRUN_RG_SMALL_COUNTS,
+                        "the 3-layer RecurrentGemma long_500k cell")
+    check_rg_long(records["recurrentgemma-9b"], by_ops["recurrentgemma-9b"])
     stage = records["tinyllama-1.1b"]["segments"]["stage"]
     if seg["flops"] != stage["flops"]:
         fail(f"phase 10b: the card's stage segment counts {seg['flops']} flops, the fake world's "
@@ -4524,11 +4692,14 @@ def main() -> None:
     print(card, flush=True)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    from repro_torch.kernels.rwkv6_wkv import compare as wkv_compare
+
     t0 = time.perf_counter()
-    # one nvcc each, in parallel
+    # one nvcc each, in parallel; the last is the WKV source with kStepMaxT 0 (the chunked
+    # pair at every T: phase 6 times the parent's decode step with it)
     built = _build.build_many([PACK_SOURCE, FLASH_SOURCE, FLASH_SM90_SOURCE, RGLRU_SOURCE,
-                               WKV_SOURCE])
-    say(f"build: all five libraries in {time.perf_counter() - t0:.1f} s")
+                               WKV_SOURCE, wkv_compare.variant(0)])
+    say(f"build: all six libraries in {time.perf_counter() - t0:.1f} s")
     for src, (lib, log, secs) in built.items():
         say(f"build: {lib.name} ({secs:.1f} s)" + ("" if log else " (already built)"))
         report_ptxas(log)
@@ -4685,16 +4856,21 @@ def main() -> None:
             ("rglru.fwd[serve]", RGLRU_SRC, "src/repro/kernels/rglru/kernel.py:31", "decode",
              ("phase 6b", "rglru_fwd"), "rglru", {"kernel": "rglru_step_kernel"}),
             ("rwkv6_wkv.fwd[serve]", WKV_SRC, "src/repro/kernels/rwkv6_wkv/kernel.py:31", "wkv",
-             ("phase 6c", "wkv_fwd"), "wkv", {})]:
+             ("phase 6c", "wkv_step"), "wkv",
+             {"kernel": "wkv_step_kernel",
+              **{x: serve_timings["wkv"][x] for x in ("device_ms", "bare_ms", "parent_ms",
+                                                      "parent_device_ms")}})]:
         t = rglru_timings[key] if key == "decode" else serve_timings[key]
         cell = serve_cells[counter[0]]
         per_replay = cell["prof"]["graph"]["named"][
-            {"wkv_fwd": "wkv_fwd_state", "rglru_fwd": "rglru_step"}.get(counter[1], counter[1])]
+            {"rglru_fwd": "rglru_step"}.get(counter[1], counter[1])]
         launches = graph_counts[counter[0]][counter[1]]
         if name == "rglru.fwd[serve]":
             # B6's launches inside the prefills (the tiled kernel, read around each prefill)
             # have a row of their own below; this row keeps the decode steps run in Python
             launches -= cell["prefill_launches"]
+        if name == "rwkv6_wkv.fwd[serve]":
+            serve_errs[err] = max(serve_errs[err], wkv_errs["step"])  # phase 1d's step cases
         kernels.append({
             "name": name, **extra, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
@@ -4702,6 +4878,15 @@ def main() -> None:
             "max_abs_err": serve_errs[err], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+    # B7's chunked pair in 6c's prefills, checked and timed at its longest prompt in phase 6
+    t, counts6c = serve_timings["wkv_prefill"], graph_counts["phase 6c"]
+    kernels.append({
+        "name": "rwkv6_wkv.fwd[prefill]", "kernel": "wkv_fwd_state_kernel + wkv_fwd_out_kernel",
+        "route": "cuda", "source": WKV_SRC, "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:31",
+        "launches": counts6c["wkv_fwd"] - counts6c["wkv_step"],
+        "max_abs_err": serve_errs["wkv_prefill"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
     # B6 in 6b's prefills (the tiled kernel), checked and timed at the longest prompt's
     # (1, 2304, 4096) in phase 1c
     t, cell = rglru_timings["prefill"], serve_cells["phase 6b"]

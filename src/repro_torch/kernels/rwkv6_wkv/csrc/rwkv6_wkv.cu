@@ -1,8 +1,9 @@
 // WKV6 recurrence (RWKV6 "Finch" time mix), forward and backward, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of repro/kernels/rwkv6_wkv/:
-//   wkv_fwd_state_kernel,        <- _wkv_kernel / wkv_pallas  (kernel.py:31, :91, pallas_call
-//   wkv_fwd_out_kernel              :117), the forward, in two launches
+//   wkv_step_kernel,             <- _wkv_kernel / wkv_pallas  (kernel.py:31, :91, pallas_call
+//   wkv_fwd_state_kernel,           :117), the forward: the step kernel for T <= kStepMaxT
+//   wkv_fwd_out_kernel              (the decode step), the chunked pair in two launches past it
 //   wkv_bwd_state_kernel,        its gradient; the JAX package has no kernel for it (JAX
 //   wkv_bwd_dv_kernel,              differentiates the jnp chunked form, models/rwkv6.py:177)
 //   wkv_bwd_grad_kernel,
@@ -22,7 +23,26 @@
 //     du[k]   = Σ_{b,t} r_t[k] k_t[k] (do_t·v_t)
 //     dS_{t-1} = diag(w_t) dS_t + r_tᵀ do_t,   ds0 = dS_{-1}.
 //
-// Both directions run in chunks of 64 steps on the tensor cores (CPU mirrors:
+// The forward takes one of two designs, chosen by T alone (never by B, so that a row's
+// bits do not depend on the rows batched with it):
+//
+// T <= kStepMaxT: wkv_step_kernel (the decode step, T = 1), one launch.  The step's
+//   bound is one pass over S: at the decode step's (4, 1, 64, 64) S is 4.2 MB read and
+//   4.2 MB written, the rows 0.1 MB, 2.58 us at 3.35 TB/s.  One block of 256 threads
+//   per (b, h); each thread owns one 16-byte vector of 4 adjacent state columns in
+//   K / (256 / (K / 4)) rows (4 at K 64), held in registers across the T steps, so each
+//   S element is loaded once (coalesced: a warp reads whole 256-byte rows) and stored
+//   once.  Each step, the row's r, k, v, w go through shared memory; each thread sums
+//   r_i S[i][c] and the bonus r_i u_i k_i over its rows, then updates its S in place
+//   (fmaf(w_i, S, k_i v_c)); the row groups' partial sums meet in shared memory and K
+//   threads add them in one fixed order (no atomics, the same bits every run).  No
+//   scratch is written and no dynamic shared memory is opted in to: for T <= 64 the
+//   chunk state the backward reads (S_c of chunk 0) is s0 itself, which the wrapper
+//   hands over.  kStepMaxT (24) is measured (python -m repro_torch.kernels.rwkv6_wkv.compare,
+//   builds of this file with kStepMaxT 0 and 64): see its definition below.
+//
+// T > kStepMaxT: the chunked pair, below.  Both directions run in chunks of 64 steps on
+// the tensor cores (CPU mirrors:
 // ../ref.py:wkv_chunked_ref and wkv_bwd_chunked_ref).  With lw = max(log w, -88) (the
 // floor turns a w that underflowed to 0 into a decay below f32's normal range) and
 // P(a, b) = Σ_{a<=m<b} lw_m over a chunk's local steps, a chunk of n <= 64 steps from
@@ -988,6 +1008,97 @@ __global__ void wkv_bwd_du_kernel(const float* part, float* du, int B, int NC, i
   du[h * K + k] = s;
 }
 
+// ---------------------------------------------------------------------------
+// The step kernel: T <= kStepMaxT, the recurrence itself, one pass over S.
+// ---------------------------------------------------------------------------
+
+// The longest T that the forward runs in the step kernel.  Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (python -m repro_torch.kernels.rwkv6_wkv.compare, builds with kStepMaxT
+// 0 and 64, device time at (B, T, 64, 64) bf16 with s0): at B 1 the step kernel wins through
+// T 24 (14.68 us against the chunked pair's 16.48) and loses at 32 (19.06 against 16.55):
+// each step is a serial round of three barriers.  At B 4 it wins through T 48, but a choice
+// by B would let a row's bits depend on its batch.  At T 1: 2.13 / 3.08 us at B 1 / 4,
+// against 14.97 / 28.10 for the chunked pair.
+constexpr int kStepMaxT = 24;
+constexpr int kStepThreads = 256;
+
+template <int K>
+struct StepSmem {
+  float row[4][K];                                     // r, k, v, w of the step
+  float u[K];
+  float4 part[kStepThreads / (K / 4)][K / 4];          // each row group's r·S
+  float bonus[kStepThreads / (K / 4)];                 // each row group's r·(u⊙k)
+};
+
+// One block per (b, h); thread (g, c) owns columns 4c .. 4c + 3 of rows gR .. gR + R - 1.
+template <int K, typename In>
+__global__ void __launch_bounds__(kStepThreads) wkv_step_kernel(Args<In> a) {
+  constexpr int kVecs = K / 4;                  // 16-byte column vectors a row
+  constexpr int kGroups = kStepThreads / kVecs;  // row groups
+  constexpr int R = K / kGroups;                // rows a thread
+  static_assert(R >= 1 && kGroups * R == K, "K 32 or 64");
+  __shared__ __align__(16) StepSmem<K> sm;
+  const int tid = threadIdx.x, c = tid % kVecs, g = tid / kVecs;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const long long HK = (long long)a.H * K;
+  const long long st = (long long)bh * K * K + (long long)g * R * K + 4 * c;  // (b, h, gR, 4c)
+  float4 S[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    S[j] = a.s0 != nullptr ? *reinterpret_cast<const float4*>(a.s0 + st + (long long)j * K)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < K) sm.u[tid] = a.u[h * K + tid];
+  for (int t = 0; t < a.T; ++t) {
+    const long long at = ((long long)b * a.T + t) * HK + (long long)h * K;  // (b, t, h, 0)
+    __syncthreads();  // the last step's sums are read
+    for (int e = tid; e < 4 * K; e += kStepThreads) {
+      const int which = e / K, col = e % K;
+      sm.row[which][col] = which == 0 ? to_f(a.r[at + col])
+                         : which == 1 ? to_f(a.k[at + col])
+                         : which == 2 ? to_f(a.v[at + col]) : a.w[at + col];
+    }
+    __syncthreads();
+    const float4 v = *reinterpret_cast<const float4*>(&sm.row[2][4 * c]);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float bonus = 0.f;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = g * R + j;
+      const float ri = sm.row[0][i], ki = sm.row[1][i], wi = sm.row[3][i];
+      acc.x = fmaf(ri, S[j].x, acc.x);
+      acc.y = fmaf(ri, S[j].y, acc.y);
+      acc.z = fmaf(ri, S[j].z, acc.z);
+      acc.w = fmaf(ri, S[j].w, acc.w);
+      bonus = fmaf(ri * sm.u[i], ki, bonus);
+      S[j].x = fmaf(wi, S[j].x, ki * v.x);
+      S[j].y = fmaf(wi, S[j].y, ki * v.y);
+      S[j].z = fmaf(wi, S[j].z, ki * v.z);
+      S[j].w = fmaf(wi, S[j].w, ki * v.w);
+    }
+    sm.part[g][c] = acc;
+    if (c == 0) sm.bonus[g] = bonus;
+    __syncthreads();
+    if (tid < K) {  // out[col]: the row groups' sums in order, then the bonus
+      const float* part = reinterpret_cast<const float*>(&sm.part[0][0]);
+      float o = 0.f, bsum = 0.f;
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) {
+        o += part[q * K + tid];
+        bsum += sm.bonus[q];
+      }
+      a.out[at + tid] = fmaf(bsum, sm.row[2][tid], o);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) *reinterpret_cast<float4*>(a.sT + st + (long long)j * K) = S[j];
+}
+
+template <int K, typename In>
+int launch_step(const Args<In>& a, cudaStream_t st) {
+  wkv_step_kernel<K, In><<<a.B * a.H, kStepThreads, 0, st>>>(a);
+  return int(cudaGetLastError());
+}
+
 // Opts kKernel in to `bytes` of dynamic shared memory (once), then launches it.
 template <auto kKernel, typename A>
 int launch(dim3 grid, int threads, int bytes, const A& a, cudaStream_t st) {
@@ -1075,20 +1186,27 @@ bool valid(int B, int T, int H, int K) {
 // first and holds the CPU mirrors to both.
 extern "C" int wkv_fwd_chunk() { return kL; }
 extern "C" int wkv_fwd_sub() { return kSub; }
+// The longest T that wkv_fwd runs in the step kernel.
+extern "C" int wkv_step_max_t() { return kStepMaxT; }
 
 // r, k, v: (B, T, H, K), f32 (bf16 = 0) or bf16 (bf16 = 1); w, out: (B, T, H, K) f32;
-// u: (H, K) f32; s0, s_final: (B, H, K, K) f32; s0 may be null (a zero state); scratch
-// chunk_states: (B, H, ceil(T / wkv_fwd_chunk()), K, K) f32.  All contiguous; K is 32 or 64.  Two
-// launches on `stream`.  Returns the cudaError_t of the launches (0 on success).
+// u: (H, K) f32; s0, s_final: (B, H, K, K) f32, 16-byte aligned; s0 may be null (a zero
+// state); scratch chunk_states: (B, H, ceil(T / wkv_fwd_chunk()), K, K) f32, unused (may be
+// null) for T <= wkv_step_max_t().  All contiguous; K is 32 or 64.  For T <= wkv_step_max_t()
+// one launch of the step kernel, else the chunked pair's two, on `stream`.  Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int wkv_fwd(const void* r, const void* k, const void* v, const float* w,
                        const float* u, const float* s0, float* out, float* s_final,
                        float* chunk_states, int B, int T, int H, int K, int bf16, void* stream) {
   if (!valid(B, T, H, K)) return int(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(s0) % 16 || reinterpret_cast<uintptr_t>(s_final) % 16)
+    return int(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto run = [&](auto a) {
     a.out = out;
     a.sT = s_final;
     a.sc = chunk_states;
+    if (T <= kStepMaxT) return K == 32 ? launch_step<32>(a, st) : launch_step<64>(a, st);
     return K == 32 ? launch_fwd<32>(a, st) : launch_fwd<64>(a, st);
   };
   return bf16 ? run(make_args<__nv_bfloat16>(r, k, v, w, u, s0, B, T, H))

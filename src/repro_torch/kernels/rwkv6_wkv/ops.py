@@ -4,15 +4,25 @@
 ``repro/kernels/rwkv6_wkv/ops.py``).
 
 Which path runs follows from where the tensors lie, and from nothing
-else: a CUDA tensor launches the kernel or raises.  Each kernel's wrapper
-(``wkv_fwd``, ``wkv_bwd``) counts its calls that launched in ``.launches``
-(each call launches several kernels, counted once) and its calls that
-took the plain version in ``.ref_calls``; ``reset_counts()`` zeroes them.
+else: a CUDA tensor launches the kernel or raises.  The forward has two
+designs, which the library picks by T alone (never by B, so a row's bits
+do not depend on the rows batched with it): for T up to ``step_max_t()``
+(the decode step, T = 1) the step kernel ``wkv_step_kernel``, one launch,
+one pass over the state; past it the chunked pair
+``wkv_fwd_state_kernel`` + ``wkv_fwd_out_kernel`` (training, prefill).  The
+backward, which only training runs, is the chunked kernels.  Each kernel's
+wrapper (``wkv_fwd``, ``wkv_bwd``) counts its calls that launched in
+``.launches`` (a call that launches several kernels counts once) and its
+calls that took the plain version in ``.ref_calls``; ``wkv_fwd`` also
+counts its calls that took the step kernel in ``.step_launches``.
+``reset_counts()`` zeroes them.
 
 ``wkv`` is the differentiable op (``WKV6Function``): its forward launches
 ``wkv_fwd`` and saves ``(r, k, v, w, u, s0)`` and, on the card, the state at
-the start of every 64-step chunk that the forward computed on the way; its
-backward launches ``wkv_bwd`` from them.  The kernels take r, k,
+the start of every 64-step chunk that the forward computed on the way (the
+step kernel computes none: its one chunk starts from ``s0``, handed over
+as that state, or none without ``s0``); its backward launches ``wkv_bwd``
+from them.  The kernels take r, k,
 v in float32 or bfloat16 (one dtype for the three), everything else in
 float32, and head sizes K of 32 or 64; they raise on anything else.
 Gradients come back in f32 from ``wkv_bwd`` and in each input's dtype from
@@ -44,13 +54,24 @@ def _library() -> ctypes.CDLL:
         lib.wkv_bwd.argtypes = [p] * 9 + [i] + [p] * 8 + [i] * 5 + [p]
         lib.wkv_fwd.restype = lib.wkv_bwd.restype = ctypes.c_int
         lib.wkv_fwd_chunk.restype = lib.wkv_fwd_sub.restype = ctypes.c_int
+        lib.wkv_step_max_t.restype = ctypes.c_int
         # the scratches are sized by CHUNK, and the CPU mirrors follow CHUNK and SUB
         built = (lib.wkv_fwd_chunk(), lib.wkv_fwd_sub())
         if built != (CHUNK, SUB):
             raise RuntimeError(f"{SOURCE.name} chunks the forward as (chunk, sub) {built}, "
                                f"ref.py as {(CHUNK, SUB)}")
+        # the step kernel's walk is one chunk: s0 is the backward's chunk state
+        if not 0 <= lib.wkv_step_max_t() <= CHUNK:
+            raise RuntimeError(f"{SOURCE.name} takes the step kernel up to T "
+                               f"{lib.wkv_step_max_t()}, past one chunk of {CHUNK}")
         _lib = lib
     return _lib
+
+
+def step_max_t() -> int:
+    """The longest T that the forward runs in the step kernel
+    (``kStepMaxT`` of ``csrc/rwkv6_wkv.cu``); builds the library."""
+    return _library().wkv_step_max_t()
 
 
 def _on_cpu(*tensors: torch.Tensor | None) -> bool:
@@ -114,14 +135,18 @@ def wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             u: torch.Tensor, s0: torch.Tensor | None = None):
     """The WKV6 recurrence (B7): ``out`` (B, T, H, K) f32 and ``s_final``
     (B, H, K, K) f32, from r, k, v, w (B, T, H, K), u (H, K) and the
-    initial state ``s0`` (zero when None).  On the card: the chunked
-    kernels, with the state at the start of every 64-step chunk in a
-    scratch tensor (``wkv_chunked_ref`` is their arithmetic on the CPU)."""
+    initial state ``s0`` (zero when None).  On the card: for T up to
+    ``step_max_t()`` the step kernel (the recurrence step by step, as
+    ``wkv_ref``), past it the chunked kernels, with the state at the start
+    of every 64-step chunk in a scratch tensor (``wkv_chunked_ref`` is
+    their arithmetic on the CPU)."""
     return _wkv_fwd(r, k, v, w, u, s0)[:2]
 
 
 def _wkv_fwd(r, k, v, w, u, s0):
-    """``wkv_fwd``, and its scratch of chunk states (None on the CPU)."""
+    """``wkv_fwd``, and the chunk states that the backward can take: the
+    chunked kernels' scratch, or for the step kernel ``s0`` as the one
+    chunk's state (None without ``s0``, and on the CPU)."""
     B, T, H, K = _check_shapes({"r": r, "k": k, "v": v, "w": w}, u, {"s0": s0})
     if _on_cpu(r, k, v, w, u, s0):
         wkv_fwd.ref_calls += 1
@@ -129,13 +154,18 @@ def _wkv_fwd(r, k, v, w, u, s0):
     (r, k, v, w, u, s0), bf16 = _kernel_inputs(r, k, v, w, u, K, s0=s0)
     out = torch.empty(B, T, H, K, dtype=torch.float32, device=r.device)
     s_final = torch.empty(B, H, K, K, dtype=torch.float32, device=r.device)
-    chunk_states = torch.empty(B, H, -(-T // CHUNK), K, K, dtype=torch.float32, device=r.device)
+    step = T <= step_max_t()
+    chunk_states = None if step else torch.empty(B, H, -(-T // CHUNK), K, K,
+                                                 dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     _check_launch(_library().wkv_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), _ptr(s0),
-        out.data_ptr(), s_final.data_ptr(), chunk_states.data_ptr(), B, T, H, K, bf16, stream),
+        out.data_ptr(), s_final.data_ptr(), _ptr(chunk_states), B, T, H, K, bf16, stream),
         "forward")
     wkv_fwd.launches += 1
+    if step:
+        wkv_fwd.step_launches += 1
+        chunk_states = None if s0 is None else s0[:, :, None]
     return out, s_final, chunk_states
 
 
@@ -211,6 +241,7 @@ def reset_counts() -> None:
     for fn in (wkv_fwd, wkv_bwd):
         fn.launches = 0
         fn.ref_calls = 0
+    wkv_fwd.step_launches = 0
 
 
 reset_counts()

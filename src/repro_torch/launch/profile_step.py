@@ -37,8 +37,9 @@ CLASSES = (
                          "flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
                          "flash_dkv_sum_kernel")),
     ("rglru", ("rglru_fwd_kernel", "rglru_bwd_kernel", "rglru_step_kernel")),
-    ("rwkv6_wkv", ("wkv_fwd_state_kernel", "wkv_fwd_out_kernel", "wkv_bwd_state_kernel",
-                   "wkv_bwd_dv_kernel", "wkv_bwd_grad_kernel", "wkv_bwd_du_kernel")),
+    ("rwkv6_wkv", ("wkv_step_kernel", "wkv_fwd_state_kernel", "wkv_fwd_out_kernel",
+                   "wkv_bwd_state_kernel", "wkv_bwd_dv_kernel", "wkv_bwd_grad_kernel",
+                   "wkv_bwd_du_kernel")),
     ("comm_pack", ("pack_kernel", "unpack_kernel")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),

@@ -32,10 +32,16 @@ what each op would do on one rank:
 
 Where DTensor's sharding propagation would place a result otherwise than
 GSPMD, or differently in different torch versions, ``CostMode`` and
-``counting`` place it as GSPMD does: a sum of partial sums stays partial
-(``_partial_linear``), operands of an elementwise op take one layout
-(``_align_pointwise``), and the MoE combine runs on each rank's experts
-(``_ShardedCombine``).
+``counting`` place it as GSPMD does: an op linear in a partial sum (a sum of
+partial sums, a product by a replicated factor) keeps it partial
+(``_partial_linear``); any other elementwise op's partial operand is
+reduced first, by one rule (``_reduce_partials``); operands of an
+elementwise op take one layout (``_align_pointwise``); a ``bmm`` is placed
+by rule on each rank's shards (``_placed_bmm``: the local attention's
+products); and the MoE combine runs on each rank's experts
+(``_ShardedCombine``).  So no partial sum reaches DTensor's own propagation
+as an operand of an elementwise op or of a ``bmm`` it places, and torch
+2.11 and 2.13 give the same records.
 
 A segment counts with remat off (``specs.arch_config_for_shape(...,
 cost_mode=True)``): the JAX segment count holds no recompute.  A train
@@ -353,9 +359,10 @@ class CostMode(TorchDispatchMode):
             with self._inner:
                 args = tuple(_at_use(a) if isinstance(a, nn.Parameter) else a for a in args)
                 if torch.Tag.pointwise in func.tags:
-                    args = _align_pointwise(args)
+                    args = _align_pointwise(_reduce_partials(args))
+                placed = _placed_bmm(args) if func is torch.ops.aten.bmm.default else None
                 try:
-                    out = func(*args, **kwargs)
+                    out = func(*args, **kwargs) if placed is None else placed[1]
                 except RuntimeError:
                     if not _is_view(func) or not isinstance(args[0], DTensor):
                         raise
@@ -368,7 +375,9 @@ class CostMode(TorchDispatchMode):
             outs = [o for o in tree_flatten(out)[0] if isinstance(o, torch.Tensor)]
             if func._overloadpacket in flop_registry:
                 flops = flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
-                d = next((o for o in outs if isinstance(o, DTensor)), None)
+                # a placed product counts where it was computed, before its reduction
+                d = placed[0] if placed is not None else \
+                    next((o for o in outs if isinstance(o, DTensor)), None)
                 div = 1
                 if d is not None:
                     div = math.prod(d.device_mesh.size(i) for i, p in enumerate(d.placements)
@@ -392,20 +401,222 @@ class CostMode(TorchDispatchMode):
 _LINEAR_OPS = (torch.ops.aten.add, torch.ops.aten.sub)
 
 
+def _is_partial_sum(x) -> bool:
+    """A DTensor with a partial sum (or mean) on some mesh dim, and no other
+    kind of partial."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or any(_is_mask_partial(p) for p in x.placements):
+        return False
+    partial = [p for p in x.placements if p.is_partial()]
+    return bool(partial) and all(p.reduce_op in ("sum", "avg") for p in partial)
+
+
 def _partial_linear(func, args, kwargs):
-    """A sum or difference of two DTensors of one shape whose placements
-    agree on every mesh dim, or are a partial sum on one side and
-    replicated on the other: a partial sum on those mesh dims, on each
-    rank's shards (the replicated operand counts once; no collective, as
-    GSPMD keeps it; the gradient norm's running sum of per-tensor partial
-    squares).  DTensor's own rule here depends on the torch version (2.11
-    all-reduces the partial operand at every such sum).  None for any other
-    op or operands."""
+    """An op linear in a partial sum keeps it partial, on each rank's
+    shards, with no collective, whatever DTensor's own rule (which depends
+    on the torch version: 2.11 all-reduces the partial operand of such a
+    sum or product, 2.13 keeps it):
+
+    * a sum or difference of two DTensors of one shape whose placements
+      agree on every mesh dim, or are a partial sum on one side and
+      replicated on the other (the replicated operand counts once; the
+      gradient norm's running sum of per-tensor partial squares), and a
+      partial sum plus or minus the number 0;
+    * a product by a factor replicated on the partial sum's partial mesh
+      dims (a scalar, or a DTensor whose other mesh dims are replicated or
+      shard what the partial operand shards: it takes those shards, a local
+      chunk), when the partial operand has the result's shape.
+
+    None for any other op or operands."""
+    if func._overloadpacket is torch.ops.aten.mul:
+        return _partial_scaled(func, args, kwargs)
+    return _partial_sum(func, args, kwargs)
+
+
+def _partial_scaled(func, args, kwargs):
+    """``_partial_linear``'s products: ``x * c`` and ``c * x`` with ``x`` a
+    partial sum and ``c`` replicated on its partial mesh dims."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if len(args) != 2:
+        return None
+    at = [i for i, a in enumerate(args) if _is_partial_sum(a)]
+    if len(at) != 1:
+        return None
+    x, c = args[at[0]], args[1 - at[0]]
+    c_shape = tuple(c.shape) if isinstance(c, torch.Tensor) else ()
+    if torch.broadcast_shapes(tuple(x.shape), c_shape) != tuple(x.shape):
+        return None
+    lead = x.ndim - len(c_shape)
+    if isinstance(c, DTensor):
+        if c.device_mesh != x.device_mesh:
+            return None
+        want = []
+        for px, pc in zip(x.placements, c.placements):
+            d = getattr(px, "dim", -1) - lead
+            if type(px) is Shard and d >= 0 and c_shape[d] != 1:
+                target = Shard(d)
+            elif px.is_partial() or px.is_replicate() or type(px) is Shard:
+                target = Replicate()
+            else:
+                return None
+            if pc != target and not pc.is_replicate():
+                return None
+            want.append(target)
+        if tuple(want) != tuple(c.placements):
+            c = _reshard(c, want)
+        c = c._local_tensor
+    elif isinstance(c, torch.Tensor) and c.ndim and any(
+            _is_sharded(p) and p.dim - lead >= 0 and c_shape[p.dim - lead] != 1
+            for p in x.placements):
+        return None  # a whole plain tensor against a shard
+    operands = (x._local_tensor, c) if at == [0] else (c, x._local_tensor)
+    local = func(*operands, **kwargs)
+    return DTensor.from_local(local, x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=contiguous_stride(tuple(x.shape)))
+
+
+def _reduce_partials(args: tuple) -> tuple:
+    """The operands of an elementwise op that ``_partial_linear`` did not
+    take (one not linear in a partial sum: ``gelu``, ``sigmoid``, ``pow``,
+    ``masked_fill``, a product of two partial sums or by a factor sharded
+    where the partial operand is partial, a sum that is not one of partial
+    sums): every partial operand is reduced first, by one rule whatever the
+    torch version (DTensor's own choice here depends on it: 2.11
+    all-reduces, 2.13 reduce-scatters).  On each mesh dim on which an
+    operand is a partial sum:
+
+    * reduce-scatter onto the dim that the op's most sharded other operand
+      shards on that mesh dim (the one it shares, not a broadcast dim), as
+      GSPMD keeps that operand's layout through the op (RMSNorm's scale,
+      sharded over the model axis, times the normalized partial sum);
+    * else all-reduce to ``Replicate``.  GSPMD resolves a dot's partial sum
+      inside the dot, by an all-reduce unless a consumer shards the
+      result's dim on that mesh axis; an elementwise consumer whose other
+      operands leave that axis free gives it none.  RecurrentGemma's
+      long_500k decode (``--multi-pod``), compiled by the JAX package on
+      512 virtual devices, issues all-reduces and no reduce-scatter: the
+      RG-LRU block's gates and the MLP's activation all-reduce there.
+
+    A shard that its mesh dims do not divide is a ``Replicate`` instead.
+    The reductions run through DTensor's redistribution, counted as every
+    other (``_redistributions_counted``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not any(p.is_partial() for a in dts for p in a.placements):
+        return args
+
+    def target(x, i):
+        mesh, best = x.device_mesh, None
+        for o in dts:
+            p = o.placements[i]
+            if o is x or o.device_mesh != mesh or type(p) is not Shard:
+                continue
+            d = p.dim + x.ndim - o.ndim
+            if d < 0 or x.shape[d] != o.shape[p.dim]:
+                continue
+            ways = mesh.size(i) * math.prod(mesh.size(j) for j, q in enumerate(x.placements)
+                                            if getattr(q, "dim", None) == d and _is_sharded(q))
+            if x.shape[d] % ways == 0 and (best is None or _shards(o) > _shards(best[0])):
+                best = (o, d)
+        return Replicate() if best is None else Shard(best[1])
+
+    def reduce(x):
+        if not isinstance(x, DTensor) or not any(p.is_partial() for p in x.placements):
+            return x
+        return _reshard(x, [target(x, i) if p.is_partial() else p
+                            for i, p in enumerate(x.placements)])
+
+    return tuple(reduce(a) for a in args)
+
+
+def _placed_bmm(args: tuple):
+    """``torch.bmm`` of two DTensors, (b, m, k) @ (b, k, n), placed by rule
+    on each rank's shards, so DTensor's choice between computing the
+    product whole on some mesh dims and sharding it is never consulted (it
+    depends on the torch version: 2.11 computes the local attention's
+    ``p @ v`` whole on every pod and data rank, 2.13 shards its heads over
+    the data axis).  Returns ``(product, result)``, or None.
+
+    * A partial operand is all-reduced first, as GSPMD resolves a dot's
+      partial sum inside the dot (XLA's partitioning of RecurrentGemma's
+      long_500k decode all-reduces the query after its projection).
+    * On a mesh dim on which an operand shards a dim of the product (b, m,
+      k or n), the other operand takes the same shards where it holds that
+      dim (a local chunk), and the product is sharded there too, or a
+      partial sum where the dim is k.
+    * The mesh dims on which neither operand is sharded split the
+      contraction k, with the mesh dims that already shard it, where they
+      divide it, so no rank computes what another computes (the local
+      attention's head dim in ``q @ k``, its keys in ``p @ v``); the
+      partial sums of that split are all-reduced at once (``result``), so
+      the result has the layout that the product computed whole there
+      would have had, and only the work is split.
+
+    None where the two operands shard different dims on one mesh dim or a
+    placement is not a plain shard: DTensor places those as before."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    a, b = args
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or a.device_mesh != b.device_mesh:
+        return None
+    mesh = a.device_mesh
+    dims = {"a": "bmk", "b": "bkn", "out": "bmn"}
+    size = dict(zip("bmk", a.shape)) | {"n": b.shape[2]}
+    letter: list[str | None] = []
+    for i in range(mesh.ndim):
+        held = set()
+        for x, ix in ((a, dims["a"]), (b, dims["b"])):
+            p = x.placements[i]
+            if type(p) is Shard:
+                held.add(ix[p.dim])
+            elif not (p.is_replicate() or p.is_partial()) or _is_mask_partial(p):
+                return None
+        if len(held) > 1:
+            return None
+        letter.append(held.pop() if held else None)
+    split = [i for i, l in enumerate(letter) if l is None]
+    if split and size["k"] % math.prod(mesh.size(i) for i, l in enumerate(letter)
+                                       if l in (None, "k")) == 0:
+        letter = ["k" if l is None else l for l in letter]
+    else:
+        split = []
+
+    def place(x, ix: str):
+        want = [Shard(ix.index(l)) if l is not None and l in ix else Replicate() for l in letter]
+        if any(p.is_partial() for p in x.placements):
+            x = _reshard(x, [Replicate() if p.is_partial() else p for p in x.placements])
+        return x if want == list(x.placements) else _reshard(x, want)
+
+    a, b = place(a, dims["a"]), place(b, dims["b"])
+    out_placements = [Replicate() if l is None else Partial() if l == "k"
+                      else Shard(dims["out"].index(l)) for l in letter]
+    shape = (size["b"], size["m"], size["n"])
+    local = torch.bmm(a._local_tensor, b._local_tensor)
+    product = DTensor.from_local(local, mesh, out_placements, run_check=False,
+                                 shape=torch.Size(shape), stride=contiguous_stride(shape))
+    if not split:
+        return product, product
+    return product, _reshard(product, [Replicate() if i in split else p
+                                       for i, p in enumerate(out_placements)])
+
+
+def _partial_sum(func, args, kwargs):
+    """``_partial_linear``'s sums and differences."""
     from torch.distributed.tensor import DTensor
 
     if func._overloadpacket not in _LINEAR_OPS or len(args) != 2:
         return None
     a, b = args
+    zero = [x for x, y in ((a, b), (b, a)) if _is_partial_sum(x) and isinstance(y, (int, float))
+            and y == 0 and not kwargs]
+    if zero:  # x + 0 (Python's sum() starts from 0)
+        x = zero[0]
+        return DTensor.from_local(func(*(t._local_tensor if t is x else t for t in args)),
+                                  x.device_mesh, x.placements, run_check=False, shape=x.shape,
+                                  stride=x.stride())
     if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or a.shape != b.shape \
             or a.device_mesh != b.device_mesh:
         return None

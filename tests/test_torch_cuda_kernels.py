@@ -54,7 +54,14 @@ near 1 against the plain version in f64, exact zeros, 1e-30 then ~0.99) at T
 below, at and past its boundaries, with the forward's chunk states handed
 over or computed in the call (the same bits); the autograd op launches
 both kernels once and hands the forward's chunk states to the backward;
-and reduced RWKV6 trains bitwise equal under ``post`` and ``dag``.
+and reduced RWKV6 trains bitwise equal under ``post`` and ``dag``.  The
+forward's step kernel (T up to ``step_max_t()``, the decode step) at
+(4, T, 64, 64), T 1, 2, the threshold and one past it, with and without
+s0, f32 and bf16: within the gate, one launch by name, rows batched
+bitwise equal to rows alone, the backward through the autograd op after
+it (s0 saved as the chunk state) within the gradient gate; and the
+chunked pair at the T below the threshold, from a build with
+``kStepMaxT`` 0.
 
 The measured-cost loop: a probe pass between two ``dag`` steps on the card
 leaves ``.grad``, the pack launches and ``issue()`` untouched; and the
@@ -636,7 +643,9 @@ def _wkv_fwd_check(r, k, v, w, u, s0=None, exact=False):
 @pytest.mark.parametrize("T", [1, 8, 9, 15, 16, 63, 64, 65, 4096 + 17])
 def test_cuda_wkv_fwd_chunk_boundaries(T, K):
     """The forward's 64-step chunks and 8-step sub-chunks: T below, at and
-    past each boundary, r/k/v in f32 and bf16, with and without s0."""
+    past each boundary, r/k/v in f32 and bf16, with and without s0 (up to
+    ``step_max_t()`` the step kernel runs; the chunked pair at those T is
+    held in ``test_cuda_wkv_chunked_pair_below_the_step_threshold``)."""
     dev = require_cuda()
     for dtype, with_s0 in ((torch.float32, True), (torch.bfloat16, False)):
         r, k, v, w, u, s0, _, _ = _wkv_inputs(1, T, 4, K, dev, seed=T, dtype=dtype)
@@ -701,6 +710,122 @@ def test_cuda_wkv_fwd_split_off_the_chunk_grid():
     out_b, s_b = wk.wkv_fwd(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s_a)
     _wkv_close(torch.cat([out_a, out_b], dim=1), out, "out")
     _wkv_close(s_b, s_final, "s_final")
+
+
+def _step_t(T):
+    """T of the step-kernel tests: a number, or ``'max'`` / ``'max+1'``
+    around the library's threshold."""
+    return {"max": wk.step_max_t(), "max+1": wk.step_max_t() + 1}.get(T, T)
+
+
+def _kernel_names(fn):
+    """The device kernels that ``fn()`` launched, by name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("T", [1, 2, "max", "max+1"])
+def test_cuda_wkv_step_kernel_matches_plain(T, with_s0, dtype):
+    """At the decode step's (4, T, 64, 64): T up to ``step_max_t()`` takes
+    the step kernel, one launch of ``wkv_step_kernel`` and nothing else;
+    one past it the chunked pair.  out / s_final within 2e-4 + 2e-4 |ref|
+    of wkv_ref; a second call gives the same bits."""
+    dev = require_cuda()
+    T = _step_t(T)
+    r, k, v, w, u, s0, _, _ = _wkv_inputs(4, T, 64, 64, dev, seed=20 + T, dtype=TORCH_DT[dtype])
+    s0 = s0 if with_s0 else None
+    _wkv_fwd_check(r, k, v, w, u, s0)
+    step = T <= wk.step_max_t()
+    assert wk.wkv_fwd.step_launches == (2 if step else 0)
+    names = _kernel_names(lambda: wk.wkv_fwd(r, k, v, w, u, s0))
+    if step:
+        assert len(names) == 1 and "wkv_step_kernel" in names[0], names
+    else:
+        assert not any("wkv_step_kernel" in x for x in names), names
+        assert any("wkv_fwd_out_kernel" in x for x in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, "max"])
+def test_cuda_wkv_step_kernel_rows_alone_equal_rows_batched(T):
+    """Each row of a B 4 step has the bits of a B 1 call on that row: the
+    kernel is chosen by T alone, and a block's sums never see another
+    row."""
+    dev = require_cuda()
+    T = _step_t(T)
+    r, k, v, w, u, s0, _, _ = _wkv_inputs(4, T, 64, 64, dev, seed=30, dtype=torch.bfloat16)
+    out, s_final = wk.wkv_fwd(r, k, v, w, u, s0)
+    for b in range(4):
+        one = slice(b, b + 1)
+        out_b, s_b = wk.wkv_fwd(r[one], k[one], v[one], w[one], u, s0[one])
+        assert torch.equal(out_b, out[one]) and torch.equal(s_b, s_final[one]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("T", [1, 2])
+def test_cuda_wkv_bwd_after_a_step_forward(T, with_s0):
+    """The autograd op through the step kernel: it saves s0 as the one
+    chunk's state (no scratch), and the chunked backward from it gives
+    gradients within 2e-4 x max(1, max|g|) of wkv_bwd_ref."""
+    dev = require_cuda()
+    r, k, v, w, u, s0, dout, ds = _wkv_inputs(4, T, 64, 64, dev, seed=40 + T,
+                                              dtype=torch.bfloat16)
+    s0 = s0 if with_s0 else None
+    leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u)]
+    s0_leaf = None if s0 is None else s0.clone().requires_grad_()
+    wk.reset_counts()
+    out, s_final = wk.wkv(*leaves, s0_leaf)
+    assert (wk.wkv_fwd.launches, wk.wkv_fwd.step_launches) == (1, 1)
+    saved = out.grad_fn.saved_tensors[-1]
+    if s0 is None:
+        assert saved is None
+    else:
+        assert saved.shape == (4, 64, 1, 64, 64) and torch.equal(saved[:, :, 0], s0)
+    torch.autograd.backward([out, s_final], [dout, ds])
+    torch.cuda.synchronize()
+    assert (wk.wkv_bwd.launches, wk.wkv_bwd.ref_calls) == (1, 0)
+    want = wk.wkv_bwd_ref(r, k, v, w, u, s0, dout, ds)
+    grads = [x.grad.float() for x in leaves] + ([] if s0 is None else [s0_leaf.grad])
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "ds0"), grads, want):
+        # bf16 gradients are the f32 ones rounded once, as in test_cuda_wkv_autograd_op
+        bound = 2e-4 * max(1.0, float(x.abs().max())) + 2.0 ** -8 * x.abs()
+        assert bool(((g - x).abs() <= bound).all()), (name, float((g - x).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 8, 9, 15, 16, 63, 64])
+def test_cuda_wkv_chunked_pair_below_the_step_threshold(T):
+    """The chunked pair at the T that the step kernel now takes: a build of
+    the same source with ``kStepMaxT`` 0 (``rwkv6_wkv.compare.variant``),
+    held to wkv_ref at K 64 bf16 and K 32 f32 with s0, as the chunk-boundary
+    test holds the library's build."""
+    dev = require_cuda()
+    from repro_torch.kernels.rwkv6_wkv import compare
+
+    lib = compare.load([0])[0]
+    for (H, K), dtype, with_s0 in (((4, 64), torch.bfloat16, False), ((4, 32), torch.float32, True)):
+        r, k, v, w, u, s0, _, _ = _wkv_inputs(1, T, H, K, dev, seed=T, dtype=dtype)
+        s0 = s0 if with_s0 else torch.zeros_like(s0)
+        out = torch.empty(1, T, H, K, device=dev)
+        s_final = torch.empty(1, H, K, K, device=dev)
+        scratch = torch.empty(1, H, 1, K, K, device=dev)
+        err = lib.wkv_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                          s0.data_ptr(), out.data_ptr(), s_final.data_ptr(), scratch.data_ptr(),
+                          1, T, H, K, int(dtype == torch.bfloat16),
+                          torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        want_out, want_s = wk.wkv_ref(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        _wkv_close(out, want_out, "out")
+        _wkv_close(s_final, want_s, "s_final")
 
 
 def _wkv_decay(mode, shape, device, seed):

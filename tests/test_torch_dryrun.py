@@ -27,6 +27,15 @@ against the JAX package's, on the CPU.
   ``PINNED_COUNTS`` (counted by the placement rule, they do not depend on
   the torch version: ``chip_smoke.py`` phase 10 gates the card's torch on
   the same numbers).
+* The 3-layer RecurrentGemma-9B x long_500k x 2x16x16 cell (full widths,
+  ``rec, rec, attn_local``: the RG-LRU block's gates and a local attention)
+  through the CLI: its collectives by kind, for the whole step and each
+  segment, exactly ``PINNED_RG_COUNTS`` (``chip_smoke.py`` phase 10a gates the
+  card's torch on them, and on the whole cell's counts); and, what holds
+  whatever the torch version, no partial sum reaches DTensor's own
+  propagation as an operand of an elementwise op or of the local attention's
+  ``bmm``: ``CostMode``'s rules reduce it first (``_reduce_partials``,
+  ``_placed_bmm``) or keep a linear op of it partial (``_partial_linear``).
 * The JAX model's chunked WKV as the dry run runs it, against the JAX one.
 * ``--remat``: the port CLI offers the JAX CLI's choices, ``'dots'``
   included.  On reduced TinyLlama at batch 8 x 256 (q_chunk 128) on the 2x4
@@ -74,6 +83,12 @@ PINNED_COUNTS = {
     "whole_program": {"all-gather": 86, "reduce-scatter": 32, "all-reduce": 14},
     "stage": {"all-gather": 28, "reduce-scatter": 14, "all-reduce": 4},
     "head": {"all-gather": 6, "reduce-scatter": 4, "all-reduce": 2},
+}
+#: the 3-layer RecurrentGemma long_500k cell's (chip_smoke.py's DRYRUN_RG_SMALL_COUNTS)
+PINNED_RG_COUNTS = {
+    "whole_program": {"all-reduce": 40, "all-gather": 65, "reduce-scatter": 21},
+    "stage": {"all-reduce": 33, "reduce-scatter": 19, "all-gather": 61},
+    "head": {"all-reduce": 2},
 }
 B, S = 2, 128
 
@@ -397,6 +412,71 @@ def test_cli_writes_a_record_with_the_jax_keys(tmp_path):
 
 def test_cli_runs_a_dots_cell(tmp_path):
     _check_record(_run_cli(tmp_path, "--remat", "dots"))
+
+
+RG_SMALL_CELL = textwrap.dedent("""
+    import json, sys
+    sys.modules["jax"] = None
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import dryrun, segments
+    # every DTensor op that reaches DTensor's own propagation (the inner mode sees it
+    # first), with a partial operand: its name, whether elementwise
+    reached = []
+    inner = segments._CollectiveMode.__torch_dispatch__
+    def seen(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types) and any(
+                isinstance(a, DTensor) and any(p.is_partial() for p in a.placements)
+                for a in args):
+            reached.append([str(func), torch.Tag.pointwise in func.tags])
+        return inner(self, func, types, args, kwargs)
+    segments._CollectiveMode.__torch_dispatch__ = seen
+    # the elementwise ops and bmm that CostMode was handed with a partial operand
+    handed = []
+    outer = segments.CostMode.__torch_dispatch__
+    def given(self, func, types, args=(), kwargs=None):
+        if (torch.Tag.pointwise in func.tags or func is torch.ops.aten.bmm.default) and any(
+                isinstance(a, DTensor) and any(p.is_partial() for p in a.placements)
+                for a in args):
+            handed.append(str(func))
+        return outer(self, func, types, args, kwargs)
+    segments.CostMode.__torch_dispatch__ = given
+    code = dryrun.main(["--device", "cpu", "--arch", "recurrentgemma-9b", "--shape", "long_500k",
+                        "--multi-pod", "--fabric", "gpu_nccl", "--out", sys.argv[1]],
+                       overrides={"n_layers": 3, "tail_pattern": ()})
+    assert code == 0
+    print(json.dumps({"record": json.load(open(sys.argv[1])), "reached": reached,
+                      "handed": sorted(set(handed))}))
+""")
+
+
+@pytest.fixture(scope="module")
+def rg_small_cell(tmp_path_factory):
+    """The 3-layer RecurrentGemma long_500k cell through the CLI, with the
+    partial operands that reach DTensor's propagation recorded."""
+    return run_json(RG_SMALL_CELL, str(tmp_path_factory.mktemp("rg_small") / "rec.json"))
+
+
+def test_cli_pins_the_small_recurrentgemma_cells_counts(rg_small_cell):
+    rec = rg_small_cell["record"]
+    assert rec["mesh"] == "2x16x16" and rec["n_devices"] == 512 and rec["shape"] == "long_500k"
+    got = {"whole_program": rec["whole_program"]["collectives"]["counts"],
+           **{name: seg["coll_counts"] for name, seg in rec["segments"].items()}}
+    assert got == PINNED_RG_COUNTS
+
+
+def test_no_partial_sum_reaches_dtensor_at_an_elementwise_op_or_bmm(rg_small_cell):
+    """The rules meet partial operands here (the RG-LRU gates' and the MLP's
+    activations, RMSNorm's square and scale, the attention's query and
+    scores), and none of those ops hands one on to DTensor's propagation,
+    whose choice there (all-reduce or reduce-scatter, product whole or
+    sharded) depends on the torch version."""
+    handed = set(rg_small_cell["handed"])
+    assert {"aten.gelu.default", "aten.pow.Tensor_Scalar", "aten.mul.Tensor",
+            "aten.bmm.default"} <= handed, handed
+    bad = [op for op, pointwise in rg_small_cell["reached"]
+           if pointwise or op == "aten.bmm.default"]
+    assert not bad, sorted(set(bad))
 
 
 def test_wkv_jax_chunked_matches_the_jax_model():

@@ -35,6 +35,8 @@ NAMES = [
      "namespace)::Args<float, float>)", "rwkv6_wkv"),
     ("(anonymous namespace)::wkv_bwd_du_kernel(float const*, float*, int, int, int)",
      "rwkv6_wkv"),
+    ("void (anonymous namespace)::wkv_step_kernel<64, __nv_bfloat16>((anonymous "
+     "namespace)::Args<__nv_bfloat16, __nv_bfloat16>)", "rwkv6_wkv"),
 ]
 
 

@@ -4,7 +4,8 @@ versions and its autograd op against the JAX package's, on the CPU.
 - ``wkv_ref`` (the sequential loop, the CUDA kernel's plain version)
   against the JAX oracle ``wkv_ref`` and the Pallas kernel in interpret
   mode, at the shapes of ``tests/test_kernels.py`` and at the tolerance it
-  uses (2e-4);
+  uses (2e-4), and at the decode step's (4, 1 and 2, 64, 64) with s0 and
+  bf16 r, k, v (where the card runs the step kernel);
 - state threading: a run split in two, carried through ``s_final -> s0``,
   matches one full run;
 - ``wkv_bwd_ref`` against ``jax.vjp`` of the JAX oracle: both sides work in
@@ -153,6 +154,23 @@ def test_plain_takes_bf16_inputs_as_the_reference_does():
     want_out, want_s = jax_wkv_ref(rb, kb, vb, _j(w), _j(u))
     _close(out, want_out)
     _close(s_final, want_s)
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_plain_matches_jax_at_the_decode_step(T):
+    """The decode step's shape, (4, T, 64, 64) with a nonzero s0 and bf16 r,
+    k, v, where the card runs the step kernel: ``wkv_ref`` (its plain
+    version) against the JAX oracle and the Pallas kernel in interpret
+    mode."""
+    r, k, v, w, u, s0, _, _ = _inputs(4, T, 64, 64, seed=40 + T)
+    rb, kb, vb = (jnp.asarray(x).astype(jnp.bfloat16) for x in (r, k, v))
+    to_t = lambda x: torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+    out, s_final = wkv_ref(to_t(rb), to_t(kb), to_t(vb), _t(w), _t(u), _t(s0))
+    for want_out, want_s in (jax_wkv_ref(rb, kb, vb, _j(w), _j(u), _j(s0)),
+                             wkv_pallas(rb, kb, vb, _j(w), _j(u), _j(s0), chunk=T,
+                                        interpret=True)):
+        _close(out, want_out)
+        _close(s_final, want_s)
 
 
 def test_state_threading():
