@@ -1,0 +1,12 @@
+"""forward_ms.train: device ms a step of the kernels launched inside the
+program's ``forward`` span (``model.loss``; ``phases``)."""
+
+from portbench import phases
+
+
+def read(window, ctx):
+    w = phases.window_for(window, ctx)
+    if w is None:
+        return None
+    t, n = w.phase_seconds("forward")
+    return 1e3 * t / w.steps if n else None

@@ -22,6 +22,31 @@ later waits for it.  Recordings serialize to Chrome-trace JSON (``ph:
 writes; :func:`parse_trace_spans` reads either package's files, and
 :func:`overlap_report` computes the measured overlap of comm and backward.
 
+On the profiler's clock (``TraceRecorder(profiler_clock=True)``) a mark
+is ``time.time_ns()``, the clock ``torch.profiler`` stamps its events
+with, taken on the host where the step launches the work it marks, so
+the spans lay over a device trace: each kernel belongs to the innermost
+span open when the runtime call that launched it ran.  That mode records
+the phase spans of a training step beside the comm and backward ones:
+
+  ``step``              the whole ``TrainStep`` call        args ``step``
+  ``forward``           ``model.loss(batch)``                ``tokens``
+  ``bwd_backward`` / ``bwd_<unit>``   as above (``post`` / ``dag``)
+  ``sync.pack``         the pack / cast / concat before ``issue()``:
+                        ``group``, ``leaves``, ``bytes`` (the wire bytes)
+  ``wfbp_group*``       the ``issue()`` call                 ``bytes``
+  ``sync.wait``         the work's ``wait()``                ``group``
+  ``sync.unpack``       the unpack / copy back               ``group``
+  ``optimizer.update``  the optimizer's call                 ``leaves``,
+                                                             ``elements``
+
+Every span of that mode also carries ``step`` (the index of the step it
+belongs to) and ``thread`` (``threading.get_ident()`` of the thread that
+opened it: under ``dag`` the pack and issue run on autograd's thread).
+Marks stay in memory until read; the mode records no CUDA event, makes
+no stream wait and never synchronizes, so it enqueues nothing on the
+device.
+
 Not ported: ``CollectiveStats``, ``parse_collectives`` and
 ``segment_cost`` read compiled HLO text, which PyTorch does not produce.
 The port counts its collectives at the ``fabric.ops.issue`` seam instead.
@@ -94,6 +119,8 @@ GROUP_SPAN_RE = re.compile(r"^wfbp_group(\d+)_l(\d+)_(\d+)$")
 #: Backward-compute scopes the train step records (``bwd_<unit>``).
 BWD_SPAN_PREFIX = "bwd_"
 
+_FIELDS = 8  # values a recorder keeps a mark
+
 
 class TraceRecorder:
     """Span recorder for eager training steps.
@@ -114,23 +141,42 @@ class TraceRecorder:
     for ``w``, so it marks the collective's completion without making the
     step's stream wait.  Events resolve to µs from the first mark when
     the spans are read (``spans`` synchronizes on them).
+
+    With ``profiler_clock=True`` a mark is ``clock_ns()`` (default
+    ``time.time_ns``, the clock of ``torch.profiler``'s events) taken on
+    the host, ``span_end(..., work=w)`` marks the return of the
+    ``issue()`` call, and the phase spans (``step_begin`` /
+    ``phase_begin`` and their ends; the module docstring lists them) are
+    recorded too; in the other modes those calls record nothing.  Each
+    span carries ``step`` and ``thread`` in its ``args``.
     """
 
-    def __init__(self, clock_ns=None, *, cuda: bool = False):
-        self._clock_ns = clock_ns or time.perf_counter_ns
+    def __init__(self, clock_ns=None, *, cuda: bool = False, profiler_clock: bool = False):
+        if cuda and profiler_clock:
+            raise ValueError("a recorder marks on CUDA events or on the profiler's clock, not both")
+        self.profiler_clock = profiler_clock
+        self._clock_ns = clock_ns or (time.time_ns if profiler_clock else time.perf_counter_ns)
         self.cuda = cuda
         self._lock = threading.Lock()
-        # name, ph, dev, t_ns (an int, or a CUDA event), nbytes
-        self._events: list[tuple] = []
+        # _FIELDS values a mark, flat: name, ph, dev, t_ns (an int, or a CUDA
+        # event), nbytes, and a begin's counts, step and thread on the
+        # profiler's clock (else None).  Flat, so that a mark keeps no
+        # container that the cyclic collector tracks: marks held through a
+        # window do not set off collections inside it.
+        self._events: list = []
         self._side_stream = None
         self._origin = None
+        self._step = -1
 
     # -- recording (called from inside the step) ----------------------------
 
-    def _mark(self, name: str, ph: str, nbytes: int, device, stamp=None) -> None:
+    def _mark(self, name: str, ph: str, nbytes: int, device, stamp=None, args=None) -> None:
         t = int(self._clock_ns()) if stamp is None else stamp
+        step = thread = None
+        if self.profiler_clock and ph == "B":
+            step, thread = self._step, threading.get_ident()
         with self._lock:
-            self._events.append((name, ph, int(device), t, int(nbytes)))
+            self._events += (name, ph, int(device), t, int(nbytes), args, step, thread)
 
     def _event(self, stream=None):
         ev = torch.cuda.Event(enable_timing=True)
@@ -147,8 +193,8 @@ class TraceRecorder:
 
     def span_end(self, name: str, *, device: int = 0, nbytes: int = 0, work=None) -> None:
         """Record the end of ``name``: here, or when the asynchronous
-        collective ``work`` completes."""
-        if work is None:
+        collective ``work`` completes (on the profiler's clock: here)."""
+        if work is None or self.profiler_clock:
             self._mark(name, "E", nbytes, device, self._event() if self.cuda else None)
         elif self.cuda:
             if self._side_stream is None:
@@ -159,6 +205,25 @@ class TraceRecorder:
         else:
             work.get_future().then(lambda _f: self._mark(name, "E", nbytes, device))
 
+    def step_begin(self, *, device: int = 0) -> None:
+        """On the profiler's clock: open the ``step`` span of a new step,
+        whose index every mark carries until the next one."""
+        if self.profiler_clock:
+            with self._lock:
+                self._step += 1
+            self._mark("step", "B", 0, device)
+
+    def phase_begin(self, name: str, *, device: int = 0, nbytes: int = 0, **counts) -> None:
+        """On the profiler's clock: open the phase span ``name``, carrying
+        ``counts`` (and ``nbytes`` as ``bytes``) as its args."""
+        if self.profiler_clock:
+            self._mark(name, "B", nbytes, device, args=counts)
+
+    def phase_end(self, name: str, *, device: int = 0) -> None:
+        """On the profiler's clock: close the phase span ``name`` (also ``step``)."""
+        if self.profiler_clock:
+            self._mark(name, "E", 0, device)
+
     # -- reading back --------------------------------------------------------
 
     def clear(self) -> None:
@@ -168,31 +233,40 @@ class TraceRecorder:
 
     def __len__(self) -> int:
         with self._lock:
-            return len(self._events)
+            return len(self._events) // _FIELDS
 
-    def _resolved(self) -> list[tuple[str, str, int, float, int]]:
+    def _resolved(self) -> list[tuple]:
         with self._lock:
-            events = list(self._events)
+            flat = list(self._events)
             origin = self._origin
+        events = [tuple(flat[i:i + _FIELDS]) for i in range(0, len(flat), _FIELDS)]
         if not self.cuda:
             return events
         for e in events:
             e[3].synchronize()
-        return [(n, ph, d, origin.elapsed_time(ev) * 1e6, nb) for n, ph, d, ev, nb in events]
+        return [(e[0], e[1], e[2], origin.elapsed_time(e[3]) * 1e6, *e[4:]) for e in events]
 
-    def spans(self) -> list[Span]:
-        """Pair B/E markers into spans (per name × device, FIFO order)."""
-        open_: dict[tuple[str, int], list[tuple[float, int]]] = {}
+    def spans(self, origin_ns: int = 0) -> list[Span]:
+        """Pair B/E markers into spans (per name × device, FIFO order).
+        ``origin_ns`` is subtracted from host marks first (exactly, in
+        integer ns): the profiler's ``trace_start_ns()`` puts spans on
+        its events' µs."""
+        open_: dict[tuple[str, int], list[tuple]] = {}
         out: list[Span] = []
-        for name, ph, dev, t_ns, nbytes in sorted(self._resolved(), key=lambda e: e[3]):
+        for name, ph, dev, t_ns, nbytes, counts, step, thread in sorted(
+                self._resolved(), key=lambda e: e[3]):
+            if not self.cuda:
+                t_ns -= origin_ns
             key = (name, dev)
             if ph == "B":
-                open_.setdefault(key, []).append((t_ns, nbytes))
+                open_.setdefault(key, []).append((t_ns, nbytes, counts, step, thread))
             else:
                 if not open_.get(key):
                     continue  # unmatched end (cleared mid-step)
-                t0, b0 = open_[key].pop(0)
+                t0, b0, counts, step, thread = open_[key].pop(0)
                 args = {"bytes": max(b0, nbytes)} if (b0 or nbytes) else {}
+                if step is not None:
+                    args.update(counts or {}, step=step, thread=thread)
                 out.append(
                     Span(name=name, device=dev, start_us=t0 / 1e3,
                          dur_us=max(0.0, (t_ns - t0) / 1e3), args=args)

@@ -34,7 +34,13 @@ asked), ``finish_group`` waits and unpacks.
 Given a ``core.profiler.TraceRecorder``, ``start_group`` brackets the
 group's all-reduce in a ``wfbp_group{gi}_l{lo}_{hi}`` span carrying the
 group's wire bytes: it begins once the arena is packed and ends when the
-collective completes.
+collective completes (on the profiler's clock: when ``issue()`` returns).
+A recorder on the profiler's clock also gets the group's phases: a
+``sync.pack`` span over the pack / cast / concat before ``issue()`` (args
+``group``, ``leaves`` and ``bytes``, the group's wire bytes
+``group_wire_bytes[gi]``), and in ``finish_group`` a ``sync.wait`` span
+over the work's ``wait()`` and a ``sync.unpack`` span over the unpack or
+copy back (args ``group``).
 """
 
 from __future__ import annotations
@@ -146,6 +152,10 @@ class GradientSync:
         if self.stateful and residual is None:
             raise ValueError("compression='bf16_ef' needs the residual")
         names = self.group_names[gi]
+        if recorder is not None:
+            dev = dist.get_rank(self.group)
+            recorder.phase_begin("sync.pack", device=dev, nbytes=self.group_wire_bytes[gi],
+                                 group=gi, leaves=len(names))
         parts = [grads[n] for n in names]
         wire = self.config.wire_dtype
         if self.config.fuse == "arena":
@@ -159,18 +169,31 @@ class GradientSync:
         else:
             buf = torch.cat([p.reshape(-1).to(wire) for p in parts])
         if recorder is not None:
-            recorder.span_begin(self.span_names[gi], device=dist.get_rank(self.group),
+            recorder.phase_end("sync.pack", device=dev)
+            recorder.span_begin(self.span_names[gi], device=dev,
                                 nbytes=self.group_wire_bytes[gi])
         work = issue(Collective.ALL_REDUCE, buf, self.group, async_op=async_op)
         if recorder is not None:
-            recorder.span_end(self.span_names[gi], device=dist.get_rank(self.group), work=work)
+            recorder.span_end(self.span_names[gi], device=dev, work=work)
         return PendingGroup(gi=gi, buffer=buf, work=work, grads=parts)
 
-    def finish_group(self, pending: PendingGroup) -> None:
+    def finish_group(self, pending: PendingGroup, *, recorder=None) -> None:
         """Wait for the group's all-reduce and write the reduced, averaged
-        values back into its gradient tensors."""
+        values back into its gradient tensors.  With a ``recorder`` on the
+        profiler's clock the wait and the unpack are its spans."""
+        if recorder is not None:
+            dev = dist.get_rank(self.group)
+            recorder.phase_begin("sync.wait", device=dev, group=pending.gi)
         if pending.work is not None:
             pending.work.wait()
+        if recorder is not None:
+            recorder.phase_end("sync.wait", device=dev)
+            recorder.phase_begin("sync.unpack", device=dev, group=pending.gi)
+        self._unpack(pending)
+        if recorder is not None:
+            recorder.phase_end("sync.unpack", device=dev)
+
+    def _unpack(self, pending: PendingGroup) -> None:
         parts, red = pending.grads, pending.buffer
         world = float(self.world())
         if self.config.fuse == "arena":
@@ -193,7 +216,8 @@ class GradientSync:
     def sync_group(self, gi: int, grads: Tensors, residual: Tensors | None = None, *,
                    recorder=None) -> None:
         """Reduce group ``gi`` alone, blocking."""
-        self.finish_group(self.start_group(gi, grads, residual, recorder=recorder))
+        self.finish_group(self.start_group(gi, grads, residual, recorder=recorder),
+                          recorder=recorder)
 
     def __call__(self, grads: Tensors, residual: Tensors | None = None) -> None:
         """Reduce every group, in backward issue order."""

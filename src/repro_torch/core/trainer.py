@@ -41,7 +41,14 @@ Given a ``core.profiler.TraceRecorder`` the step records its spans: each
 group's all-reduce (``wfbp_group*``, see ``core.sync``) and backward —
 one ``bwd_backward`` span under ``'post'``, and under ``'dag'`` one
 ``bwd_<unit>`` span per unit (``head``, ``tail``, ``stage{i}``,
-``embed``), each from the previous unit's last gradient to its own.
+``embed``), each from the previous unit's last gradient to its own.  A
+recorder on the profiler's clock also gets the step's phases: ``step``
+(the whole call, args ``step``: its index), ``forward`` (``model.loss``,
+args ``tokens``), the sync's ``sync.pack`` / ``sync.wait`` /
+``sync.unpack`` of each group (``core.sync``) and ``optimizer.update``
+(args ``leaves`` and ``elements``), each mark a ``time.time_ns()`` on the
+host as the step launches the work.  Without a recorder each site costs
+one ``is None`` test.
 """
 
 from __future__ import annotations
@@ -263,6 +270,9 @@ class TrainStep:
         self._hooks = []
         self._pending: list[PendingGroup] = []
         self._remaining: list[int] = []
+        if recorder is not None:  # the optimizer's counts, for its span
+            self._opt_counts = {"leaves": len(self.params),
+                                "elements": sum(p.numel() for p in self.params.values())}
         if issue == "dag":
             if recorder is not None:  # first, so a unit's span ends before its group packs
                 self._add_unit_span_hooks()
@@ -346,26 +356,33 @@ class TrainStep:
         loss.backward()
 
     def __call__(self, batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        sync = self.engine.sync
+        sync, rec = self.engine.sync, self.recorder
+        if rec is not None:
+            dev = dist.get_rank(self.engine.group)
+            rec.step_begin(device=dev)
         for p in self.params.values():
             p.grad = None
         self._pending = []
         self._remaining = [len(g) for g in sync.group_names]
         try:
+            if rec is not None:
+                rec.phase_begin("forward", device=dev, tokens=batch["targets"].numel())
             loss = self.model.loss(batch)
+            if rec is not None:
+                rec.phase_end("forward", device=dev)
             self._backward(loss)
             self._fill_unread()
             grads = {n: p.grad for n, p in self.params.items()}
             if self.issue == "post":
                 for gi in range(sync.n_groups):
-                    sync.sync_group(gi, grads, self.residual, recorder=self.recorder)
+                    sync.sync_group(gi, grads, self.residual, recorder=rec)
             else:
                 if len(self._pending) != sync.n_groups:
                     raise RuntimeError(
                         f"{len(self._pending)} of {sync.n_groups} groups were issued in backward"
                     )
                 for pending in self._pending:  # issue order
-                    sync.finish_group(pending)
+                    sync.finish_group(pending, recorder=rec)
                 self._pending = []
         except BaseException:
             # a step that fails mid-backward leaves no collective in flight
@@ -375,7 +392,11 @@ class TrainStep:
                     pending.work.wait()
             self._pending = []
             raise
+        if rec is not None:
+            rec.phase_begin("optimizer.update", device=dev, **self._opt_counts)
         self.optimizer.update(grads, self.opt_state, self.params, self.lr)
+        if rec is not None:
+            rec.phase_end("optimizer.update", device=dev)
         loss = loss.detach()
         world = sync.world()
         if world > 1:
@@ -383,6 +404,8 @@ class TrainStep:
             # so it does not go through the counted issue() seam
             dist.all_reduce(loss, group=self.engine.group)
             loss = loss / world
+        if rec is not None:
+            rec.phase_end("step", device=dev)
         return {"loss": loss}
 
     def close(self) -> None:
