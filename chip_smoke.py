@@ -125,6 +125,19 @@ step could hide a kernel fault.
    timed as in 1b beside their bounds and SDPA (with the window as a
    mask), or, at the softcap shapes, where SDPA computes no softcap,
    ``torch.compile(flex_attention)`` with a tanh ``score_mod``.
+1f. AdamW.  The multi-tensor AdamW kernel (``kernels/adamw``) at the
+   leaves of StarCoder2-3B with its tied head, the benchmark's cell: 303
+   leaves, 302 bf16 with bf16 gradients and the (49152, 3072) f32 table
+   with an f32 gradient, 3.03 B elements.  ``adamw_update`` runs three
+   steps on them from seeded moments and gradients (normals at scales
+   1e-8 to 1, every 17th gradient exactly 0); after the first step and the
+   third, each leaf's parameter and both moments must equal, bit for bit,
+   the plain version (``adamw_step_ref``) run leaf by leaf on the same
+   start and gradients.  Every step is one launch and no plain call.  Then
+   the update's time a step by CUDA events and by torch.profiler's device
+   time beside its byte bound (3 x the parameters' bytes + 16 B an
+   element, over 3.35 TB/s), the plain version's time over all leaves, and
+   the host time of one ``adamw_update``.
 2. Reduced model.  Reduced tinyllama in fp32 with the flash kernels, loss
    and every gradient on the card against the same model on the CPU (the
    kernels' plain versions; loss rtol 1e-5, gradient max-abs <= 1e-4 x
@@ -467,7 +480,9 @@ Python (with its replays), each timed as phase 6's row for the same shapes.
 Phase 8 adds two B3 rows: its prefills at TinyLlama's serve shape (8a's
 engines and 8c's launcher runs) and at Mixtral's (8b's), timed in phase 8.
 B1 / B2 also count 9d's training example's launches; its flash launches, at
-the reduced shape, are printed on phase 9's line and are no row's.  Phase
+the reduced shape, are printed on phase 9's line and are no row's.  The
+AdamW row (``adamw.step``, timed in phase 1f) counts phase 1f's launches
+and those of phases 4's, 5's and 9d's training steps.  Phase
 10b adds a B3-B5 row at (1, 4096, 32/4, hd 64), its launches those of one
 flash segment run.
 """
@@ -497,6 +512,7 @@ PACK_SRC = "src/repro_torch/kernels/comm_pack/csrc/comm_pack.cu"
 FLASH_SM90_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_sm90.cu"
 RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru.cu"
 WKV_SRC = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu"
+ADAMW_SRC = "src/repro_torch/kernels/adamw/csrc/adamw.cu"
 P4_ARGS = TRAIN_ARGS + [
     "--issue-order", "dag", "--measure-comm", "--autotune", "--replan-every", "4",
     "--replan-threshold", "0.25", "--comm-refit-every", "4", "--steps", "8",
@@ -1807,6 +1823,139 @@ def phase_new_flash(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 1f: the AdamW step at StarCoder2-3B's leaves
+# ---------------------------------------------------------------------------
+
+#: The benchmark cell's optimizer (portbench/configs/starcoder2_3b.json)
+ADAMW_HYPER = {"lr": 3e-4, "b1": 0.9, "b2": 0.95, "eps": 1e-8, "weight_decay": 0.1}
+ADAMW_STEPS = 3
+
+
+def adamw_start(shape, dtype, device, leaf):
+    """Leaf ``leaf``'s parameter and moments before the first step (m ~
+    0.01 N, v ~ 1e-4 U), the same on every call."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(1000 + leaf)
+    p = torch.randn(shape, generator=gen, device=device).to(dtype)
+    m = torch.randn(shape, generator=gen, device=device).mul_(0.01)
+    v = torch.rand(shape, generator=gen, device=device).mul_(1e-4)
+    return p, m, v
+
+
+def adamw_grad(shape, dtype, device, leaf, step):
+    """Leaf ``leaf``'s gradient at ``step``: normals at scales 1e-8 to 1,
+    every 17th element exactly 0."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(100_000 * step + leaf)
+    g = torch.randn(shape, generator=gen, device=device)
+    g.mul_(torch.pow(10.0, torch.rand(shape, generator=gen, device=device).mul_(-8.0)))
+    g.view(-1)[::17] = 0.0
+    return g.to(dtype)
+
+
+def adamw_bias_corrections(step):
+    """(bc1, bc2) as ``adamw_update`` computes them for ``step``."""
+    import torch
+
+    t = torch.tensor(float(step), dtype=torch.float32)
+    return tuple(float(1.0 - torch.tensor(ADAMW_HYPER[b], dtype=torch.float32) ** t)
+                 for b in ("b1", "b2"))
+
+
+def phase_adamw(device) -> dict:
+    """Phase 1f (module docstring).  Returns the row of the ``kernels``
+    line: launches, max_abs_err (0.0: bitwise), ms, device_ms, bound_ms,
+    plain_ms, host_ms."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw
+    from repro_torch.models import Transformer
+    from repro_torch.optim import OptState, adamw_update
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), tie_embeddings=True)
+    leaves = [(n, tuple(p.shape), p.dtype)
+              for n, p in Transformer(cfg, device="meta", seed=None).named_parameters()]
+    kinds = {}
+    for _, shape, dtype in leaves:
+        kinds[str(dtype)] = kinds.get(str(dtype), 0) + 1
+    if len(leaves) != 303 or ("embed", (49152, 3072), torch.float32) not in leaves:
+        fail(f"phase 1f: StarCoder2-3B with its tied head has {len(leaves)} leaves {kinds}, "
+             f"expected 303 with the (49152, 3072) f32 table")
+    state, params = OptState(step=0, m={}, v={}), {}
+    for i, (n, shape, dtype) in enumerate(leaves):
+        params[n], state.m[n], state.v[n] = adamw_start(shape, dtype, device, i)
+    elements = sum(p.numel() for p in params.values())
+    nbytes = sum(3 * p.numel() * p.element_size() + 16 * p.numel() for p in params.values())
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+    def grads_at(step):
+        return {n: adamw_grad(shape, dtype, device, i, step)
+                for i, (n, shape, dtype) in enumerate(leaves)}
+
+    def check(steps):
+        """Fails unless each leaf equals, bit for bit, the plain version run
+        ``steps`` steps from its start."""
+        for i, (n, shape, dtype) in enumerate(leaves):
+            p, m, v = adamw_start(shape, dtype, device, i)
+            for step in range(1, steps + 1):
+                adamw.adamw_step_ref([p], [adamw_grad(shape, dtype, device, i, step)], [m], [v],
+                                     *ADAMW_HYPER.values(), *adamw_bias_corrections(step))
+            for what, got, want in (("parameter", params[n], p), ("first moment", state.m[n], m),
+                                    ("second moment", state.v[n], v)):
+                err = max_abs_err(got, want)
+                if err != 0.0:
+                    bad = int((got.view(-1).float() != want.view(-1).float()).sum())
+                    fail(f"phase 1f: after step {steps}, {n}'s {what} differs from the plain "
+                         f"version's: {bad} of {got.numel()} elements, max |diff| {err:.3e}")
+            del p, m, v
+
+    adamw.reset_counts()
+    for step in range(1, ADAMW_STEPS + 1):
+        grads = grads_at(step)
+        adamw_update(grads, state, params, **ADAMW_HYPER)
+        torch.cuda.synchronize()
+        if (adamw.adamw_step.launches, adamw.adamw_step.ref_calls) != (step, 0):
+            fail(f"phase 1f: after step {step}: {adamw.adamw_step.launches} launches and "
+                 f"{adamw.adamw_step.ref_calls} plain calls, expected one launch a step")
+        del grads
+        if step in (1, ADAMW_STEPS):
+            check(step)
+    launches = adamw.adamw_step.launches
+    say(f"phase 1f: AdamW at StarCoder2-3B's {len(leaves)} leaves ({kinds}, {elements:,} "
+        f"elements), 3 steps through adamw_update: parameters and both moments bitwise equal "
+        f"to the plain version leaf by leaf after steps 1 and 3; one launch a step, 0 plain "
+        f"calls")
+
+    grads = grads_at(ADAMW_STEPS + 1)
+
+    def update():
+        adamw_update(grads, state, params, **ADAMW_HYPER)
+
+    ms = median_ms(update, reps=15)
+    dev_ms = device_ms(update, calls=5)
+    host = host_ms(update, calls=10)
+    ps, gs = list(params.values()), list(grads.values())
+    mm, vv = list(state.m.values()), list(state.v.values())
+    plain_ms = median_ms(lambda: adamw.adamw_step_ref(ps, gs, mm, vv, *ADAMW_HYPER.values(),
+                                                      0.5, 0.25), reps=3, warmup=1)
+    say(f"phase 1f: adamw_update {ms:.3f} ms a step by CUDA events (median of 15), "
+        f"{dev_ms:.3f} ms device time (torch.profiler), against the byte bound "
+        f"{bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s): {100 * bound_ms / ms:.1f}% "
+        f"by events, {100 * bound_ms / dev_ms:.1f}% by device time; the plain version "
+        f"{plain_ms:.1f} ms ({plain_ms / ms:.1f}x); host time of one call {host:.3f} ms; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, state, grads, ps, gs, mm, vv
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "bound_ms": bound_ms, "plain_ms": plain_ms, "host_ms": host}
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: the reduced model on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -2226,10 +2375,8 @@ def phase_autotune(device, dag):
     from repro_torch.core.trainer import lm_unit_costs
     from repro_torch.fabric.ops import issue
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import launch_counts
-    from repro_torch.kernels import rglru as rg
-    from repro_torch.kernels import rwkv6_wkv as wk
-    from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
+    from repro_torch.kernels import adamw_step, launch_counts
+    from repro_torch.kernels.comm_pack import pack_arena, unpack_arena
     from repro_torch.models import param_shapes
     from repro_torch.planning import default_policies
     from repro_torch.runtime import BWD_FRACTION, make_unit_probes
@@ -2241,17 +2388,14 @@ def phase_autotune(device, dag):
     del plain
     torch.cuda.empty_cache()
     # every launch counter to 0 just before the main path, read just after
-    reset_counts()
-    fa.reset_counts()
-    rg.reset_counts()
-    wk.reset_counts()
+    reset_all_counts()
     issue.calls = 0
     res = train("phase4", P4_ARGS)
     totals = launch_counts()
     totals["issue"] = issue.calls
     ref_calls = {fn.__name__: fn.ref_calls for fn in (
         pack_arena, unpack_arena, fa.flash_attention_fwd, fa.flash_attention_dq,
-        fa.flash_attention_dkv)}
+        fa.flash_attention_dkv, adamw_step)}
     layout = res.plan.layout
     units = [u.name for u in layout.units]
     hist = res.tuner_history
@@ -2275,7 +2419,7 @@ def phase_autotune(device, dag):
     if res.losses != plain_losses:
         fail(f"phase 4: losses {res.losses} != the unbroken dag run's {plain_losses} (bitwise)")
     want = {"flash_attention_fwd": 2 * N_LAYERS, "flash_attention_dq": N_LAYERS,
-            "flash_attention_dkv": N_LAYERS}
+            "flash_attention_dkv": N_LAYERS, "adamw_step": 1}
     for i, (g, got) in enumerate(zip(res.step_groups, res.step_launches)):
         per = {"pack_arena": g, "unpack_arena": g, "issue": g, **want}
         if any(got.get(k, 0) != n for k, n in per.items()):
@@ -2289,8 +2433,8 @@ def phase_autotune(device, dag):
     say(f"phase 4: {len(res.losses)} steps, losses {[round(x, 4) for x in res.losses]}; first "
         f"three bitwise equal to phase 3's dag, all eight to an unbroken 8-step dag run on "
         f"phase 3's plan; groups per step {res.step_groups}; every step "
-        f"pack = unpack = issue() = its plan's groups, flash fwd / dQ / dK-dV 44 / 22 / 22, 0 "
-        f"plain calls; the probes' and sweeps' own launches, apart: {probes}")
+        f"pack = unpack = issue() = its plan's groups, flash fwd / dQ / dK-dV 44 / 22 / 22, "
+        f"AdamW 1, 0 plain calls; the probes' and sweeps' own launches, apart: {probes}")
     say(f"phase 4: measured (α, β) at world 1: α = {fit.a:.4e} s, β = {fit.b:.4e} s/B "
         f"({fit.name}); the startup sweep's candidates (policy, groups, predicted t_iter): "
         + ", ".join(f"{c.policy} {c.n_groups} {c.predicted_t_iter * 1e3:.3f} ms"
@@ -2367,8 +2511,8 @@ def phase_restart(device):
     from repro_torch.checkpoint import available_steps
     from repro_torch.fabric.ops import issue
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import launch_counts
-    from repro_torch.kernels.comm_pack import pack_arena, reset_counts, unpack_arena
+    from repro_torch.kernels import adamw_step, launch_counts
+    from repro_torch.kernels.comm_pack import pack_arena, unpack_arena
     from repro_torch.launch.train import run
     from repro_torch.runtime import compressed_psum_rs_ag, compressed_psum_rs_ag_ref
 
@@ -2388,8 +2532,7 @@ def phase_restart(device):
         for d in dirs.values():
             shutil.rmtree(d, ignore_errors=True)
         # every launch counter to 0 just before the main path, read just after
-        reset_counts()
-        fa.reset_counts()
+        reset_all_counts()
         issue.calls = 0
         plain = run(args + ["--ckpt-dir", str(dirs["plain"]), "--ckpt-every", "100"], quiet=True)
         for p in plain.model.parameters():
@@ -2400,7 +2543,7 @@ def phase_restart(device):
         totals["issue"] = issue.calls
         ref_calls = {fn.__name__: fn.ref_calls for fn in (
             pack_arena, unpack_arena, fa.flash_attention_fwd, fa.flash_attention_dq,
-            fa.flash_attention_dkv)}
+            fa.flash_attention_dkv, adamw_step)}
 
         if (plain.restarts, broken.restarts) != (0, 1) or fired != [4]:
             fail(f"phase 5: restarts {plain.restarts} / {broken.restarts}, expected 0 / 1")
@@ -2426,7 +2569,7 @@ def phase_restart(device):
                 if not torch.equal(x[n], y[n]):
                     fail(f"phase 5: {kind} {n} differs from the unbroken run's")
         want = {"flash_attention_fwd": 2 * N_LAYERS, "flash_attention_dq": N_LAYERS,
-                "flash_attention_dkv": N_LAYERS}
+                "flash_attention_dkv": N_LAYERS, "adamw_step": 1}
         for tag, res in (("unbroken", plain), ("broken", broken)):
             for i, g, got in zip(res.step_indices, res.step_groups, res.step_launches):
                 per = {"pack_arena": g, "unpack_arena": g, "issue": g, **want}
@@ -2451,7 +2594,7 @@ def phase_restart(device):
             f"step 3 too; restarts 0 / 1; one checkpoint, step_00000003 with plan.json; final "
             f"parameters, both AdamW moments, AdamW's step count ({b.opt_state.step}) and the "
             f"residual bitwise equal; every step, the replayed one included, pack = unpack = "
-            f"issue() = {groups}, flash fwd / dQ / dK-dV 44 / 22 / 22, 0 plain calls")
+            f"issue() = {groups}, flash fwd / dQ / dK-dV 44 / 22 / 22, AdamW 1, 0 plain calls")
         say(f"phase 5: checkpoint {ck_bytes} bytes on disk ({save['bytes']} of tensors); "
             f"synchronous snapshot to host {save['snapshot_s']:.3f} s, background write "
             f"{save['write_s']:.3f} s, restore {restore['seconds']:.3f} s; step 3's first run "
@@ -2556,9 +2699,9 @@ DECODE_WKV = (4, 1, 64, 64)  # 6c's decode step, one RWKV6 layer
 
 
 def reset_all_counts() -> None:
-    from repro_torch.kernels import comm_pack, flash_attention, rglru, rwkv6_wkv
+    from repro_torch.kernels import adamw, comm_pack, flash_attention, rglru, rwkv6_wkv
 
-    for mod in (comm_pack, flash_attention, rglru, rwkv6_wkv):
+    for mod in (adamw, comm_pack, flash_attention, rglru, rwkv6_wkv):
         mod.reset_counts()
 
 
@@ -4227,7 +4370,7 @@ def sim_cli_and_examples(device) -> dict:
     elastic examples on the card."""
     import os
 
-    from repro_torch.kernels import comm_pack, launch_counts
+    from repro_torch.kernels import adamw_step, comm_pack, launch_counts
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.sim import SimReport
 
@@ -4258,7 +4401,7 @@ def sim_cli_and_examples(device) -> dict:
         "--ckpt-dir", str(P9_EXAMPLES / "train")])
     plain = {fn.__name__: fn.ref_calls for fn in (
         comm_pack.pack_arena, comm_pack.unpack_arena, fa.flash_attention_fwd,
-        fa.flash_attention_dq, fa.flash_attention_dkv)}
+        fa.flash_attention_dq, fa.flash_attention_dkv, adamw_step)}
     totals = launch_counts()
     first, final, groups = train["first_loss"], train["final_loss"], train["groups"]
     if not (final < 0.7 * first) or len(train["step_launches"]) != 40:
@@ -4266,7 +4409,7 @@ def sim_cli_and_examples(device) -> dict:
              f"{len(train['step_launches'])} steps (must fall below 0.7x its start)")
     layers = 4  # reduced TinyLlama
     per = {"pack_arena": groups, "unpack_arena": groups, "flash_attention_fwd": 2 * layers,
-           "flash_attention_dq": layers, "flash_attention_dkv": layers}
+           "flash_attention_dq": layers, "flash_attention_dkv": layers, "adamw_step": 1}
     for i, got in enumerate(train["step_launches"]):
         if got != per:
             fail(f"phase 9d: torch_train_lm step {i}: launches {got}, want {per}")
@@ -4279,7 +4422,7 @@ def sim_cli_and_examples(device) -> dict:
         f"table; over the run: {totals['flash_attention_fwd']} / {totals['flash_attention_dq']} "
         f"/ {totals['flash_attention_dkv']}), 0 plain calls")
     res = {"pack_launches": totals["pack_arena"], "unpack_launches": totals["unpack_arena"],
-           "cli_s": cli_s, "train_s": train_s}
+           "adamw_launches": totals["adamw_step"], "cli_s": cli_s, "train_s": train_s}
 
     reset_all_counts()
     serve, res["serve_s"], printed = run_example("torch_serve_decode", ["--device", str(device)])
@@ -4676,6 +4819,7 @@ def main() -> None:
     t_start = time.perf_counter()
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
+    from repro_torch.kernels.adamw.ops import SOURCE as ADAMW_SOURCE
     from repro_torch.kernels.comm_pack.ops import SOURCE as PACK_SOURCE
     from repro_torch.kernels.flash_attention.ops import SM90_SOURCE as FLASH_SM90_SOURCE
     from repro_torch.kernels.flash_attention.ops import SOURCE as FLASH_SOURCE
@@ -4698,8 +4842,8 @@ def main() -> None:
     # one nvcc each, in parallel; the last is the WKV source with kStepMaxT 0 (the chunked
     # pair at every T: phase 6 times the parent's decode step with it)
     built = _build.build_many([PACK_SOURCE, FLASH_SOURCE, FLASH_SM90_SOURCE, RGLRU_SOURCE,
-                               WKV_SOURCE, wkv_compare.variant(0)])
-    say(f"build: all six libraries in {time.perf_counter() - t0:.1f} s")
+                               WKV_SOURCE, ADAMW_SOURCE, wkv_compare.variant(0)])
+    say(f"build: all seven libraries in {time.perf_counter() - t0:.1f} s")
     for src, (lib, log, secs) in built.items():
         say(f"build: {lib.name} ({secs:.1f} s)" + ("" if log else " (already built)"))
         report_ptxas(log)
@@ -4719,6 +4863,8 @@ def main() -> None:
     took("phases 1-1d")
     new_flash = phase_new_flash(device)
     took("phase 1e")
+    p1f = phase_adamw(device)
+    took("phase 1f")
     phase_reduced_model(device)
     phase_reduced_model(device, "recurrentgemma-9b", seq=128, tag="phase 2b")
     phase_reduced_model(device, "rwkv6-7b", seq=64, tag="phase 2c")
@@ -4844,6 +4990,17 @@ def main() -> None:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    # the AdamW step has no Pallas kernel: it stands in for XLA's fusion of the JAX update.
+    # Launches: phase 1f's, and phases 4's, 5's and 9d's training steps
+    kernels.append({
+        "name": "adamw.step", "kernel": "adamw_kernel", "route": "cuda", "source": ADAMW_SRC,
+        "replaces": "src/repro/optim/optimizers.py:81",
+        "launches": (p1f["launches"] + p4_counts["adamw_step"] + p5_counts["adamw_step"]
+                     + p9["adamw_launches"]),
+        **{k: p1f[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                               "host_ms")},
+        "bound_by": "bytes", "library_ms": None,
+    })
     # the serving path (phase 6's CUDA-graph runs): B3 in each prefill, B6 and
     # B7 in each prefill and decode step, each timed in that mode.  The wrappers
     # count the prefills and the capture's recording; a replay's launches are

@@ -15,6 +15,8 @@ from typing import Callable, Mapping
 
 import torch
 
+from ..kernels.adamw import adamw_step
+
 Tensors = Mapping[str, torch.Tensor]
 
 
@@ -92,20 +94,19 @@ def adamw_update(
     weight_decay: float = 0.1,
 ) -> OptState:
     """One AdamW step, in place (bias-corrected moments, decoupled weight
-    decay, the update computed in f32 and cast to the parameter dtype)."""
+    decay, the update computed in f32 and cast to the parameter dtype).
+
+    Parameters on the card take the multi-tensor kernel, one pass over all
+    leaves, which gives the plain loop's bits there, its leaf table kept
+    with ``state``; the others take the plain loop (``kernels.adamw``)."""
     state.step += 1
     t = torch.tensor(float(state.step), dtype=torch.float32)
     bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
     bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t)
-    for n, p in params.items():
-        g = grads[n].float()
-        m, v = state.m[n], state.v[n]
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g))
-        mh = m / bc1
-        vh = v / bc2
-        step_val = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
-        p.copy_((p.float() - lr * step_val).to(p.dtype))
+    names = list(params)
+    adamw_step(list(params.values()), list(map(grads.__getitem__, names)),
+               list(map(state.m.__getitem__, names)), list(map(state.v.__getitem__, names)),
+               lr, b1, b2, eps, weight_decay, bc1, bc2, owner=state)
     return state
 
 
